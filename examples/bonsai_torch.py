@@ -1,0 +1,50 @@
+#!/usr/bin/env python
+"""Bonsai demo on the PyTorch + CUDA port (vokselis_torch): raymarch the
+256^3 CT volume with the hand-written march kernel.
+
+Same command line as examples/bonsai.py. Runs on the CUDA card; ``--cpu``
+runs the kernel's plain torch version on the CPU instead.
+"""
+
+from common import make_parser, orbit_events
+
+
+def main():
+    parser = make_parser("bonsai")
+    parser.add_argument(
+        "--fast", action="store_true",
+        help="shear-warp renderer (not ported to vokselis_torch yet)",
+    )
+    args = parser.parse_args()
+    from vokselis_torch.engine.loop import run
+    from vokselis_torch.models.bonsai import BonsaiDemo
+
+    demo_cls = BonsaiDemo
+    if args.fast:
+        class demo_cls(BonsaiDemo):  # noqa: N801 - init-arg shim for run()
+            @classmethod
+            def init(cls, ctx):
+                return BonsaiDemo.init(ctx, renderer="fast")
+
+    camera = BonsaiDemo.default_camera(args.width / args.height)
+    events = orbit_events(args.frames, args.width, args.height) if args.orbit else None
+    ctx = run(
+        demo_cls,
+        width=args.width,
+        height=args.height,
+        camera=camera,
+        frames=args.frames,
+        events=events,
+        watch=args.watch,
+        device="cpu" if args.cpu else "cuda",
+    )
+    if args.out:
+        from vokselis_torch.media.png import write_png
+        from vokselis_torch.ops.present import to_uint8
+
+        write_png(args.out, to_uint8(ctx.display_image).cpu().numpy())
+        print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

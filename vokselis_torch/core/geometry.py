@@ -1,0 +1,122 @@
+"""Ray generation and ray-AABB intersection (plain float32 torch, any shape).
+
+Reference sources:
+- slab test vs [0,1]^3: shaders/raycast_naive.wgsl:50-61
+- fragment-path ray gen (perspective-correct interpolation of cube-surface
+  position minus eye — equivalent to unprojecting through pixel centers):
+  shaders/raycast_naive.wgsl:40-48
+
+Tensors are created on the device of the camera uniform they derive from.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def intersect_box(orig, direction, box_min, box_max):
+    """Slab test. Returns (t0, t1); hit iff t0 <= t1 (reference tests t0 > t1
+    as the miss condition). ``orig``/``direction``: (..., 3)."""
+    inv_dir = 1.0 / direction
+    tmin_tmp = (box_min - orig) * inv_dir
+    tmax_tmp = (box_max - orig) * inv_dir
+    tmin = torch.minimum(tmin_tmp, tmax_tmp)
+    tmax = torch.maximum(tmin_tmp, tmax_tmp)
+    t0 = torch.amax(tmin, dim=-1)
+    t1 = torch.amin(tmax, dim=-1)
+    return t0, t1
+
+
+def intersect_box_unit(orig, direction):
+    """[0,1]^3 box (bonsai path, shaders/raycast_naive.wgsl:50-61)."""
+    return intersect_box(orig, direction, 0.0, 1.0)
+
+
+def pixel_centers(width: int, height: int, device, dtype=torch.float32):
+    """Framebuffer-space coordinates of pixel centers: (H, W) each of x, y."""
+    xs = (torch.arange(width, dtype=dtype, device=device) + 0.5)[None, :]
+    ys = (torch.arange(height, dtype=dtype, device=device) + 0.5)[:, None]
+    return xs.expand(height, width), ys.expand(height, width)
+
+
+def mat4_apply(m, x, y, z, w=1.0):
+    """Apply a row-major 4x4 to a homogeneous point with explicit f32
+    arithmetic, never a matmul: a reduced-precision product (TF32 on the
+    card) destroys the tiny clip-space w of far-plane points.
+
+    Returns four tensors (X, Y, Z, W) broadcast over the inputs.
+    """
+    return [m[i, 0] * x + m[i, 1] * y + m[i, 2] * z + m[i, 3] * w
+            for i in range(4)]
+
+
+def unproject(inv_proj, ndc_x, ndc_y, ndc_z: float):
+    """Apply the inverse proj*view matrix to an NDC point, divide by w.
+
+    ``ndc_*`` broadcastable tensors; returns (..., 3) world-space points.
+    """
+    z = torch.tensor(ndc_z, dtype=torch.float32, device=inv_proj.device)
+    x, y, z, w = mat4_apply(inv_proj, ndc_x, ndc_y, z)
+    return torch.stack([x / w, y / w, z / w], dim=-1)
+
+
+def _ndc(width: int, height: int, device):
+    px, py = pixel_centers(width, height, device)
+    return 2.0 * px / width - 1.0, 1.0 - 2.0 * py / height
+
+
+def rays_fragment(camera_uniform, width: int, height: int):
+    """Bonsai-style rays: one per pixel center, through the camera.
+
+    The reference rasterizes the unit cube and interpolates
+    ``ray_dir = surface_pos - eye`` perspective-correct across the fragment
+    (shaders/raycast_naive.wgsl:40-48), which is exactly the ray through the
+    pixel center. wgpu NDC: x right in [-1,1], y up in [-1,1]; pixel (i, j)
+    center maps to ndc (2*(i+.5)/W - 1, 1 - 2*(j+.5)/H).
+
+    Returns (eye (3,), dirs (H, W, 3) normalized).
+    """
+    inv = camera_uniform.inv_proj
+    ndc_x, ndc_y = _ndc(width, height, inv.device)
+    eye = camera_uniform.view_position[:3]
+    # any point along the view ray: unproject at two depths, direction is
+    # their difference (projective depths 0 = near, 1 = far in wgpu).
+    p_near = unproject(inv, ndc_x, ndc_y, 0.0)
+    p_far = unproject(inv, ndc_x, ndc_y, 1.0)
+    d = p_far - p_near
+    d = d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
+    return eye, d
+
+
+def rays_fragment_soa(camera_uniform, width: int, height: int):
+    """SoA variant of :func:`rays_fragment` — the form the march kernel
+    reads: returns (eye (3,), (dx, dy, dz) each (H, W))."""
+    inv = camera_uniform.inv_proj
+    ndc_x, ndc_y = _ndc(width, height, inv.device)
+    zero = torch.tensor(0.0, dtype=torch.float32, device=inv.device)
+    one = torch.tensor(1.0, dtype=torch.float32, device=inv.device)
+    nx, ny, nz, nw = mat4_apply(inv, ndc_x, ndc_y, zero)
+    fx, fy, fz, fw = mat4_apply(inv, ndc_x, ndc_y, one)
+    dx = fx / fw - nx / nw
+    dy = fy / fw - ny / nw
+    dz = fz / fw - nz / nw
+    inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    return camera_uniform.view_position[:3], (dx * inv_len, dy * inv_len,
+                                              dz * inv_len)
+
+
+def intersect_box_soa(ex, ey, ez, dx, dy, dz, box_min: float, box_max: float):
+    """SoA slab test; returns (t0, t1) tensors."""
+    ix, iy, iz = 1.0 / dx, 1.0 / dy, 1.0 / dz
+    ax0, ax1 = (box_min - ex) * ix, (box_max - ex) * ix
+    ay0, ay1 = (box_min - ey) * iy, (box_max - ey) * iy
+    az0, az1 = (box_min - ez) * iz, (box_max - ez) * iz
+    t0 = torch.maximum(
+        torch.minimum(ax0, ax1),
+        torch.maximum(torch.minimum(ay0, ay1), torch.minimum(az0, az1)),
+    )
+    t1 = torch.minimum(
+        torch.maximum(ax0, ax1),
+        torch.minimum(torch.maximum(ay0, ay1), torch.maximum(az0, az1)),
+    )
+    return t0, t1

@@ -1,0 +1,167 @@
+"""Render context: device handle, framebuffers, per-frame state, present.
+
+Rebuilds the reference's Context (src/context.rs:38-359) for PyTorch:
+
+- the wgpu instance/adapter/device/queue becomes a ``torch.device`` given
+  by the caller (``renderer_info`` mirrors the RendererInfo startup banner,
+  context.rs:183-223);
+- the HDR backbuffer is a fixed-resolution f32 framebuffer tensor on that
+  device (HdrBackBuffer, src/context/hdr_backbuffer.rs:10-11 — default
+  1280x720 regardless of window size, faithfully kept);
+- ``update()`` refreshes the global uniform (time/dt/frame/resolution +
+  input, context.rs:225-236) and the camera uniform when dirty
+  (camera.rs:62-71);
+- ``render()`` is the present pass: ACES + sRGB into the window-sized
+  display image AND the rgb capture image — one op returning identical
+  bytes for both targets (context.rs:251-297);
+- ``capture_frame()`` is the screenshot path: uint8 quantize + host copy
+  (src/context/screenshot.rs:37-77 — no 256-byte row padding needed here,
+  but ImageDimensions keeps the even-dimension rule for encoders).
+
+Shader hot reload (the JAX package's ``KernelCompiler`` and ``Watcher``) is
+not ported yet: ``watch=True`` raises.
+"""
+
+from __future__ import annotations
+
+import time as _time
+
+import numpy as np
+import torch
+
+from vokselis_torch.core.camera import Camera, CameraUniform
+from vokselis_torch.core.config import DEFAULT_RESOLUTION, EngineConfig
+from vokselis_torch.core.uniforms import GlobalUniform
+from vokselis_torch.engine.input import Input
+from vokselis_torch.ops.present import present, to_uint8
+from vokselis_torch.utils.misc import ImageDimensions
+
+
+class HdrBackBuffer:
+    """Offscreen HDR render target (src/context/hdr_backbuffer.rs).
+
+    Fixed default resolution 1280x720 independent of window size
+    (hdr_backbuffer.rs:10-11); stored f32 (the Rgba16Float analog — we render
+    f32 and let capture quantize, SURVEY.md §7 'f16 accumulation')."""
+
+    DEFAULT_RESOLUTION = DEFAULT_RESOLUTION
+
+    def __init__(self, device, resolution=DEFAULT_RESOLUTION):
+        self.width, self.height = resolution
+        self.texture = torch.zeros((self.height, self.width, 4),
+                                   dtype=torch.float32, device=device)
+
+    @property
+    def resolution(self):
+        return (self.width, self.height)
+
+    def store(self, img):
+        if img.shape != self.texture.shape or img.device != self.texture.device:
+            raise ValueError(
+                f"demo rendered {tuple(img.shape)} on {img.device}, backbuffer "
+                f"is {tuple(self.texture.shape)} on {self.texture.device}"
+            )
+        self.texture = img
+
+
+def renderer_info(device) -> str:
+    """Startup banner (RendererInfo, src/context.rs:183-223,319-337)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        name = torch.cuda.get_device_name(device)
+        count = torch.cuda.device_count()
+    else:
+        name, count = device.type, 1
+    lines = [
+        "Renderer information:",
+        f"\tVendor name: {name}",
+        f"\tDevice: {device}",
+        f"\tBackend: torch {torch.__version__}"
+        + (f", CUDA {torch.version.cuda}" if device.type == "cuda" else ""),
+        f"\tDevices on host: {count}",
+    ]
+    return "\n".join(lines)
+
+
+class Context:
+    """Owns device-facing state and the per-frame update/present cycle.
+
+    ``device`` (required) is where every frame tensor lives: "cuda" runs the
+    hand-written kernels, "cpu" their plain versions."""
+
+    def __init__(
+        self,
+        width: int = DEFAULT_RESOLUTION[0],
+        height: int = DEFAULT_RESOLUTION[1],
+        camera: Camera | None = None,
+        config: EngineConfig | None = None,
+        backbuffer_resolution=None,
+        watch: bool = False,
+        *,
+        device,
+    ):
+        if watch:
+            raise NotImplementedError(
+                "watch=True: shader hot reload is not ported to vokselis_torch "
+                "yet (ROADMAP.md queue 1, item 9)"
+            )
+        self.device = torch.device(device)
+        self.config = config or EngineConfig()
+        self.width, self.height = width, height
+        # default camera pose: src/context.rs:124-132
+        self.camera = camera or Camera.default(aspect=width / height)
+        self.camera_uniform: CameraUniform = self.camera.uniform(self.device)
+        self.global_uniform = GlobalUniform.default(self.device)
+        self.render_backbuffer = HdrBackBuffer(
+            self.device, backbuffer_resolution or HdrBackBuffer.DEFAULT_RESOLUTION
+        )
+        self.display_image = None  # last presented frame (window-sized)
+        self.input = Input()
+        self.dims = ImageDimensions.new(width, height)
+        self._start_time = _time.perf_counter()
+        self.frame = 0
+
+    # --- per-frame state (context.rs:225-236) ----------------------------
+    def update(self, time_delta: float | None = None, time: float | None = None):
+        if time is None:
+            time = _time.perf_counter() - self._start_time
+        if time_delta is None:
+            time_delta = 1.0 / 60.0
+        self.global_uniform = self.global_uniform.with_(
+            time=time,
+            time_delta=time_delta,
+            frame=self.frame,
+            resolution=(float(self.render_backbuffer.width),
+                        float(self.render_backbuffer.height)),
+        )
+        self.global_uniform = self.input.process_position(self.global_uniform)
+        if self.camera.updated:
+            self.camera_uniform = self.camera.uniform(self.device)
+            self.camera.updated = False
+        self.frame += 1
+
+    # --- resize (context.rs:238-249): window resizes; backbuffer doesn't --
+    def resize(self, width: int, height: int):
+        self.width, self.height = width, height
+        self.dims = ImageDimensions.new(width, height)
+        self.camera.set_aspect(width, height)
+
+    # --- present pass (context.rs:251-297) --------------------------------
+    def render(self):
+        """Tonemap the backbuffer to the window-sized display image; the
+        same bytes serve the capture target. Returns the display image."""
+        self.display_image = present(
+            self.render_backbuffer.texture,
+            out_height=self.height,
+            out_width=self.width,
+        )
+        return self.display_image
+
+    # --- capture (context.rs:299-302 + screenshot.rs:37-77) --------------
+    def capture_frame(self) -> np.ndarray:
+        """Blocking device->host readback of the last presented frame as
+        uint8 RGBA rows (even-dimension cropped for encoders)."""
+        if self.display_image is None:
+            self.render()
+        frame = to_uint8(self.display_image).cpu().numpy()
+        return frame[: self.dims.height, : self.dims.width]
