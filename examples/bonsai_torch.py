@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Bonsai demo on the PyTorch + CUDA port (vokselis_torch): raymarch the
-256^3 CT volume with the hand-written march kernel.
+256^3 CT volume with the hand-written march kernel, or (``--fast``) render
+it with the shear-warp kernels.
 
 Same command line as examples/bonsai.py. Runs on the CUDA card; ``--cpu``
-runs the kernel's plain torch version on the CPU instead.
+runs the kernels' plain torch versions on the CPU instead.
 """
 
 from common import make_parser, orbit_events
@@ -13,7 +14,7 @@ def main():
     parser = make_parser("bonsai")
     parser.add_argument(
         "--fast", action="store_true",
-        help="shear-warp renderer (not ported to vokselis_torch yet)",
+        help="shear-warp renderer (approximate, intermediate I=512)",
     )
     args = parser.parse_args()
     from vokselis_torch.engine.loop import run

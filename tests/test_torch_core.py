@@ -214,7 +214,9 @@ def test_import_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import vokselis_torch, vokselis_torch.models.bonsai, "
-        "vokselis_torch.engine.loop, vokselis_torch.ops.cuda.march_bonsai\n"
+        "vokselis_torch.engine.loop, vokselis_torch.ops.cuda.march_bonsai, "
+        "vokselis_torch.ops.shear_warp, vokselis_torch.ops.cuda.shear_resample, "
+        "vokselis_torch.ops.cuda.warp2d\n"
         "bad = [m for m in sys.modules if m.startswith(('vokselis_tpu', 'jax'))"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

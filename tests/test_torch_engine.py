@@ -119,7 +119,7 @@ def test_watch_not_ported():
         run(BonsaiDemo, frames=1, watch=True, device="cpu")
 
 
-@pytest.mark.parametrize("renderer,item", [("fast", "item 5"), ("hybrid", "item 6")])
+@pytest.mark.parametrize("renderer,item", [("hybrid", "item 6")])
 def test_other_renderers_not_ported(renderer, item):
     ctx = Context(width=8, height=8, device="cpu")
     with pytest.raises(NotImplementedError, match=item):

@@ -102,6 +102,23 @@ def test_cpu_path_is_the_plain_version():
     torch.testing.assert_close(img, ref, rtol=0, atol=0)
 
 
+def test_plain_march_counts_steps():
+    """return_steps counts the samples each ray takes (the march kernel's
+    work) without changing the image: 0 for misses, at most max_steps."""
+    vol = torch.from_numpy(get_bonsai(32))
+    eye, dxyz = _rays(Camera(aspect=1.0, **POSES["diagonal"]), 24, 16, "cpu")
+    dirs = torch.stack(dxyz, dim=-1)
+    img = reference.render_bonsai_rays(vol, eye, dirs, max_steps=64)
+    img2, steps = reference.render_bonsai_rays(vol, eye, dirs, max_steps=64,
+                                               return_steps=True)
+    torch.testing.assert_close(img2, img, rtol=0, atol=0)
+    t0, t1 = geometry.intersect_box_unit(eye.expand(16, 24, 3), dirs)
+    hit = t0 <= t1
+    assert steps.shape == (16, 24) and steps.dtype == torch.int32
+    assert int(steps[~hit].abs().sum()) == 0
+    assert int(steps[hit].min()) > 0 and int(steps.max()) <= 64
+
+
 def test_build_renderer_api():
     vol = get_bonsai(32)
     u = Camera(aspect=1.0, **POSES["bench"]).uniform("cpu")

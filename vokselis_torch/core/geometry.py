@@ -120,3 +120,39 @@ def intersect_box_soa(ex, ey, ez, dx, dy, dz, box_min: float, box_max: float):
         torch.minimum(torch.maximum(ay0, ay1), torch.maximum(az0, az1)),
     )
     return t0, t1
+
+
+def packed_pixel_grid(width: int, height: int, device):
+    """Integer pixel coordinates of the FULL frame in the JAX package's
+    packed (n_tiles*8, 128) tile layout (packed element (s, l) of tile s//8
+    is image row (s%8)*4 + l//32, col l%32 of that 32x32 tile). Frames
+    padded to the 32-multiple grid include out-of-frame pixels — callers
+    must mask ``(ix < width) & (iy < height)``.
+
+    Returns (ix, iy) int32, each (cdiv(H,32)*cdiv(W,32)*8, 128)."""
+    ny = -(-height // 32)
+    nx = -(-width // 32)
+    s = torch.arange(ny * nx * 8, dtype=torch.int32, device=device)
+    lane = torch.arange(128, dtype=torch.int32, device=device)
+    tile = s // 8
+    iy = (tile // nx * 32 + (s % 8) * 4)[:, None] + (lane // 32)[None, :]
+    ix = (tile % nx * 32)[:, None] + (lane % 32)[None, :]
+    return ix, iy
+
+
+def center_ray_dir(camera_uniform, width: int, height: int):
+    """Normalized fragment-path ray direction through the CENTER pixel
+    (row H//2, col W//2) — the single ray the fast renderer's dominant-axis
+    pick needs, without materializing the (H, W) frame. The NDC constants
+    are Python floats (rounded to float32 where they meet the matrix), so
+    no scalar is uploaded to the device. Returns a (3,) f32 vector."""
+    ndc_x = 2.0 * ((width // 2) + 0.5) / width - 1.0
+    ndc_y = 1.0 - 2.0 * ((height // 2) + 0.5) / height
+    inv = camera_uniform.inv_proj
+    nx, ny, nz, nw = mat4_apply(inv, ndc_x, ndc_y, 0.0)
+    fx, fy, fz, fw = mat4_apply(inv, ndc_x, ndc_y, 1.0)
+    dx = fx / fw - nx / nw
+    dy = fy / fw - ny / nw
+    dz = fz / fw - nz / nw
+    inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    return torch.stack([dx * inv_len, dy * inv_len, dz * inv_len])

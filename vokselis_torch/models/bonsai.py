@@ -1,11 +1,12 @@
 """Bonsai demo: fragment-raymarch of the 256^3 uint8 CT volume
 (examples/bonsai/main.rs:10-76).
 
-Renders with the hand-written march kernel on a CUDA context and with its
-plain version on a CPU context (the choice follows ``ctx.device``). The
-raymarch output already applies linear_to_srgb (raycast_naive.wgsl:121-124);
-the present pass then tonemaps on top, exactly like the reference's
-two-stage chain.
+Renders with the hand-written kernels on a CUDA context and with their
+plain versions on a CPU context (the choice follows ``ctx.device``):
+``renderer="exact"`` is the march kernel, ``renderer="fast"`` the shear-warp
+approximation (resample, composite and warp kernels). The render output
+already applies linear_to_srgb (raycast_naive.wgsl:121-124); the present
+pass then tonemaps on top, exactly like the reference's two-stage chain.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 from vokselis_torch.core.camera import Camera
 from vokselis_torch.engine.demo import Demo
 from vokselis_torch.ops.cuda.march_bonsai import BonsaiRenderer
+from vokselis_torch.ops.shear_warp import FastBonsaiRenderer
 from vokselis_torch.volume.io import get_bonsai
 
 
@@ -23,22 +25,19 @@ class BonsaiDemo(Demo):
 
     @classmethod
     def init(cls, ctx, renderer: str = "exact"):
-        """``renderer``: "exact" (the oracle-parity march kernel). The JAX
-        package's "fast" and "hybrid" renderers are not ported yet."""
-        if renderer == "fast":
-            raise NotImplementedError(
-                'renderer="fast" (shear-warp) is not ported to vokselis_torch '
-                "yet (ROADMAP.md queue 1, item 5)"
-            )
+        """``renderer``: "exact" (the oracle-parity march kernel) or "fast"
+        (the shear-warp approximation at intermediate I=512). The JAX
+        package's "hybrid" renderer is not ported yet."""
         if renderer == "hybrid":
             raise NotImplementedError(
                 'renderer="hybrid" is not ported to vokselis_torch yet '
                 "(ROADMAP.md queue 1, item 6)"
             )
-        if renderer != "exact":
+        if renderer not in ("exact", "fast"):
             raise ValueError(f"unknown renderer {renderer!r}")
         vol = get_bonsai()
-        return cls(BonsaiRenderer(vol, ctx.device), vol)
+        cls_r = FastBonsaiRenderer if renderer == "fast" else BonsaiRenderer
+        return cls(cls_r(vol, ctx.device), vol)
 
     @staticmethod
     def default_camera(aspect: float) -> Camera:

@@ -18,27 +18,16 @@ nowhere else), so that a run can show its frames went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from vokselis_torch.core import geometry
 from vokselis_torch.ops import reference
+from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "march_bonsai.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "vokselis_torch"
-# --fmad=false: the kernel repeats the oracle's float32 operations one by one;
-# a contracted a*b+c would round differently from the oracle's two steps
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = CSRC / "march_bonsai.cu"
 
 LAUNCHES = 0
 # compiler output of this process's build (ptxas register / spill report);
@@ -47,45 +36,15 @@ BUILD_LOG = ""
 _lib = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (cuda_home and os.path.join(cuda_home, "bin", "nvcc"),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the march kernel "
-                       "cannot be built")
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source and flag set) and load the kernel library."""
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
-    tag = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = BUILD_DIR / f"libmarch_bonsai_{tag}.so"
-    if not so.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        BUILD_LOG = proc.stdout + proc.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, BUILD_LOG = load_library(SOURCE, NVCC_FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vk_march_bonsai.argtypes = [p, i, p, p, p, p, i, i, i, i, p, i, p]
     lib.vk_march_bonsai.restype = i
-    lib.vk_cuda_error_string.argtypes = [i]
-    lib.vk_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
 
@@ -145,9 +104,7 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
         out.data_ptr(), vol.device.index,
         torch.cuda.current_stream(vol.device).cuda_stream,
     )
-    if err != 0:
-        msg = lib.vk_cuda_error_string(err).decode()
-        raise RuntimeError(f"march_bonsai launch failed: cudaError {err} ({msg})")
+    check_launch(lib, err, "march_bonsai")
     LAUNCHES += 1
     return out
 

@@ -75,10 +75,13 @@ def render_bonsai_rays(
     max_steps: int = MAX_STEPS_BONSAI,
     dt_scale: float = 1.0,
     srgb: bool = True,
+    return_steps: bool = False,
 ):
     """March an arbitrary (H, W, 3) ray set with the bonsai semantics —
     the single implementation shared by :func:`render_bonsai` and the
-    march kernel's wrapper on CPU tensors."""
+    march kernel's wrapper on CPU tensors. With ``return_steps`` also
+    returns the (H, W) int32 count of samples each ray took (the work the
+    march kernel does for these rays)."""
     height, width = dirs.shape[:2]
     npix = width * height
     d = dirs.reshape(npix, 3)
@@ -96,10 +99,13 @@ def render_bonsai_rays(
     rgb = torch.zeros((npix, 3), dtype=torch.float32, device=d.device)
     a = torch.zeros((npix,), dtype=torch.float32, device=d.device)
     t = t_start
+    steps = torch.zeros((npix,), dtype=torch.int32, device=d.device) if return_steps else None
     for i in range(max_steps):
         active = hit & (t < t1) & (a < 0.95)
         if i % _ACTIVE_CHECK_EVERY == 0 and not bool(active.any()):
             break
+        if return_steps:
+            steps += active
         r = sample_trilinear_r8(vol, p)
         c_rgb, c_a = _bonsai_transfer(r)
         # front-to-back under-compositing (:110-114); the background-bleed
@@ -116,4 +122,7 @@ def render_bonsai_rays(
         rgb = linear_to_srgb(rgb)
     out = torch.cat([rgb, torch.ones((npix, 1), dtype=torch.float32,
                                      device=d.device)], dim=-1)
-    return out.reshape(height, width, 4)
+    out = out.reshape(height, width, 4)
+    if return_steps:
+        return out, steps.reshape(height, width)
+    return out
