@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases, each reported on its own lines:
   1. device: the card, as nvidia-smi names it, with its power limit;
   2. build: compile every kernel from vokselis_torch/csrc with nvcc, one
-     nvcc per source, all started together: K1 (march_bonsai.cu), K3 + K4
-     (shear_resample.cu) and K6 (warp2d.cu); ptxas registers and spills;
+     nvcc per source, all started together: K1 + K2 (march_bonsai.cu), K3 +
+     K4 (shear_resample.cu) and K6 + K5 (warp2d.cu); ptxas registers and
+     spills;
   3. K1 against its plain torch version on the card, at 1024x1024 on the
      256^3 bonsai (bench, eye-inside and diagonal poses) and on a random
      256^3 volume with full borders: finite, max |d| < 1e-3 and
@@ -19,6 +20,11 @@ Phases, each reported on its own lines:
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
      directions: K3 within one bf16 ulp of the value and mean <= 1e-6, K4
      and K4b max <= 1e-4, K6 max <= 1e-6;
+  3c. K5 (the stats warp) against its plain version at the bench pose's
+     fast geometry, I=512 and I=1024: rgb bitwise, STAT_OVF/EXT/PEAK exact,
+     STAT_CURV/EDGE within 1e-5 relative; K2 (the tile re-march) and K1b (its
+     compact mode) at 1024^2 over single tiles and tile pairs with parked
+     ids, both transfer modes: bitwise, and every other pixel unchanged;
   4. the exact main path: engine.loop.run(BonsaiDemo) for 8 frames at
      1024x1024 on "cuda", which must launch K1 once per frame (and no fast
      kernel) and end in a finite, non-background frame that agrees with the
@@ -30,10 +36,20 @@ Phases, each reported on its own lines:
   4c. the fast frame (I=512) against the port's exact K1 frame at four
      poses: mean |d| over rgba within 1.25x of the JAX package's measured
      fast-mode error (PARITY_REPORT.md:60-63);
+  4d. the hybrid main path: run(BonsaiDemo with renderer="hybrid", I=512,
+     budget 128) for 8 frames at 1024x1024 at the bench pose, which the pose
+     classification renders hybrid: K3, K4, K5 and K2 once per frame, K6 and
+     K1 never; its last frame against the plain hybrid path (selected ids
+     that differ, max on the tiles both selected);
+  4e. the hybrid at the reference's operating point (I=1024, budget 64)
+     against the port's K1 frame: the bench pose and the 72-pose sweep
+     (vokselis_torch/tools/hybrid_sweep.py), every pose's mean |d| over rgb
+     <= 1e-3, the hybrid's contract;
   5. timing with CUDA events: median ms of each kernel and of its plain
-     version at the bench pose, the frames' other stages, whole exact and
-     fast frames, and one PyTorch call computing each of K3's and K6's
-     functions (grid_sample) as a yardstick.
+     version at the bench pose, the frames' other stages, whole exact, fast
+     and hybrid frames (the hybrid's stages at I=512/budget 128 and
+     I=1024/budget 64), and one PyTorch call computing each of K3's, K6's
+     and K5's warps (grid_sample) as a yardstick.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and ``{"ok": true, "device": {...}}``. Any failed check or
@@ -61,6 +77,9 @@ II = 512  # FastBonsaiRenderer's default intermediate
 II_HYBRID = 1024  # the hybrid's operating point (OPPOINT.json)
 K4_TOL = 1e-4  # tests/test_pallas.py:394, tests/test_fast.py:165
 K6_TOL = 1e-6
+STATS_RTOL = 1e-5  # K5's sums: another summation order than torch.sum
+HYBRID_CONTRACT = 1e-3  # per-pose mean |hybrid - exact| over rgb (ROADMAP north star)
+BUDGET_OP = 64  # the hybrid's operating point with II_HYBRID (OPPOINT.json)
 # K4's 1e-4 through sRGB's steepest slope (12.92): the fast frame vs plain
 FAST_FRAME_TOL = 2e-3
 # PARITY_REPORT.md:60-63, I=512 fast frame vs the exact kernel at 1024^2
@@ -77,8 +96,13 @@ F32_FLOPS = 67e12
 OPS_K1_STEP = 86  # march_bonsai.cu: 41 trilinear + 27 transfer + 11 composite + 7 advance
 OPS_K3_TEXEL = 13  # shear_resample.cu: 2 floors, 2 fractions, 3 lerps
 OPS_K4_SAMPLE = 73  # low-degree: 9 smoothstep, 2 + 48 palette, 5 alpha, 9 composite
+OPS_K4B_SAMPLE = 41  # exact: 9 smoothstep, 3 x 6 palette (one cosf), 5 alpha, 9 composite
 OPS_K6_PIXEL = 8  # warp2d.cu: 4 clamps, 2 floors, 2 fractions ...
 OPS_K6_CHANNEL = 9  # ... and 3 lerps per channel
+# K2 with the polynomial palette: 41 trilinear + 9 smoothstep + 2 + 80 Horner
+# palette + 11 composite + 7 advance
+OPS_K2_STEP = 150
+OPS_K5_PIXEL = 20  # warp2d.cu: lum 4, log/exp 3, slope 3, sRGB lum 2, curv 2, edge 5, peak 1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -200,22 +224,26 @@ def main() -> int:
     from vokselis_torch.engine.loop import run
     from vokselis_torch.media.png import write_png
     from vokselis_torch.models.bonsai import BonsaiDemo
+    from vokselis_torch.ops import hybrid as hy
     from vokselis_torch.ops import reference, shear_warp
     from vokselis_torch.ops.cuda import build as kbuild
     from vokselis_torch.ops.cuda import march_bonsai as mb
     from vokselis_torch.ops.cuda import shear_resample as sr
     from vokselis_torch.ops.cuda import warp2d as w2
     from vokselis_torch.ops.present import present, to_uint8
+    from vokselis_torch.tools import hybrid_sweep
     from vokselis_torch.volume.io import get_bonsai
 
     import numpy as np
 
     def reset_launches():
         mb.LAUNCHES = sr.LAUNCHES_RESAMPLE = sr.LAUNCHES_COMPOSITE = w2.LAUNCHES_WARP = 0
+        mb.LAUNCHES_TILES = w2.LAUNCHES_STATS = 0
 
     def launches():
         return {"K1": mb.LAUNCHES, "K3": sr.LAUNCHES_RESAMPLE,
-                "K4": sr.LAUNCHES_COMPOSITE, "K6": w2.LAUNCHES_WARP}
+                "K4": sr.LAUNCHES_COMPOSITE, "K6": w2.LAUNCHES_WARP,
+                "K5": w2.LAUNCHES_STATS, "K2": mb.LAUNCHES_TILES}
 
     # -- phase 1: device --------------------------------------------------
     card = card_line()
@@ -226,7 +254,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # -- phase 2: build (one nvcc per source, all started together) -------
-    modules = {"K1": mb, "K3+K4": sr, "K6": w2}
+    modules = {"K1+K2": mb, "K3+K4": sr, "K6+K5": w2}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         for fut in [pool.submit(m.build) for m in modules.values()]:
@@ -255,7 +283,7 @@ def main() -> int:
         ("border256/bench", vol_border, bench),
         ("border256/diagonal", vol_border, diagonal),
     ]
-    worst = {"K1": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0}
+    worst = {"K1": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0, "K5": 0.0, "K2": 0.0}
     for name, vol, cam in cases:
         eye, dxyz = geometry.rays_fragment_soa(cam.uniform(dev), RES, RES)
         before = mb.LAUNCHES
@@ -324,7 +352,79 @@ def main() -> int:
             geo_b, stack_b, planes_b, ok_b = geo, stack, planes, ok
             _, k4_count = sr.composite_plain(stack, geo.sgn, geo.irho, geo.occ_rb,
                                              return_count=True)
+            _, k4b_count = sr.composite_plain(stack, geo.sgn, geo.irho, geo.occ_rb, "exact",
+                                              return_count=True)
         del stack, stack_p
+
+    # -- phase 3c: K5 and K2 (with K1b) against their plain versions -------
+    def stats_inputs(ii):
+        """K5's inputs at the bench pose: the composited intermediate's r, g,
+        b and curvature, the warp coordinates, ok and box masks."""
+        geo = shear_warp.fast_geometry(packs, bench_u, RES, RES, ii)
+        planes = sr.composite(sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v,
+                                                geo.occ_k), geo.sgn, geo.irho, geo.occ_rb)
+        av, bu, ok = shear_warp.warp_coords(geo, ii, ii)
+        chans = torch.cat([planes[:3], shear_warp.curvature(planes)[None]])
+        return chans, av, bu, ok, geo.hit
+
+    ny = nx = RES // 32
+    for ii in (II, II_HYBRID):
+        k5_in = stats_inputs(ii)
+        rgb5, st5 = w2.warp_stats(*k5_in)
+        rgb5_p, st5_p = w2.warp_stats_plain(*k5_in)
+        torch.cuda.synchronize()
+        d_rgb = float((rgb5 - rgb5_p).abs().max())
+        exact_cols = all(torch.equal(st5[:, c], st5_p[:, c])
+                         for c in (w2.STAT_OVF, w2.STAT_EXT, w2.STAT_PEAK))
+        d_st = (st5 - st5_p).abs()
+        rel = float((d_st[:, :2] / st5_p[:, :2].abs().clamp(min=1e-30)).max())
+        n_over = int((d_st[:, :2] > STATS_RTOL * st5_p[:, :2].abs()).sum())
+        print(f"phase 3c K5 vs plain bench I={ii} {RES}x{RES}: rgb max {d_rgb:.3e} "
+              f"(bitwise-equal {float((rgb5 == rgb5_p).float().mean()):.6f}), OVF/EXT/PEAK "
+              f"equal {exact_cols}, CURV/EDGE max rel {rel:.3e} (tol {STATS_RTOL:g}, tiles "
+              f"over {n_over}), EXT total {float(st5[:, w2.STAT_EXT].sum()):.0f}", flush=True)
+        check(d_rgb == 0.0 and exact_cols and n_over == 0,
+              f"K5 disagrees with plain at I={ii}")
+        worst["K5"] = max(worst["K5"], d_rgb, float(d_st.max()))
+        if ii == II:
+            base0, scores0 = rgb5, hy.score_tiles(st5, ny, nx)
+        del k5_in, rgb5, rgb5_p
+    for tpu in (1, 2):
+        pick = hy.select_units(scores0, ny * nx, hy.DEFAULT_BUDGET, hy.DEFAULT_THRESH,
+                               pair=tpu == 2)
+        n_units = ny * nx // tpu
+        parked = torch.full((4,), n_units, dtype=torch.int32, device=dev)
+        ids = torch.cat([pick[:8], parked, pick[8:]])
+        listed = sorted(set(ids.tolist()) - {n_units})
+        mask = torch.zeros((ny, nx), dtype=torch.bool, device=dev)
+        for unit in listed:
+            for t in range(tpu):
+                mask.view(-1)[unit * tpu + t] = True
+        mask = mask.repeat_interleave(32, 0).repeat_interleave(32, 1)
+        for fast in (False, True):
+            base_k, base_p = base0.clone(), base0.clone()
+            mb.render_bonsai_tiles_into(vol_bonsai, base_k, bench_u, ids, RES, RES, tpu, fast)
+            mb.render_bonsai_tiles_into_plain(vol_bonsai, base_p, bench_u, ids, RES, RES,
+                                              tpu, fast)
+            torch.cuda.synchronize()
+            d2 = float((base_k - base_p).abs().max())
+            kept = torch.equal(base_k[:, ~mask], base0[:, ~mask])
+            changed = float((base_k != base0).any(dim=0).float().sum())
+            line = (f"phase 3c K2 vs plain bench {RES}x{RES} {'pairs' if tpu == 2 else 'tiles'}"
+                    f" ({len(listed)} units + {int((ids == n_units).sum())} parked), "
+                    f"{'polynomial' if fast else 'cosine'} palette: max {d2:.3e}, other "
+                    f"pixels unchanged {kept}, pixels changed {changed:.0f}")
+            if fast:
+                comp = mb.render_bonsai_tiles(vol_bonsai, bench_u, ids, RES, RES, tpu, fast)
+                comp_p = mb.render_bonsai_tiles_plain(vol_bonsai, bench_u, ids, RES, RES,
+                                                      tpu, fast)
+                d1b = float((comp - comp_p).abs().max())
+                line += f"; K1b compact max {d1b:.3e}"
+                check(d1b == 0.0, f"K1b disagrees with plain (tpu {tpu})")
+            print(line, flush=True)
+            check(d2 == 0.0 and kept, f"K2 disagrees with plain (tpu {tpu}, fast {fast})")
+            worst["K2"] = max(worst["K2"], d2)
+    del base_k, base_p
 
     # -- phase 4: the exact main path -------------------------------------
     ctx = Context(RES, RES, camera=BonsaiDemo.default_camera(1.0),
@@ -336,7 +436,7 @@ def main() -> int:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     exact_launches = launches()
-    check(exact_launches == {"K1": MAIN_FRAMES, "K3": 0, "K4": 0, "K6": 0},
+    check(exact_launches == {"K1": MAIN_FRAMES, "K3": 0, "K4": 0, "K6": 0, "K5": 0, "K2": 0},
           f"exact main path launched {exact_launches}, not K1 x {MAIN_FRAMES} only")
     img = ctx.display_image
     check(tuple(img.shape) == (RES, RES, 4), f"display shape {tuple(img.shape)}")
@@ -373,7 +473,8 @@ def main() -> int:
     torch.cuda.synchronize()
     frun_s = time.perf_counter() - t0
     fast_launches = launches()
-    check(fast_launches == {"K1": 0, "K3": MAIN_FRAMES, "K4": MAIN_FRAMES, "K6": MAIN_FRAMES},
+    check(fast_launches == {"K1": 0, "K3": MAIN_FRAMES, "K4": MAIN_FRAMES, "K6": MAIN_FRAMES,
+                            "K5": 0, "K2": 0},
           f"fast main path launched {fast_launches}, not K3/K4/K6 x {MAIN_FRAMES} only")
     img = fctx.display_image
     check(tuple(img.shape) == (RES, RES, 4), f"fast display shape {tuple(img.shape)}")
@@ -412,6 +513,77 @@ def main() -> int:
         if mean > FAST_ERR_SLACK * want_mean:
             misses.append(name)
     check(not misses, f"fast frame beyond 1.25x the table's mean error at {misses}")
+
+    # -- phase 4d: the hybrid main path -----------------------------------
+    class HybridDemo(BonsaiDemo):
+        @classmethod
+        def init(cls, ctx):
+            return BonsaiDemo.init(ctx, renderer="hybrid")
+
+    hctx = Context(RES, RES, camera=BonsaiDemo.default_camera(1.0),
+                   backbuffer_resolution=(RES, RES), device="cuda")
+    hyb_r = hy.HybridBonsaiRenderer(vol_bonsai, dev)  # the demo's: I=512, budget 128
+    bench_route = hyb_r.route(bench_u, RES, RES)
+    check(bench_route == ("hybrid", II, hy.DEFAULT_BUDGET),
+          f"the bench pose routes to {bench_route}")
+    reset_launches()
+    t0 = time.perf_counter()
+    hctx = run(HybridDemo, frames=MAIN_FRAMES, context=hctx, quiet=True)
+    torch.cuda.synchronize()
+    hrun_s = time.perf_counter() - t0
+    hyb_launches = launches()
+    check(hyb_launches == {"K1": 0, "K3": MAIN_FRAMES, "K4": MAIN_FRAMES, "K6": 0,
+                           "K5": MAIN_FRAMES, "K2": MAIN_FRAMES},
+          f"hybrid main path launched {hyb_launches}, not K3/K4/K5/K2 x {MAIN_FRAMES} only")
+    img = hctx.display_image
+    check(bool(torch.isfinite(img).all()), "hybrid display image has non-finite pixels")
+    hlit = float((img[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
+    check(hlit > 0.01, f"hybrid display image is background ({hlit:.4%} lit pixels)")
+    u_last = hctx.camera_uniform
+    mode, ii_last, b_last = hyb_r.route(u_last, RES, RES)
+    print(f"phase 4d hybrid main path: run(BonsaiDemo, renderer=\"hybrid\") {MAIN_FRAMES} "
+          f"frames {RES}x{RES} in {hrun_s:.2f} s, launches {hyb_launches}, route at the "
+          f"bench pose {bench_route}, lit pixels {hlit:.4f}", flush=True)
+    pair = hy._pair_mode(hyb_r.dims, RES, RES)
+    img_k, _, ids_k = hy._render_hybrid(hyb_r.packs, hyb_r.vol, u_last, hyb_r.thresh, RES,
+                                        RES, ii_last, b_last, True, pair=pair)
+    img_p, _, ids_p = hy._render_hybrid(hyb_r.packs, hyb_r.vol, u_last, hyb_r.thresh, RES,
+                                        RES, ii_last, b_last, True, pair=pair, plain=True)
+    tpu = 2 if pair else 1
+    sentinel = ny * nx // tpu
+    sel_k, sel_p = set(ids_k.tolist()) - {sentinel}, set(ids_p.tolist()) - {sentinel}
+    both = torch.zeros(ny * nx, dtype=torch.bool, device=dev)
+    for unit in sel_k & sel_p:
+        both[unit * tpu:(unit + 1) * tpu] = True
+    both = both.reshape(ny, nx).repeat_interleave(32, 0).repeat_interleave(32, 1)
+    dh = (img_k - img_p)[..., :3].abs()
+    both_max = float(dh[both].max()) if bool(both.any()) else 0.0
+    same_as_demo = torch.equal(hctx.render_backbuffer.texture, img_k)
+    print(f"phase 4d last frame vs plain hybrid path: {len(sel_k)} units selected "
+          f"({'pairs' if pair else 'tiles'}), ids that differ {len(sel_k ^ sel_p)} "
+          f"(kernel-only {len(sel_k - sel_p)}), max on tiles both selected {both_max:.3e}, "
+          f"whole-frame max {float(dh.max()):.3e} mean {float(dh.mean()):.3e}; demo frame "
+          f"equals the kernel path {same_as_demo}", flush=True)
+    check(both_max == 0.0 and same_as_demo, "hybrid frame disagrees with the plain path")
+    del img_k, img_p
+
+    # -- phase 4e: the hybrid's contract at I=1024, budget 64 ---------------
+    hyb_op = hy.HybridBonsaiRenderer(vol_bonsai, dev, intermediate=II_HYBRID, budget=BUDGET_OP)
+    dhy = (hyb_op(bench_u, RES, RES) - exact_r(bench_u, RES, RES))[..., :3].abs()
+    print(f"phase 4e hybrid I={II_HYBRID} budget {BUDGET_OP} vs exact K1 bench {RES}x{RES}: "
+          f"route {hyb_op.route(bench_u, RES, RES)}, mean {float(dhy.mean()):.4e} (contract "
+          f"{HYBRID_CONTRACT:g}), max {float(dhy.max()):.4f}", flush=True)
+    check(float(dhy.mean()) <= HYBRID_CONTRACT, "hybrid beyond its contract at the bench pose")
+    del hyb_op
+    t0 = time.perf_counter()
+    sweep_recs, sweep = hybrid_sweep.sweep(dev, RES, II_HYBRID, BUDGET_OP, vol=vol_bonsai,
+                                           log=lambda s: print(f"phase 4e {s}"))
+    print(f"phase 4e sweep ({sweep['poses']} poses, {RES}^2, I={II_HYBRID}, budget "
+          f"{BUDGET_OP}): worst {sweep['worst']:.4e}, mean-of-means "
+          f"{sweep['mean_of_means']:.4e}, over {HYBRID_CONTRACT:g}: {sweep['over']}, routes "
+          f"{sweep['routes']}, {time.perf_counter() - t0:.1f} s", flush=True)
+    check(sweep["over"] == 0, f"{sweep['over']} sweep poses beyond the hybrid's contract: "
+          f"{[r['pose'] for r in sweep_recs if r['mean'] > HYBRID_CONTRACT]}")
 
     # -- phase 5: timing --------------------------------------------------
     uni = bench.uniform(dev)
@@ -466,6 +638,8 @@ def main() -> int:
                        TIMED_FRAMES, torch)
     k4p_ms = median_ms(lambda: sr.composite_plain(stack_b, geo.sgn, geo.irho, geo.occ_rb),
                        TIMED_FRAMES, torch)
+    k4bp_ms = median_ms(lambda: sr.composite_plain(stack_b, geo.sgn, geo.irho, geo.occ_rb,
+                                                   "exact"), TIMED_FRAMES, torch)
     k6p_ms = median_ms(lambda: w2.warp_plain(chans, av, bu, ok), n, torch)
     # yardsticks the port never calls: grid_sample (bilinear, zeros padding,
     # align_corners=True) over the same float32 slabs / channels at the same
@@ -500,13 +674,108 @@ def main() -> int:
           f"{k3_ms:.4f} ms, K4 composite {k4_ms:.4f} ms (K4b exact transfer "
           f"{k4b_ms:.4f} ms), warp coords (torch) {coords_ms:.4f} ms, K6 warp "
           f"{k6_ms:.4f} ms")
-    print(f"phase 5 fast plain torch: K3 {k3p_ms:.4f} ms, K4 {k4p_ms:.4f} ms, K6 "
+    print(f"phase 5 fast plain torch: K3 {k3p_ms:.4f} ms, K4 {k4p_ms:.4f} ms (K4b "
+          f"{k4bp_ms:.4f} ms), K6 "
           f"{k6p_ms:.4f} ms, whole plain fast frame {fplain_ms:.4f} ms")
     print(f"phase 5 yardsticks (grid_sample, f32): K3's function {lib3_ms:.4f} ms, "
           f"K6's function {lib6_ms:.4f} ms")
     print(f"phase 5 whole fast frame (Context.update + BonsaiDemo.render + present): "
           f"{fframe_ms:.4f} ms/frame ({mrays / fframe_ms * 1e3:.1f} Mrays/s)", flush=True)
-    for name, fn in (("exact", frame), ("fast", fast_frame)):
+    # the hybrid's stages at the bench pose: the demo's (I=512, budget 128)
+    # and the operating point (I=1024, budget 64)
+    pair = hy._pair_mode(256, RES, RES)
+    tpu = 2 if pair else 1
+    n_units = ny * nx // tpu
+
+    def hybrid_stages(ii, budget):
+        """Median ms of each stage of a hybrid frame at the bench pose, and
+        K5's and K2's inputs."""
+        r_ii = hy.HybridBonsaiRenderer(vol_bonsai, dev, intermediate=ii, budget=budget)
+        check(r_ii.route(uni, RES, RES) == ("hybrid", ii, budget), "bench pose not hybrid")
+        geo = shear_warp.fast_geometry(packs, uni, RES, RES, ii)
+        stack = sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v, geo.occ_k)
+        planes = sr.composite(stack, geo.sgn, geo.irho, geo.occ_rb)
+
+        def coords_curv():
+            av, bu, ok = shear_warp.warp_coords(geo, ii, ii)
+            return torch.cat([planes[:3], shear_warp.curvature(planes)[None]]), av, bu, ok
+
+        k5_args = coords_curv() + (geo.hit,)
+        rgb, stats = w2.warp_stats(*k5_args)
+
+        def select():
+            return hy.select_units(hy.score_tiles(stats, ny, nx), ny * nx, budget,
+                                   hy.DEFAULT_THRESH, pair)
+
+        ids = select()
+        rays = mb.tile_rays_compact(uni, ids, RES, RES, tpu)
+        base = rgb.clone()
+        row = {
+            "geometry (torch)": median_ms(
+                lambda: shear_warp.fast_geometry(packs, uni, RES, RES, ii), n, torch),
+            "K3": median_ms(lambda: sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v,
+                                                      geo.occ_k), n, torch),
+            "K4": median_ms(lambda: sr.composite(stack, geo.sgn, geo.irho, geo.occ_rb), n,
+                            torch),
+            "coords + curvature (torch)": median_ms(coords_curv, n, torch),
+            "K5": median_ms(lambda: w2.warp_stats(*k5_args), n, torch),
+            "scoring + selection (torch)": median_ms(select, n, torch),
+            "compact rays (torch)": median_ms(
+                lambda: mb.tile_rays_compact(uni, ids, RES, RES, tpu), n, torch),
+            "K2": median_ms(lambda: mb._launch_tiles(vol_bonsai, rays, ids, RES, RES, tpu,
+                                                     reference.MAX_STEPS_BONSAI, True, base,
+                                                     False), n, torch),
+            "sRGB + assembly (torch)": median_ms(lambda: shear_warp.finish(rgb, True), n,
+                                                 torch),
+            "whole hybrid frame (renderer call)": median_ms(lambda: r_ii(uni, RES, RES), n,
+                                                            torch),
+        }
+        n_sel = int((ids < n_units).sum())
+        print(f"phase 5 hybrid stages ({card}; bench pose, 256^3 {RES}x{RES}, I={ii}, budget "
+              f"{budget}, {n_sel} of {ids.numel()} {'pairs' if pair else 'tiles'} "
+              f"selected; medians of {n}): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()), flush=True)
+        return row, k5_args, ids, rays, base, n_sel
+
+    hyb_rows = {II_HYBRID: hybrid_stages(II_HYBRID, BUDGET_OP)[0]}
+    hyb_rows[II], k5_args, ids, rays, base, n_sel = hybrid_stages(II, hy.DEFAULT_BUDGET)
+    # K5's and K2's plain versions, the yardstick, and this run's work, at
+    # the demo's setting
+    k5p_ms = median_ms(lambda: w2.warp_stats_plain(*k5_args), n, torch)
+    hchans, hav, hbu, hok, _ = k5_args
+    grid5 = torch.stack([hbu / (II - 1) * 2 - 1, hav / (II - 1) * 2 - 1], dim=-1)[None]
+    lib5_ms = median_ms(lambda: gs(hchans[None], grid5, mode="bilinear", padding_mode="border",
+                                   align_corners=True), n, torch)
+    k2p_ms = median_ms(lambda: mb.render_bonsai_tiles_into_plain(
+        vol_bonsai, base, uni, ids, RES, RES, tpu, True), TIMED_FRAMES, torch)
+    # K1b, K2's compact mode (tests only), on the same units
+    compact = torch.empty((3,) + tuple(rays[1][0].shape), dtype=torch.float32, device=dev)
+    k1b_ms = median_ms(lambda: mb._launch_tiles(vol_bonsai, rays, ids, RES, RES, tpu,
+                                                reference.MAX_STEPS_BONSAI, True, compact,
+                                                True), n, torch)
+    k1bp_ms = median_ms(lambda: mb.render_bonsai_tiles_plain(vol_bonsai, uni, ids, RES, RES,
+                                                             tpu, True), TIMED_FRAMES, torch)
+    _, k2_steps = reference.render_bonsai_rays(vol_bonsai, rays[0], torch.stack(rays[1], dim=-1),
+                                               return_steps=True, fast_transfer=True)
+    k2_steps = int((k2_steps * (ids.repeat_interleave(tpu * 32) < n_units)[:, None]).sum())
+    k2_pixels = n_sel * tpu * 32 * 32
+    k5_ok = int(hok.sum())
+    del k5_args, hchans, grid5, base, rays, compact
+    hyb_demo = HybridDemo.init(hctx)
+
+    def hyb_frame():
+        hctx.update()
+        hyb_demo.render(hctx)
+        hctx.render()
+
+    hframe_ms = median_ms(hyb_frame, n, torch)
+    print(f"phase 5 K5 plain torch {k5p_ms:.4f} ms, K2 plain torch {k2p_ms:.4f} ms, K5's "
+          f"warp as grid_sample (4 channels, f32) {lib5_ms:.4f} ms; K1b (compact mode, same "
+          f"units) {k1b_ms:.4f} ms, plain {k1bp_ms:.4f} ms")
+    print(f"phase 5 whole hybrid frame (Context.update + BonsaiDemo.render + present, I={II}, "
+          f"budget {hy.DEFAULT_BUDGET}): {hframe_ms:.4f} ms/frame "
+          f"({mrays / hframe_ms * 1e3:.1f} Mrays/s)", flush=True)
+    for name, fn in (("exact", frame), ("fast", fast_frame), ("hybrid", hyb_frame)):
         syncs = host_syncs(fn, torch)
         share = device_share(fn, 10, torch)
         trace = ("no device events in the trace" if share is None else
@@ -529,12 +798,25 @@ def main() -> int:
     n_hit = int(ok_b.sum())
     k6_bound = bound_ms(3 * II * II * 4 + RES * RES + n_hit * 8 + 3 * RES * RES * 4,
                         n_hit * (OPS_K6_PIXEL + 3 * OPS_K6_CHANNEL))
+    k4b_samples = int(k4b_count.sum())
+    k4b_bound = bound_ms(k4b_samples * 2 + II * II * 4 + geo.occ_rb.numel() + 8
+                         + 4 * II * II * 4, k4b_samples * OPS_K4B_SAMPLE)
+    n_px = RES * RES
+    # av/bu are read only at ok pixels, box only where ok is 0
+    k5_bound = bound_ms(4 * II * II * 4 + n_px * (1 + 12) + (n_px - k5_ok) + k5_ok * 8
+                        + ny * nx * 20,
+                        k5_ok * (OPS_K6_PIXEL + 4 * OPS_K6_CHANNEL) + n_px * OPS_K5_PIXEL)
+    k2_bound = bound_ms(vol_bonsai.numel() + k2_pixels * (12 + 12) + 12 + 4 * ids.numel(),
+                        k2_steps * OPS_K2_STEP)
     print(f"phase 5 work: K1 {k1_steps} samples ({k1_steps / (RES * RES):.1f} per ray); "
           f"K3 {hot} hot slabs of {gp}; K4 {k4_samples} samples composited "
-          f"({k4_samples / (II * II):.1f} per texel); K6 {n_hit} hit pixels")
+          f"({k4_samples / (II * II):.1f} per texel); K6 {n_hit} hit pixels; K5 {k5_ok} ok "
+          f"pixels of {n_px}; K2 {k2_steps} samples over {k2_pixels} pixels")
     print(f"phase 5 bounds (ms, H100 SXM 3.35 TB/s, 67 TFLOP/s f32): K1 {k1_bound[0]:.4f} "
           f"({k1_bound[1]}), K3 {k3_bound[0]:.4f} ({k3_bound[1]}), K4 {k4_bound[0]:.4f} "
-          f"({k4_bound[1]}), K6 {k6_bound[0]:.4f} ({k6_bound[1]})", flush=True)
+          f"({k4_bound[1]}), K4b {k4b_bound[0]:.4f} ({k4b_bound[1]}), K6 {k6_bound[0]:.4f} "
+          f"({k6_bound[1]}), K5 {k5_bound[0]:.4f} ({k5_bound[1]}), K2 {k2_bound[0]:.4f} "
+          f"({k2_bound[1]})", flush=True)
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -554,6 +836,12 @@ def main() -> int:
         entry("warp_bilinear", "vokselis_torch/csrc/warp2d.cu",
               "vokselis_tpu/ops/pallas/warp2d.py:218", fast_launches["K6"],
               worst["K6"], k6_ms, k6p_ms, k6_bound, lib6_ms),
+        entry("march_tiles", "vokselis_torch/csrc/march_bonsai.cu",
+              "vokselis_tpu/ops/pallas/march_bonsai.py:1021", hyb_launches["K2"],
+              worst["K2"], hyb_rows[II]["K2"], k2p_ms, k2_bound, None),
+        entry("warp_stats", "vokselis_torch/csrc/warp2d.cu",
+              "vokselis_tpu/ops/pallas/warp2d.py:470", hyb_launches["K5"],
+              worst["K5"], hyb_rows[II]["K5"], k5p_ms, k5_bound, lib5_ms),
     ]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

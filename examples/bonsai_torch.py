@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Bonsai demo on the PyTorch + CUDA port (vokselis_torch): raymarch the
-256^3 CT volume with the hand-written march kernel, or (``--fast``) render
-it with the shear-warp kernels.
+256^3 CT volume with the hand-written march kernel, or render it with the
+shear-warp kernels (``--fast``) or the hybrid renderer (``--hybrid``: the
+fast frame with its worst tiles re-marched exactly).
 
 Same command line as examples/bonsai.py. Runs on the CUDA card; ``--cpu``
 runs the kernels' plain torch versions on the CPU instead.
@@ -12,20 +13,26 @@ from common import make_parser, orbit_events
 
 def main():
     parser = make_parser("bonsai")
-    parser.add_argument(
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument(
         "--fast", action="store_true",
         help="shear-warp renderer (approximate, intermediate I=512)",
+    )
+    mode.add_argument(
+        "--hybrid", action="store_true",
+        help="hybrid renderer (shear-warp frame, worst tiles re-marched exactly)",
     )
     args = parser.parse_args()
     from vokselis_torch.engine.loop import run
     from vokselis_torch.models.bonsai import BonsaiDemo
 
     demo_cls = BonsaiDemo
-    if args.fast:
+    renderer = "fast" if args.fast else "hybrid" if args.hybrid else None
+    if renderer:
         class demo_cls(BonsaiDemo):  # noqa: N801 - init-arg shim for run()
             @classmethod
             def init(cls, ctx):
-                return BonsaiDemo.init(ctx, renderer="fast")
+                return BonsaiDemo.init(ctx, renderer=renderer)
 
     camera = BonsaiDemo.default_camera(args.width / args.height)
     events = orbit_events(args.frames, args.width, args.height) if args.orbit else None

@@ -216,7 +216,8 @@ def test_import_without_jax():
         "import vokselis_torch, vokselis_torch.models.bonsai, "
         "vokselis_torch.engine.loop, vokselis_torch.ops.cuda.march_bonsai, "
         "vokselis_torch.ops.shear_warp, vokselis_torch.ops.cuda.shear_resample, "
-        "vokselis_torch.ops.cuda.warp2d\n"
+        "vokselis_torch.ops.cuda.warp2d, vokselis_torch.ops.hybrid, "
+        "vokselis_torch.tools.hybrid_sweep\n"
         "bad = [m for m in sys.modules if m.startswith(('vokselis_tpu', 'jax'))"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

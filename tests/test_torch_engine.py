@@ -120,10 +120,20 @@ def test_watch_not_ported():
 
 
 @pytest.mark.parametrize("renderer,item", [("hybrid", "item 6")])
-def test_other_renderers_not_ported(renderer, item):
+def test_other_renderers_not_ported(renderer, item, monkeypatch):
+    """The last of the JAX package's bonsai renderers, ported by ROADMAP
+    queue 1 ``item``, builds; a renderer neither package has raises."""
+    from vokselis_torch.models import bonsai as bonsai_model
+    from vokselis_torch.ops.hybrid import HybridBonsaiRenderer
+    from vokselis_torch.volume.io import get_bonsai
+
+    monkeypatch.setattr(bonsai_model, "get_bonsai", lambda: get_bonsai(32))
     ctx = Context(width=8, height=8, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        BonsaiDemo.init(ctx, renderer=renderer)
+    demo = BonsaiDemo.init(ctx, renderer=renderer)
+    assert isinstance(demo.renderer, HybridBonsaiRenderer)
+    assert demo.renderer.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="unknown renderer"):
+        BonsaiDemo.init(ctx, renderer="slow")
 
 
 def test_screenshot_event(tmp_path, monkeypatch):

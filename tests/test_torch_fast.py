@@ -579,7 +579,8 @@ def test_fast_renderer_eye_inside_is_finite():
 
 def test_build_fast_renderer_api():
     """test_fast.py:82 on the port, plus: the CPU path launches nothing,
-    the plain flag computes the same frame, and the aux contracts raise."""
+    the plain flag computes the same frame, the TPU-only packed aux
+    contract raises, and the "stats" and True contracts keep the frame."""
     vol = get_bonsai(32)
     u = Camera.bonsai(1.0).uniform("cpu")
     render, pack = shear_warp.build_fast_renderer(vol, "cpu", intermediate=64)
@@ -594,8 +595,14 @@ def test_build_fast_renderer_api():
     torch.testing.assert_close(plain, img, rtol=0, atol=0)
     lin = r(u, 32, 32, srgb=False)
     assert float(lin[..., :3].max()) < float(img[..., :3].max())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        shear_warp._render_fast(pack, u, 32, 32, 64, True, return_aux=True)
+    with pytest.raises(NotImplementedError, match="deliberate removals"):
+        shear_warp._render_fast(pack, u, 32, 32, 64, True, return_aux="packed")
+    rgb, stats = shear_warp._render_fast(pack, u, 32, 32, 64, True, return_aux="stats")
+    assert rgb.shape == (3, 32, 32) and stats.shape == (1, 5)
+    torch.testing.assert_close(rgb.permute(1, 2, 0), lin[..., :3], rtol=0, atol=0)
+    aux_img, bad, errd = shear_warp._render_fast(pack, u, 32, 32, 64, True, return_aux=True)
+    torch.testing.assert_close(aux_img, img, rtol=0, atol=0)
+    assert bad.shape == errd.shape == (32, 32)
     with pytest.raises(ValueError):
         r(u, 32, 32, intermediate=60)
 
@@ -622,8 +629,8 @@ def test_run_fast_demo_cpu(monkeypatch):
     assert img.shape == (48, 64, 4) and bool(torch.isfinite(img).all())
     assert float((img[..., :3].amax(dim=-1) > 0.05).float().mean()) > 0.01
     assert float((img - ref).abs().mean()) < 0.01
-    with pytest.raises(NotImplementedError, match="item 6"):
-        bonsai_model.BonsaiDemo.init(ctx(), renderer="hybrid")
+    assert type(bonsai_model.BonsaiDemo.init(ctx(), renderer="hybrid").renderer).__name__ \
+        == "HybridBonsaiRenderer"
     with pytest.raises(ValueError):
         bonsai_model.BonsaiDemo.init(ctx(), renderer="slow")
 

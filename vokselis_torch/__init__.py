@@ -4,8 +4,9 @@ H100.
 The JAX package ``vokselis_tpu`` stays beside it as the reference. This port
 imports torch and numpy only; its hot loops are kernels written by hand for
 Hopper (``vokselis_torch/csrc``, bound in :mod:`vokselis_torch.ops.cuda`),
-each with a plain-torch version that runs on the CPU. So far it runs the
-exact bonsai path: camera -> rays -> march kernel -> present -> PNG.
+each with a plain-torch version that runs on the CPU. It runs the bonsai
+volume's exact, fast (shear-warp) and hybrid renderers through the engine
+loop: camera -> kernels -> present -> PNG.
 """
 
 __version__ = "0.1.0"

@@ -4,9 +4,12 @@
 Renders with the hand-written kernels on a CUDA context and with their
 plain versions on a CPU context (the choice follows ``ctx.device``):
 ``renderer="exact"`` is the march kernel, ``renderer="fast"`` the shear-warp
-approximation (resample, composite and warp kernels). The render output
-already applies linear_to_srgb (raycast_naive.wgsl:121-124); the present
-pass then tonemaps on top, exactly like the reference's two-stage chain.
+approximation (resample, composite and warp kernels) and
+``renderer="hybrid"`` the fast frame with its worst tiles re-marched exactly
+(resample, composite, stats warp and tile re-march kernels). The render
+output already applies linear_to_srgb (raycast_naive.wgsl:121-124); the
+present pass then tonemaps on top, exactly like the reference's two-stage
+chain.
 """
 
 from __future__ import annotations
@@ -14,8 +17,12 @@ from __future__ import annotations
 from vokselis_torch.core.camera import Camera
 from vokselis_torch.engine.demo import Demo
 from vokselis_torch.ops.cuda.march_bonsai import BonsaiRenderer
+from vokselis_torch.ops.hybrid import HybridBonsaiRenderer
 from vokselis_torch.ops.shear_warp import FastBonsaiRenderer
 from vokselis_torch.volume.io import get_bonsai
+
+RENDERERS = {"exact": BonsaiRenderer, "fast": FastBonsaiRenderer,
+             "hybrid": HybridBonsaiRenderer}
 
 
 class BonsaiDemo(Demo):
@@ -25,19 +32,14 @@ class BonsaiDemo(Demo):
 
     @classmethod
     def init(cls, ctx, renderer: str = "exact"):
-        """``renderer``: "exact" (the oracle-parity march kernel) or "fast"
-        (the shear-warp approximation at intermediate I=512). The JAX
-        package's "hybrid" renderer is not ported yet."""
-        if renderer == "hybrid":
-            raise NotImplementedError(
-                'renderer="hybrid" is not ported to vokselis_torch yet '
-                "(ROADMAP.md queue 1, item 6)"
-            )
-        if renderer not in ("exact", "fast"):
+        """``renderer``: "exact" (the oracle-parity march kernel), "fast"
+        (the shear-warp approximation at intermediate I=512) or "hybrid"
+        (the fast frame at I=512 with up to 128 tiles re-marched exactly,
+        the JAX package's defaults)."""
+        if renderer not in RENDERERS:
             raise ValueError(f"unknown renderer {renderer!r}")
         vol = get_bonsai()
-        cls_r = FastBonsaiRenderer if renderer == "fast" else BonsaiRenderer
-        return cls(cls_r(vol, ctx.device), vol)
+        return cls(RENDERERS[renderer](vol, ctx.device), vol)
 
     @staticmethod
     def default_camera(aspect: float) -> Camera:

@@ -26,7 +26,12 @@ import math
 import torch
 
 from vokselis_torch.core import geometry
-from vokselis_torch.core.colors import linear_to_srgb, smoothstep, vertigo
+from vokselis_torch.core.colors import (
+    bonsai_transfer_fast_soa,
+    linear_to_srgb,
+    smoothstep,
+    vertigo,
+)
 from vokselis_torch.volume.sample import sample_trilinear_r8
 
 # worst case: box diagonal sqrt(3) at dt = dt_scale/N (dominant axis = 1/sqrt(3)
@@ -76,12 +81,15 @@ def render_bonsai_rays(
     dt_scale: float = 1.0,
     srgb: bool = True,
     return_steps: bool = False,
+    fast_transfer: bool = False,
 ):
     """March an arbitrary (H, W, 3) ray set with the bonsai semantics —
     the single implementation shared by :func:`render_bonsai` and the
-    march kernel's wrapper on CPU tensors. With ``return_steps`` also
+    march kernels' wrappers on CPU tensors. With ``return_steps`` also
     returns the (H, W) int32 count of samples each ray took (the work the
-    march kernel does for these rays)."""
+    march kernel does for these rays). ``fast_transfer`` takes the vertigo
+    palette's polynomial form (``colors.bonsai_transfer_fast_soa``, <=
+    1.4e-6 per channel, alpha exact), as the hybrid's re-march does."""
     height, width = dirs.shape[:2]
     npix = width * height
     d = dirs.reshape(npix, 3)
@@ -107,7 +115,11 @@ def render_bonsai_rays(
         if return_steps:
             steps += active
         r = sample_trilinear_r8(vol, p)
-        c_rgb, c_a = _bonsai_transfer(r)
+        if fast_transfer:
+            c_a, cr, cg, cb = bonsai_transfer_fast_soa(r)
+            c_rgb = torch.stack([cr, cg, cb], dim=-1)
+        else:
+            c_rgb, c_a = _bonsai_transfer(r)
         # front-to-back under-compositing (:110-114); the background-bleed
         # term is identically zero for R8Unorm (val_alpha == 1)
         new_rgb = rgb + (1.0 - a)[:, None] * c_a[:, None] * c_rgb

@@ -44,9 +44,9 @@ from vokselis_torch.core.colors import linear_to_srgb
 from vokselis_torch.ops.cuda import shear_resample, warp2d
 from vokselis_torch.ops.cuda.march_bonsai import volume_tensor
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
+from vokselis_torch.utils.grid import TILE
 
 OCC_EPS = 0.1  # pack texels <= 0.1 are transfer-0: smoothstep(0.10, 1.2, .)
-TILE = 32  # the JAX package's warp tile side (pose_hint's span statistics)
 WIN_CAP = 48  # the JAX package's warp row-window cap (_win_rows)
 
 
@@ -275,23 +275,51 @@ def fast_geometry(pack, camera_uniform, width: int, height: int,
 def _render_fast(pack, camera_uniform, width: int, height: int,
                  intermediate: int, srgb: bool, return_aux=False,
                  plain: bool = False):
-    """One fast frame: geometry, then K3 -> K4 -> K6. Returns the
-    (H, W, 4) f32 image (sRGB-encoded rgb when ``srgb``, alpha 1).
+    """One fast frame: geometry, then K3 -> K4 -> K6 (K5 for "stats").
+    Returns the (H, W, 4) f32 image (sRGB-encoded rgb when ``srgb``, alpha
+    1), or with ``return_aux``:
 
-    ``plain=True`` runs the three stages' plain versions even on CUDA
-    tensors: the reference that the card's checks hold the kernels to. The
-    hybrid's aux contracts (``return_aux``) are not ported yet."""
-    if return_aux:
+    - ``True``: ``(img, bad, errd)`` as the JAX package's
+      (shear_warp.py:610-639): ``bad`` (H, W) int8, bit 1 where a box-hit
+      ray falls outside the warp extent (rendered black); bit 2 (window
+      overflow) is never set, there is no window. ``errd`` (H, W) f32, the
+      warped curvature channel where ok, else 0.
+    - ``"stats"``: the hybrid's contract (shear_warp.py:541-573) in frame
+      layout: the ok-masked linear r, g, b as a (3, H, W) f32 tensor and
+      the (cdiv(H,32) * cdiv(W,32), 5) per-tile stats of
+      :func:`vokselis_torch.ops.cuda.warp2d.warp_stats` (``srgb`` is
+      ignored: the planes stay linear).
+
+    The TPU-only ``"packed*"`` contracts raise ``NotImplementedError``.
+    ``plain=True`` runs the stages' plain versions even on CUDA tensors:
+    the reference that the card's checks hold the kernels to."""
+    if isinstance(return_aux, str) and return_aux != "stats":
         raise NotImplementedError(
-            "return_aux (the hybrid's aux contracts) is not ported to "
-            "vokselis_torch yet (ROADMAP.md queue 1, item 6)")
+            f"return_aux={return_aux!r}: the packed (n_tiles*8, 128) contracts "
+            "existed for the TPU's VMEM and its cost probes and are not ported "
+            "(ROADMAP.md, deliberate removals); use \"stats\"")
     geo = fast_geometry(pack, camera_uniform, width, height, intermediate)
     sr = shear_resample
     resample = sr.resample_slabs_plain if plain else sr.resample_slabs
     composite = sr.composite_plain if plain else sr.composite
     stack = resample(pack[0], geo.m, geo.pos_u, geo.pos_v, geo.occ_k)
     planes = composite(stack, geo.sgn, geo.irho, geo.occ_rb)
-    return _warp_to_screen(planes, geo, height, width, srgb, plain=plain)
+    return _warp_to_screen(planes, geo, srgb, plain=plain, return_aux=return_aux)
+
+
+def curvature(planes):
+    """The intermediate's local curvature summed over r, g, b: per channel
+    |2c - c(v-1) - c(v+1)| + |2c - c(u-1) - c(u+1)|, the neighbours taken
+    with ``torch.roll`` (wrapping at the border, as ``jnp.roll`` in
+    shear_warp.py:534-539). The warped curvature at a pixel bounds the
+    bilinear warp's reconstruction error there; the hybrid ranks tiles by
+    it."""
+    def curv(c):
+        d2v = torch.abs(2.0 * c - torch.roll(c, 1, 0) - torch.roll(c, -1, 0))
+        d2u = torch.abs(2.0 * c - torch.roll(c, 1, 1) - torch.roll(c, -1, 1))
+        return d2v + d2u
+
+    return curv(planes[0]) + curv(planes[1]) + curv(planes[2])
 
 
 def warp_coords(geo: FastGeometry, ii_v: int, ii_u: int):
@@ -309,18 +337,37 @@ def warp_coords(geo: FastGeometry, ii_v: int, ii_u: int):
     return torch.where(ok, av, 1e6), torch.where(ok, bu, 1e6), ok
 
 
-def _warp_to_screen(planes, geo: FastGeometry, height: int, width: int,
-                    srgb: bool, plain: bool = False):
+def _warp_to_screen(planes, geo: FastGeometry, srgb: bool, plain: bool = False,
+                    return_aux=False):
     """Final homography warp of the composited intermediate (the r, g, b
-    planes of ``planes``) to the screen; K6 masks the pixels that
-    :func:`warp_coords` excludes."""
+    planes of ``planes``) to the screen; K6 (K5 for ``return_aux="stats"``)
+    masks the pixels that :func:`warp_coords` excludes. ``return_aux`` as
+    in :func:`_render_fast`."""
     av, bu, ok = warp_coords(geo, *planes.shape[1:])
+    if return_aux:
+        chans = torch.cat([planes[:3], curvature(planes)[None]])
+    else:
+        chans = planes[:3]
+    if return_aux == "stats":
+        warp_st = warp2d.warp_stats_plain if plain else warp2d.warp_stats
+        return warp_st(chans, av, bu, ok, geo.hit)
     warp = warp2d.warp_plain if plain else warp2d.warp_bilinear
-    rgb = warp(planes[:3], av, bu, ok).permute(1, 2, 0)
+    out = warp(chans, av, bu, ok)
+    img = finish(out[:3], srgb)
+    if return_aux:
+        bad = (geo.hit & ~ok).to(torch.int8)
+        return img, bad, out[3]
+    return img
+
+
+def finish(rgb, srgb: bool):
+    """(3, H, W) linear rgb planes -> the (H, W, 4) f32 image of the fast
+    and hybrid frames (sRGB-encoded rgb when ``srgb``, alpha 1)."""
+    out = rgb.permute(1, 2, 0)
     if srgb:
-        rgb = linear_to_srgb(rgb)
-    alpha = torch.ones((height, width, 1), dtype=torch.float32, device=rgb.device)
-    return torch.cat([rgb, alpha], dim=-1)
+        out = linear_to_srgb(out)
+    alpha = torch.ones(out.shape[:2] + (1,), dtype=torch.float32, device=out.device)
+    return torch.cat([out, alpha], dim=-1)
 
 
 def traced_degenerate(camera_uniform, d: int):

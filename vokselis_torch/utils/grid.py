@@ -5,6 +5,11 @@ Reappears here as CUDA launch-grid helpers (SURVEY.md H15).
 
 from __future__ import annotations
 
+# the screen tile side of the JAX package's kernels (march_bonsai.TILE): the
+# hybrid scores, selects and re-marches 32x32 tiles, and pose_hint measures
+# the warp's span over them
+TILE = 32
+
 
 def cdiv(a: int, b: int) -> int:
     """Ceiling division."""
