@@ -9,8 +9,8 @@ Phases, each reported on its own lines:
   1. device: the card, as nvidia-smi names it, with its power limit;
   2. build: compile every kernel from vokselis_torch/csrc with nvcc, one
      nvcc per source, all started together: K1 + K2 (march_bonsai.cu), K3 +
-     K4 (shear_resample.cu) and K6 + K5 (warp2d.cu); ptxas registers and
-     spills;
+     K4 (shear_resample.cu), K6 + K5 (warp2d.cu), K7 (march_field.cu) and
+     K9 + K8 (genvol.cu); ptxas registers and spills;
   3. K1 against its plain torch version on the card, at 1024x1024 on the
      256^3 bonsai (bench, eye-inside and diagonal poses) and on a random
      256^3 volume with full borders: finite, max |d| < 1e-3 and
@@ -25,6 +25,12 @@ Phases, each reported on its own lines:
      STAT_CURV/EDGE within 1e-5 relative; K2 (the tile re-march) and K1b (its
      compact mode) at 1024^2 over single tiles and tile pairs with parked
      ids, both transfer modes: bitwise, and every other pixel unchanged;
+  3d. K7 (the field march) against its plain version at 512^2, Camera.xor:
+     the xor demo's fbm field with analytic and fd normals, the trig field
+     with emission and the bitwise xor field, at t = 0 and 1.7, sphere clip
+     on and off (expected bitwise; held at test_pallas.py's 5e-3 / 1e-5);
+     K9 (the xor volumes) at 256^3 within test_pallas.py:80-90's bounds and
+     K8 (the u8 density) at 512^3 equal, bitwise shares printed;
   4. the exact main path: engine.loop.run(BonsaiDemo) for 8 frames at
      1024x1024 on "cuda", which must launch K1 once per frame (and no fast
      kernel) and end in a finite, non-background frame that agrees with the
@@ -45,11 +51,26 @@ Phases, each reported on its own lines:
      against the port's K1 frame: the bench pose and the 72-pose sweep
      (vokselis_torch/tools/hybrid_sweep.py), every pose's mean |d| over rgb
      <= 1e-3, the hybrid's contract;
+  4f. the xor main path: run(XorDemo) for 8 frames at 1280x720 (the demo's
+     backbuffer) and at 512^2, which must launch K7 once per frame and no
+     other kernel and end in a finite, lit frame equal to the plain version;
+     K7 with fd normals against the port's oracle render_compute_inline at
+     512^2 (mean <= 1e-5), with analytic normals (mean <= 1e-3, the
+     contract), the trig field against render_field; the texture path
+     (K9's volumes through render_compute_tex) against the inline oracle;
+     run(TrigDemo), which launches no kernel;
+  4g. config 5 at reduced depth: 2 batches, each K8 at 512^3 (t = 0.3 b)
+     and 8 orbit views at 512^2 through K1 with 888 steps; one view against
+     K1's plain version;
   5. timing with CUDA events: median ms of each kernel and of its plain
      version at the bench pose, the frames' other stages, whole exact, fast
      and hybrid frames (the hybrid's stages at I=512/budget 128 and
      I=1024/budget 64), and one PyTorch call computing each of K3's, K6's
-     and K5's warps (grid_sample) as a yardstick.
+     and K5's warps (grid_sample) as a yardstick; K7 (xor analytic, xor fd,
+     trig at 512^2), K9 at 256^3, K8 at 512^3 and their plain versions, the
+     whole xor demo frame at 1280x720 with its host syncs and idle share,
+     the trig demo frame and the trig field frame, and one full config-5
+     batch of 64 views.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and ``{"ok": true, "device": {...}}``. Any failed check or
@@ -60,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -103,6 +125,18 @@ OPS_K6_CHANNEL = 9  # ... and 3 lerps per channel
 # palette + 11 composite + 7 advance
 OPS_K2_STEP = 150
 OPS_K5_PIXEL = 20  # warp2d.cu: lum 4, log/exp 3, slope 3, sRGB lum 2, curv 2, edge 5, peak 1
+# march_field.cu / fields.cuh, per sample (each sinf, floorf, sqrtf and
+# division as one): position 6 + quantize 21 + alpha 10 + composite 15 +
+# advance 1 = 53 (32 unquantized); xor_shade 46; the fused noise field with
+# analytic normals 432 (24 hash sines), with the hash-shared one-sided
+# difference 841 (60 sines); the trig field 28
+OPS_K7_SAMPLE = {"xor analytic": 53 + 46 + 432, "xor fd": 53 + 46 + 841, "trig": 32 + 28}
+OPS_K9_VOXEL = 854  # genvol.cu: coordinates 6 + fused field and normal 841 + |n| 6 + val/2 1
+OPS_K8_VOXEL = 292  # coordinates 6 + fbm alpha 282 + quantize 4
+XOR_RES = (1280, 720)  # the xor demo's backbuffer (HdrBackBuffer default)
+FIELD_RES = 512  # configs 1 and 2 (bench.py:442-444)
+K7_MAX, K7_MEAN = 5e-3, 1e-5  # test_pallas.py:41-58, K7 vs plain if not bitwise
+VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-371)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -118,9 +152,9 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def median_ms(fn, n: int, torch) -> float:
+def median_ms(fn, n: int, torch, warmup: int = WARMUP) -> float:
     """Median CUDA-event time of ``fn`` over ``n`` calls, after a warm-up."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -205,6 +239,7 @@ def main() -> int:
     parser.add_argument("--png", default=None,
                         help="also write the exact main path's final frame here")
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -224,13 +259,18 @@ def main() -> int:
     from vokselis_torch.engine.loop import run
     from vokselis_torch.media.png import write_png
     from vokselis_torch.models.bonsai import BonsaiDemo
+    from vokselis_torch.models.trig import TrigDemo
+    from vokselis_torch.models.xor import XorDemo
     from vokselis_torch.ops import hybrid as hy
     from vokselis_torch.ops import reference, shear_warp
     from vokselis_torch.ops.cuda import build as kbuild
+    from vokselis_torch.ops.cuda import genvol
+    from vokselis_torch.ops.cuda import march_field as mf
     from vokselis_torch.ops.cuda import march_bonsai as mb
     from vokselis_torch.ops.cuda import shear_resample as sr
     from vokselis_torch.ops.cuda import warp2d as w2
     from vokselis_torch.ops.present import present, to_uint8
+    from vokselis_torch.parallel import orbit_camera_batch
     from vokselis_torch.tools import hybrid_sweep
     from vokselis_torch.volume.io import get_bonsai
 
@@ -239,11 +279,18 @@ def main() -> int:
     def reset_launches():
         mb.LAUNCHES = sr.LAUNCHES_RESAMPLE = sr.LAUNCHES_COMPOSITE = w2.LAUNCHES_WARP = 0
         mb.LAUNCHES_TILES = w2.LAUNCHES_STATS = 0
+        mf.LAUNCHES_FIELD = genvol.LAUNCHES_GENVOL = genvol.LAUNCHES_DENSITY = 0
 
     def launches():
         return {"K1": mb.LAUNCHES, "K3": sr.LAUNCHES_RESAMPLE,
                 "K4": sr.LAUNCHES_COMPOSITE, "K6": w2.LAUNCHES_WARP,
-                "K5": w2.LAUNCHES_STATS, "K2": mb.LAUNCHES_TILES}
+                "K5": w2.LAUNCHES_STATS, "K2": mb.LAUNCHES_TILES,
+                "K7": mf.LAUNCHES_FIELD, "K9": genvol.LAUNCHES_GENVOL,
+                "K8": genvol.LAUNCHES_DENSITY}
+
+    def only(**counts):
+        """The launch counts of a path that launches just these kernels."""
+        return {k: counts.get(k, 0) for k in launches()}
 
     # -- phase 1: device --------------------------------------------------
     card = card_line()
@@ -254,7 +301,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # -- phase 2: build (one nvcc per source, all started together) -------
-    modules = {"K1+K2": mb, "K3+K4": sr, "K6+K5": w2}
+    modules = {"K1+K2": mb, "K3+K4": sr, "K6+K5": w2, "K7": mf, "K9+K8": genvol}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         for fut in [pool.submit(m.build) for m in modules.values()]:
@@ -283,7 +330,8 @@ def main() -> int:
         ("border256/bench", vol_border, bench),
         ("border256/diagonal", vol_border, diagonal),
     ]
-    worst = {"K1": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0, "K5": 0.0, "K2": 0.0}
+    worst = {"K1": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0, "K5": 0.0, "K2": 0.0, "K7": 0.0,
+             "K9": 0.0, "K8": 0.0}
     for name, vol, cam in cases:
         eye, dxyz = geometry.rays_fragment_soa(cam.uniform(dev), RES, RES)
         before = mb.LAUNCHES
@@ -426,6 +474,59 @@ def main() -> int:
             worst["K2"] = max(worst["K2"], d2)
     del base_k, base_p
 
+    # -- phase 3d: K7, K9 and K8 against their plain versions --------------
+    xor_u = Camera.xor(1.0).uniform(dev)
+    k7_cases = {"xor analytic": ("noise", "xor", True, "analytic"),
+                "xor fd": ("noise", "xor", True, "fd"),
+                "trig": ("trig", "emission", False, "fd"),
+                "xor field": ("xor", "xor", True, "fd")}
+    for name, (field, shading, quantize, grad) in k7_cases.items():
+        for t in (0.0, 1.7):
+            for clip in (True, False):
+                kw = dict(field=field, shading=shading, quantize=quantize, sphere_clip=clip,
+                          grad=grad)
+                before = mf.LAUNCHES_FIELD
+                img_k = mf.render_field(xor_u, t, FIELD_RES, FIELD_RES, **kw)
+                torch.cuda.synchronize()
+                check(mf.LAUNCHES_FIELD == before + 1, f"K7 {name}: LAUNCHES_FIELD did not advance")
+                img_p = mf.render_field_plain(xor_u, t, FIELD_RES, FIELD_RES, **kw)
+                d7 = (img_k - img_p).abs()
+                mx, mean = float(d7.max()), float(d7.mean())
+                same = float((img_k == img_p).all(dim=-1).float().mean())
+                finite = bool(torch.isfinite(img_k).all())
+                print(f"phase 3d K7 vs plain {name} t={t} clip {'on' if clip else 'off'} "
+                      f"{FIELD_RES}x{FIELD_RES}: max {mx:.3e} mean {mean:.3e} (tol {K7_MAX:g} / "
+                      f"{K7_MEAN:g}), bitwise-equal pixels {same:.6f}, finite {finite}",
+                      flush=True)
+                check(finite and mx <= K7_MAX and mean <= K7_MEAN,
+                      f"K7 {name} t={t} clip {clip} disagrees with plain")
+                worst["K7"] = max(worst["K7"], mx)
+    del img_k, img_p, d7
+    for t in (0.0, 1.25):
+        dens, nrm = genvol.generate_xor_volumes(t, 256, dev)
+        dens_p, nrm_p = genvol.generate_xor_volumes_plain(t, 256, dev)
+        torch.cuda.synchronize()
+        dd, dn = (dens - dens_p).abs(), (nrm - nrm_p).abs()
+        over = float((dn > 1e-2).float().mean())
+        print(f"phase 3d K9 vs plain t={t} 256^3: density max {float(dd.max()):.3e} mean "
+              f"{float(dd.mean()):.3e} (tol 2e-3 / 1e-5), normals over 1e-2 {over:.2e} (tol "
+              f"0.01), bitwise-equal density {float((dens == dens_p).float().mean()):.6f} "
+              f"normals {float((nrm == nrm_p).float().mean()):.6f}", flush=True)
+        check(float(dd.max()) <= 2e-3 and float(dd.mean()) <= 1e-5 and over <= 0.01,
+              f"K9 disagrees with plain at t={t}")
+        worst["K9"] = max(worst["K9"], float(dd.max()), float(dn.max()))
+        del dens, nrm, dens_p, nrm_p, dd, dn
+        vol_k = genvol.generate_density_u8(t, VOL5, dev)
+        vol_p = genvol.generate_density_u8_plain(t, VOL5, dev)
+        diff = int((vol_k.int() - vol_p.int()).abs().max())
+        print(f"phase 3d K8 vs plain t={t} {VOL5}^3: equal {torch.equal(vol_k, vol_p)}, max "
+              f"level difference {diff}, bitwise-equal voxels "
+              f"{float((vol_k == vol_p).float().mean()):.6f}, mean level "
+              f"{float(vol_k.float().mean()):.3f}", flush=True)
+        check(torch.equal(vol_k, vol_p), f"K8 disagrees with plain at t={t}")
+        worst["K8"] = max(worst["K8"], float(diff))
+        del vol_k, vol_p
+
     # -- phase 4: the exact main path -------------------------------------
     ctx = Context(RES, RES, camera=BonsaiDemo.default_camera(1.0),
                   backbuffer_resolution=(RES, RES), device="cuda")
@@ -436,7 +537,7 @@ def main() -> int:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     exact_launches = launches()
-    check(exact_launches == {"K1": MAIN_FRAMES, "K3": 0, "K4": 0, "K6": 0, "K5": 0, "K2": 0},
+    check(exact_launches == only(K1=MAIN_FRAMES),
           f"exact main path launched {exact_launches}, not K1 x {MAIN_FRAMES} only")
     img = ctx.display_image
     check(tuple(img.shape) == (RES, RES, 4), f"display shape {tuple(img.shape)}")
@@ -473,8 +574,7 @@ def main() -> int:
     torch.cuda.synchronize()
     frun_s = time.perf_counter() - t0
     fast_launches = launches()
-    check(fast_launches == {"K1": 0, "K3": MAIN_FRAMES, "K4": MAIN_FRAMES, "K6": MAIN_FRAMES,
-                            "K5": 0, "K2": 0},
+    check(fast_launches == only(K3=MAIN_FRAMES, K4=MAIN_FRAMES, K6=MAIN_FRAMES),
           f"fast main path launched {fast_launches}, not K3/K4/K6 x {MAIN_FRAMES} only")
     img = fctx.display_image
     check(tuple(img.shape) == (RES, RES, 4), f"fast display shape {tuple(img.shape)}")
@@ -532,8 +632,8 @@ def main() -> int:
     torch.cuda.synchronize()
     hrun_s = time.perf_counter() - t0
     hyb_launches = launches()
-    check(hyb_launches == {"K1": 0, "K3": MAIN_FRAMES, "K4": MAIN_FRAMES, "K6": 0,
-                           "K5": MAIN_FRAMES, "K2": MAIN_FRAMES},
+    check(hyb_launches == only(K3=MAIN_FRAMES, K4=MAIN_FRAMES, K5=MAIN_FRAMES,
+                               K2=MAIN_FRAMES),
           f"hybrid main path launched {hyb_launches}, not K3/K4/K5/K2 x {MAIN_FRAMES} only")
     img = hctx.display_image
     check(bool(torch.isfinite(img).all()), "hybrid display image has non-finite pixels")
@@ -584,6 +684,117 @@ def main() -> int:
           f"{sweep['routes']}, {time.perf_counter() - t0:.1f} s", flush=True)
     check(sweep["over"] == 0, f"{sweep['over']} sweep poses beyond the hybrid's contract: "
           f"{[r['pose'] for r in sweep_recs if r['mean'] > HYBRID_CONTRACT]}")
+
+    # -- phase 4f: the xor main path, the field oracles, the trig demo ------
+    clear = torch.tensor([0.023, 0.02, 0.02], device=dev)
+    xor_runs = {}
+    for w, h in (XOR_RES, (FIELD_RES, FIELD_RES)):
+        xctx = Context(w, h, camera=XorDemo.default_camera(w / h), backbuffer_resolution=(w, h),
+                       device="cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        xctx = run(XorDemo, frames=MAIN_FRAMES, events=orbit_events(MAIN_FRAMES, w, h),
+                   context=xctx, quiet=True)
+        torch.cuda.synchronize()
+        xrun_s = time.perf_counter() - t0
+        xl = launches()
+        check(xl == only(K7=MAIN_FRAMES), f"xor main path launched {xl}, not K7 x {MAIN_FRAMES}")
+        hdr = xctx.render_backbuffer.texture
+        check(tuple(hdr.shape) == (h, w, 4) and bool(torch.isfinite(xctx.display_image).all()),
+              "xor frame is not finite or has the wrong shape")
+        lit = float(((hdr[..., :3] - clear).abs().amax(dim=-1) > 1e-3).float().mean())
+        check(lit > 0.01, f"xor frame shows no field ({lit:.4%} lit pixels)")
+        hdr_p = mf.render_field_plain(xctx.camera_uniform, 0.0, w, h)
+        d7 = (hdr - hdr_p).abs()
+        same = float((hdr == hdr_p).all(dim=-1).float().mean())
+        print(f"phase 4f xor main path: run(XorDemo) {MAIN_FRAMES} frames {w}x{h} (grad "
+              f"{mf.default_grad()}) in {xrun_s:.2f} s, launches {xl}, lit pixels {lit:.4f}, "
+              f"final frame vs plain max {float(d7.max()):.3e} mean {float(d7.mean()):.3e}, "
+              f"bitwise-equal pixels {same:.6f}", flush=True)
+        check(float(d7.max()) <= K7_MAX and float(d7.mean()) <= K7_MEAN,
+              "xor frame disagrees with the plain version")
+        worst["K7"] = max(worst["K7"], float(d7.max()))
+        xor_runs[(w, h)] = (xctx, xl)
+    oracle = reference.render_compute_inline(xor_u, 0.0, width=FIELD_RES, height=FIELD_RES)
+    for grad, tol in (("fd", MEAN_TOL), ("analytic", HYBRID_CONTRACT)):
+        img7 = mf.render_field(xor_u, 0.0, FIELD_RES, FIELD_RES, grad=grad)
+        mx, mean = rgb_err(img7, oracle)
+        print(f"phase 4f K7 {grad} vs the port's render_compute_inline Camera.xor(1.0) "
+              f"{FIELD_RES}x{FIELD_RES}: mean {mean:.4e} (limit {tol:g}), max {mx:.3e}",
+              flush=True)
+        check(mean <= tol, f"K7 {grad} beyond {tol:g} of the oracle")
+    img7 = mf.render_field(xor_u, 0.0, FIELD_RES, FIELD_RES, field="trig", shading="emission",
+                           quantize=False)
+    mx, mean = rgb_err(img7, reference.render_field(xor_u, 0.0, width=FIELD_RES,
+                                                    height=FIELD_RES))
+    print(f"phase 4f K7 trig vs render_field {FIELD_RES}x{FIELD_RES}: max {mx:.3e} mean "
+          f"{mean:.3e} (tol 1e-4 / 1e-6, test_pallas.py:76-77)", flush=True)
+    check(mx <= 1e-4 and mean <= 1e-6, "K7 trig disagrees with render_field")
+    # the texture path: K9's volumes through render_compute_tex
+    reset_launches()
+    dens, nrm = genvol.generate_xor_volumes(0.0, 256, dev)
+    tex = reference.render_compute_tex(dens, nrm, xor_u, width=FIELD_RES, height=FIELD_RES)
+    torch.cuda.synchronize()
+    tex_launches = launches()
+    check(tex_launches == only(K9=1), f"texture path launched {tex_launches}, not K9 once")
+    dt_ = (tex - oracle).abs()
+    near = float((dt_ < 1e-5).float().mean())
+    print(f"phase 4f texture path: K9 256^3 + render_compute_tex {FIELD_RES}x{FIELD_RES} vs "
+          f"render_compute_inline: max {float(dt_.max()):.3e} mean {float(dt_.mean()):.3e}, "
+          f"within 1e-5 {near:.4f} (tol 5e-3 / 5e-6 / 0.97, test_render_oracle.py:70-84)",
+          flush=True)
+    check(float(dt_.max()) < 5e-3 and float(dt_.mean()) < 5e-6 and near > 0.97,
+          "the texture path disagrees with the inline oracle")
+    del dens, nrm, tex, oracle, dt_
+    tctx = Context(*XOR_RES, device="cuda")
+    reset_launches()
+    tctx = run(TrigDemo, frames=MAIN_FRAMES, events=orbit_events(MAIN_FRAMES, *XOR_RES),
+               context=tctx, quiet=True)
+    torch.cuda.synchronize()
+    tl = launches()
+    tri = float((tctx.render_backbuffer.texture[..., 2] == 1.0).float().mean())
+    print(f"phase 4f trig demo: run(TrigDemo) {MAIN_FRAMES} frames {XOR_RES[0]}x{XOR_RES[1]}, "
+          f"launches {tl}, triangle pixels {tri:.4f}", flush=True)
+    check(tl == only() and 0.0 < tri < 1.0 and bool(torch.isfinite(tctx.display_image).all()),
+          "the trig demo launched a kernel or drew no triangle")
+
+    # -- phase 4g: config 5 at reduced depth --------------------------------
+    max_steps5 = int(math.ceil(math.sqrt(3.0) * VOL5)) + 1  # 888: the full diagonal
+    views5 = orbit_camera_batch(VIEWS, device=dev)
+
+    def config5_batch(b, views):
+        """One batch: the time-varying volume (K8), then every view (K1)."""
+        vol = genvol.generate_density_u8(0.3 * b, VOL5, dev)
+        imgs = []
+        for u in views:
+            eye, dxyz = geometry.rays_fragment_soa(u, VIEW_RES, VIEW_RES)
+            imgs.append(mb.render_bonsai_rays_cuda(vol, eye, dxyz, max_steps=max_steps5))
+        return vol, imgs
+
+    smoke_views = views5[:: VIEWS // VIEWS_SMOKE]
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in range(2):
+        vol5, imgs5 = config5_batch(b, smoke_views)
+    torch.cuda.synchronize()
+    c5_s = time.perf_counter() - t0
+    c5_launches = launches()
+    check(c5_launches == only(K8=2, K1=2 * VIEWS_SMOKE),
+          f"config 5 launched {c5_launches}, not K8 x 2 and K1 x {2 * VIEWS_SMOKE}")
+    c5_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean()) for im in imgs5)
+    check(all(bool(torch.isfinite(im).all()) for im in imgs5) and c5_lit > 0.01,
+          f"a config-5 view is not finite or shows nothing (least lit {c5_lit:.4f})")
+    eye, dxyz = geometry.rays_fragment_soa(smoke_views[1], VIEW_RES, VIEW_RES)
+    img5_p = reference.render_bonsai_rays(vol5, eye, torch.stack(dxyz, dim=-1),
+                                          max_steps=max_steps5)
+    mx, mean = rgb_err(imgs5[1], img5_p)
+    print(f"phase 4g config 5 (2 batches: K8 {VOL5}^3 at t = 0.3 b, {VIEWS_SMOKE} of {VIEWS} "
+          f"orbit views {VIEW_RES}^2 through K1, {max_steps5} steps) in {c5_s:.2f} s, "
+          f"launches {c5_launches}, least lit view {c5_lit:.4f}; view 1 vs K1 plain max "
+          f"{mx:.3e} mean {mean:.3e} (tol {MAX_TOL:g} / {MEAN_TOL:g}), bitwise-equal pixels "
+          f"{float((imgs5[1] == img5_p).all(dim=-1).float().mean()):.6f}", flush=True)
+    check(mx < MAX_TOL and mean < MEAN_TOL, "config-5 view disagrees with K1's plain version")
+    del imgs5, img5_p
 
     # -- phase 5: timing --------------------------------------------------
     uni = bench.uniform(dev)
@@ -818,6 +1029,96 @@ def main() -> int:
           f"({k6_bound[1]}), K5 {k5_bound[0]:.4f} ({k5_bound[1]}), K2 {k2_bound[0]:.4f} "
           f"({k2_bound[1]})", flush=True)
 
+    # K7, K9 and K8 alone (rays and time precomputed), their plain versions,
+    # this run's work, the xor demo frame and one full config-5 batch
+    t_dev = torch.zeros((), dtype=torch.float32, device=dev)
+    tvec = mf.time_vector(t_dev, dev)
+    k7_ms, k7p_ms, k7_samples, k7_bound = {}, {}, {}, {}
+    for name in ("xor analytic", "xor fd", "trig"):
+        field, shading, quantize, grad = k7_cases[name]
+        rays = mf.field_rays(xor_u, FIELD_RES, FIELD_RES, field, 256, quantize, True)
+        k7_ms[name] = median_ms(lambda: mf.launch(tvec, rays, field, shading, 256, quantize,
+                                                  reference.MAX_STEPS_COMPUTE, grad,
+                                                  mf.DEFAULT_TILE_H), n, torch)
+        kw = dict(field=field, shading=shading, quantize=quantize, grad=grad)
+        k7p_ms[name] = median_ms(lambda: mf.render_field_plain(xor_u, t_dev, FIELD_RES,
+                                                               FIELD_RES, **kw), 5, torch,
+                                 warmup=1)
+        _, steps = mf.render_field_plain(xor_u, t_dev, FIELD_RES, FIELD_RES, return_steps=True,
+                                         **kw)
+        k7_samples[name] = int(steps.sum())
+        k7_bound[name] = bound_ms(FIELD_RES * FIELD_RES * (9 * 4 + 16) + 8,
+                                  k7_samples[name] * OPS_K7_SAMPLE[name])
+    k9_ms = median_ms(lambda: genvol.generate_xor_volumes(t_dev, 256), TIMED_FRAMES, torch)
+    k9p_ms = median_ms(lambda: genvol.generate_xor_volumes_plain(t_dev, 256), 5, torch, warmup=1)
+    k8_ms = median_ms(lambda: genvol.generate_density_u8(t_dev, VOL5), TIMED_FRAMES, torch)
+    k8p_ms = median_ms(lambda: genvol.generate_density_u8_plain(t_dev, VOL5), 3, torch, warmup=1)
+    k9_bound = bound_ms(256 ** 3 * 32 + 4, 256 ** 3 * OPS_K9_VOXEL)
+    k8_bound = bound_ms(VOL5 ** 3 + 4, VOL5 ** 3 * OPS_K8_VOXEL)
+    print(f"phase 5 field kernels ({card}; {FIELD_RES}^2 Camera.xor(1.0), t = 0, sphere clip; "
+          f"medians of {n} / 5 plain): " + ", ".join(
+              f"K7 {k} {k7_ms[k]:.4f} ms (plain {k7p_ms[k]:.2f}, {k7_samples[k]} samples, "
+              f"bound {k7_bound[k][0]:.4f} {k7_bound[k][1]})" for k in k7_ms), flush=True)
+    print(f"phase 5 volume kernels ({card}): K9 256^3 {k9_ms:.4f} ms (plain {k9p_ms:.2f}, bound "
+          f"{k9_bound[0]:.4f} {k9_bound[1]}), K8 {VOL5}^3 {k8_ms:.4f} ms (plain {k8p_ms:.2f}, "
+          f"bound {k8_bound[0]:.4f} {k8_bound[1]})", flush=True)
+    xctx = xor_runs[XOR_RES][0]
+    xor_demo = XorDemo.init(xctx)
+
+    def xor_frame():
+        xctx.update()
+        xor_demo.render(xctx)
+        xctx.render()
+
+    xw, xh = XOR_RES
+    xrays = mf.field_rays(xctx.camera_uniform, xw, xh)
+    xgrad = mf.default_grad()
+    xor_stages = {
+        "rays + clip (torch)": median_ms(lambda: mf.field_rays(xctx.camera_uniform, xw, xh), n,
+                                         torch),
+        "K7": median_ms(lambda: mf.launch(tvec, xrays, "noise", "xor", 256, True,
+                                          reference.MAX_STEPS_COMPUTE, xgrad, mf.DEFAULT_TILE_H),
+                        n, torch),
+        "present": median_ms(lambda: present(xctx.render_backbuffer.texture,
+                                             out_height=xh, out_width=xw), n, torch),
+        "whole frame (update + render + present)": median_ms(xor_frame, n, torch),
+    }
+    syncs = host_syncs(xor_frame, torch)
+    share = device_share(xor_frame, 10, torch)
+    trace = ("no device events in the trace" if share is None else
+             f"{share[0]:.1f} device kernels/copies per frame, device busy {share[1]:.4f} ms "
+             f"per frame, device idle share {share[2]:.3f}")
+    print(f"phase 5 xor demo frame ({card}; {xw}x{xh}, grad {xgrad}, medians of {n}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in xor_stages.items())
+          + f"; profile (10 frames, torch.profiler on): host syncs per frame {syncs}, {trace}",
+          flush=True)
+    trig_demo = TrigDemo.init(tctx)
+
+    def trig_frame():
+        tctx.update()
+        trig_demo.render(tctx)
+        tctx.render()
+
+    trig_ms = median_ms(trig_frame, n, torch)
+    trig_syncs = host_syncs(trig_frame, torch)
+    trig_field_ms = median_ms(lambda: mf.render_field(xor_u, t_dev, FIELD_RES, FIELD_RES,
+                                                      field="trig", shading="emission",
+                                                      quantize=False), n, torch)
+    print(f"phase 5 trig ({card}; medians of {n}): trig demo frame {xw}x{xh} (update + "
+          f"rasterize + present) {trig_ms:.4f} ms, host syncs per frame {trig_syncs}; trig "
+          f"field frame {FIELD_RES}^2 (render_field: rays + clip + K7) {trig_field_ms:.4f} ms",
+          flush=True)
+    eye5, dxyz5 = geometry.rays_fragment_soa(views5[0], VIEW_RES, VIEW_RES)
+    c5_view_ms = median_ms(lambda: mb.render_bonsai_rays_cuda(vol5, eye5, dxyz5,
+                                                              max_steps=max_steps5), n, torch)
+    c5_rays_ms = median_ms(lambda: geometry.rays_fragment_soa(views5[0], VIEW_RES, VIEW_RES), n,
+                           torch)
+    c5_ms = median_ms(lambda: config5_batch(0, views5), 3, torch, warmup=1)
+    print(f"phase 5 config 5 ({card}): one batch (K8 {VOL5}^3 + {VIEWS} views {VIEW_RES}^2, "
+          f"{max_steps5} steps) {c5_ms:.2f} ms ({VIEWS * VIEW_RES ** 2 / c5_ms / 1e3:.1f} "
+          f"Mrays/s); K1 one view {c5_view_ms:.4f} ms, its rays {c5_rays_ms:.4f} ms, K8 "
+          f"{k8_ms:.4f} ms", flush=True)
+
     def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -842,7 +1143,17 @@ def main() -> int:
         entry("warp_stats", "vokselis_torch/csrc/warp2d.cu",
               "vokselis_tpu/ops/pallas/warp2d.py:470", hyb_launches["K5"],
               worst["K5"], hyb_rows[II]["K5"], k5p_ms, k5_bound, lib5_ms),
+        entry("march_field", "vokselis_torch/csrc/march_field.cu",
+              "vokselis_tpu/ops/pallas/march_field.py:61", xor_runs[XOR_RES][1]["K7"],
+              worst["K7"], k7_ms["xor analytic"], k7p_ms["xor analytic"],
+              k7_bound["xor analytic"], None),
+        entry("genvol", "vokselis_torch/csrc/genvol.cu", "vokselis_tpu/ops/pallas/genvol.py:27",
+              tex_launches["K9"], worst["K9"], k9_ms, k9p_ms, k9_bound, None),
+        entry("gendensity", "vokselis_torch/csrc/genvol.cu",
+              "vokselis_tpu/ops/pallas/genvol.py:86", c5_launches["K8"], worst["K8"], k8_ms,
+              k8p_ms, k8_bound, None),
     ]
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

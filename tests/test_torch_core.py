@@ -217,7 +217,10 @@ def test_import_without_jax():
         "vokselis_torch.engine.loop, vokselis_torch.ops.cuda.march_bonsai, "
         "vokselis_torch.ops.shear_warp, vokselis_torch.ops.cuda.shear_resample, "
         "vokselis_torch.ops.cuda.warp2d, vokselis_torch.ops.hybrid, "
-        "vokselis_torch.tools.hybrid_sweep\n"
+        "vokselis_torch.tools.hybrid_sweep, vokselis_torch.models, "
+        "vokselis_torch.ops.cuda.march_field, vokselis_torch.ops.cuda.genvol, "
+        "vokselis_torch.ops.raster, vokselis_torch.volume.fields, "
+        "vokselis_torch.parallel\n"
         "bad = [m for m in sys.modules if m.startswith(('vokselis_tpu', 'jax'))"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -5,8 +5,9 @@ The JAX package ``vokselis_tpu`` stays beside it as the reference. This port
 imports torch and numpy only; its hot loops are kernels written by hand for
 Hopper (``vokselis_torch/csrc``, bound in :mod:`vokselis_torch.ops.cuda`),
 each with a plain-torch version that runs on the CPU. It runs the bonsai
-volume's exact, fast (shear-warp) and hybrid renderers through the engine
-loop: camera -> kernels -> present -> PNG.
+volume's exact, fast (shear-warp) and hybrid renderers, the xor demo's
+procedural field march and the trig demo through the engine loop (camera ->
+kernels -> present -> PNG), and generates the procedural volumes.
 """
 
 __version__ = "0.1.0"

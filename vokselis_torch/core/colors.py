@@ -9,9 +9,10 @@ Reference sources:
   the truncated constant used by the shader)
 
 ``csrc/march_bonsai.cu`` repeats ``bonsai_transfer_soa`` and
-``linear_to_srgb`` in CUDA, and ``csrc/shear_resample.cu`` repeats
+``linear_to_srgb`` in CUDA, ``csrc/shear_resample.cu`` repeats
 ``bonsai_transfer_soa`` and ``bonsai_transfer_pow_lowdeg_soa`` (with the
-``_PAL_*_LO`` coefficients); a change here must be made there too.
+``_PAL_*_LO`` coefficients), and ``csrc/fields.cuh`` repeats ``smoothstep``,
+``mix`` and ``fract``; a change here must be made there too.
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ def smoothstep(edge0, edge1, x):
 def mix(a, b, t):
     """WGSL mix(a, b, t) = a*(1-t) + b*t."""
     return a + (b - a) * t
+
+
+def fract(x):
+    """WGSL fract: x - floor(x)."""
+    return x - torch.floor(x)
 
 
 def linear_to_srgb(x):

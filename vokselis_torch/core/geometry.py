@@ -2,9 +2,12 @@
 
 Reference sources:
 - slab test vs [0,1]^3: shaders/raycast_naive.wgsl:50-61
+- slab test vs [-1,1]^3: shaders/raycast_compute.wgsl:42-53
 - fragment-path ray gen (perspective-correct interpolation of cube-surface
   position minus eye — equivalent to unprojecting through pixel centers):
   shaders/raycast_naive.wgsl:40-48
+- compute-path ray gen with the reference's ``screen.y *= -aspect`` quirk:
+  shaders/raycast_compute.wgsl:99-117
 
 Tensors are created on the device of the camera uniform they derive from.
 """
@@ -30,6 +33,11 @@ def intersect_box(orig, direction, box_min, box_max):
 def intersect_box_unit(orig, direction):
     """[0,1]^3 box (bonsai path, shaders/raycast_naive.wgsl:50-61)."""
     return intersect_box(orig, direction, 0.0, 1.0)
+
+
+def intersect_box_sym(orig, direction):
+    """[-1,1]^3 box (compute path, shaders/raycast_compute.wgsl:42-53)."""
+    return intersect_box(orig, direction, -1.0, 1.0)
 
 
 def pixel_centers(width: int, height: int, device, dtype=torch.float32):
@@ -156,3 +164,49 @@ def center_ray_dir(camera_uniform, width: int, height: int):
     dz = fz / fw - nz / nw
     inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
     return torch.stack([dx * inv_len, dy * inv_len, dz * inv_len])
+
+
+def _screen_compute(width: int, height: int, device, offset_x=0.0, offset_y=0.0):
+    """Compute-path screen coordinates (raycast_compute.wgsl:99-104): the
+    reference uses the integer gid + offset, not the pixel center, and
+    scales y by -aspect (aspect = H/W)."""
+    px, py = pixel_centers(width, height, device)
+    coord_x = px - 0.5 + offset_x
+    coord_y = py - 0.5 + offset_y
+    aspect_ratio = float(height) / float(width)
+    sx = 2.0 * coord_x / width - 1.0
+    sy = (2.0 * coord_y / height - 1.0) * (-aspect_ratio)
+    return sx, sy
+
+
+def rays_compute(camera_uniform, width: int, height: int, offset_x=0.0, offset_y=0.0):
+    """Compute-path rays, replicating shaders/raycast_compute.wgsl:99-117
+    verbatim, including the ``screen.y *= -aspect_ratio`` quirk
+    (aspect_ratio = H/W) and the screen-point/tangent-point unprojection.
+
+    Returns (eyes (H, W, 3), dirs (H, W, 3)); note the compute path derives a
+    per-pixel eye from unprojection (they all coincide up to fp error).
+    """
+    inv = camera_uniform.inv_proj
+    sx, sy = _screen_compute(width, height, inv.device, offset_x, offset_y)
+    eye = unproject(inv, sx, sy, 0.0)
+    tang = unproject(inv, sx, sy, 1.0)
+    d = tang - eye
+    d = d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
+    return eye, d
+
+
+def rays_compute_soa(camera_uniform, width: int, height: int, offset_x=0.0, offset_y=0.0):
+    """SoA variant of :func:`rays_compute` — the form the field march kernel
+    reads: returns ((ex, ey, ez), (dx, dy, dz)), each component (H, W). The
+    depths are Python floats, so no scalar is uploaded to the device."""
+    inv = camera_uniform.inv_proj
+    sx, sy = _screen_compute(width, height, inv.device, offset_x, offset_y)
+    nx, ny, nz, nw = mat4_apply(inv, sx, sy, 0.0)
+    fx, fy, fz, fw = mat4_apply(inv, sx, sy, 1.0)
+    ex, ey, ez = nx / nw, ny / nw, nz / nw
+    dx = fx / fw - ex
+    dy = fy / fw - ey
+    dz = fz / fw - ez
+    inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    return (ex, ey, ez), (dx * inv_len, dy * inv_len, dz * inv_len)

@@ -1,6 +1,14 @@
-"""Demo models: :class:`BonsaiDemo`, the fragment-raymarch of the 256^3 CT
-volume (examples/bonsai/). The trig and xor demos are not ported yet."""
+"""Demo models: the reference's three example renderers as Demo classes.
+
+- :class:`TrigDemo` — hello-triangle with camera (examples/trig.rs)
+- :class:`BonsaiDemo` — fragment-raymarch of the 256^3 CT volume
+  (examples/bonsai/)
+- :class:`XorDemo` — compute raymarch of the procedural fbm volume with
+  single/tile dispatch modes and pass timing (examples/xor/)
+"""
 
 from vokselis_torch.models.bonsai import BonsaiDemo
+from vokselis_torch.models.trig import TrigDemo
+from vokselis_torch.models.xor import XorDemo
 
-__all__ = ["BonsaiDemo"]
+__all__ = ["TrigDemo", "BonsaiDemo", "XorDemo"]

@@ -4,7 +4,8 @@ library and load it with ``ctypes``.
 Every kernel module calls :func:`load_library` with its source at first use
 on a CUDA device (never at import). ``nvcc`` compiles for ``sm_90a`` into
 ``build/vokselis_torch/`` under the checkout, once per source and flag set:
-the library's file name carries a hash of both, so an edited source or flag
+the library's file name carries a hash of both (and of the headers in
+``csrc/``, which sources share), so an edited source, header or flag
 rebuilds and an unchanged one is reused. Separate sources may be built
 concurrently (one ``nvcc`` each, e.g. from threads).
 """
@@ -46,7 +47,9 @@ def load_library(source: Path, flags=NVCC_FLAGS) -> tuple[ctypes.CDLL, str]:
     ``ptxas`` register and spill report); the output is empty when the
     library was already built. A failed build raises with the compiler's
     output."""
-    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(source.read_bytes() + headers
+                         + " ".join(flags).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     log = ""
     if not so.is_file():
