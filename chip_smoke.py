@@ -11,10 +11,11 @@ Phases, each reported on its own lines:
      nvcc per source, all started together: K1 + K2 (march_bonsai.cu), K3 +
      K4 (shear_resample.cu), K6 + K5 (warp2d.cu), K7 (march_field.cu) and
      K9 + K8 (genvol.cu); ptxas registers and spills;
-  3. K1 against its plain torch version on the card, at 1024x1024 on the
+  3. K1 (with its empty-space skip over the volume's occupancy table)
+     against its plain torch version on the card, at 1024x1024 on the
      256^3 bonsai (bench, eye-inside and diagonal poses) and on a random
      256^3 volume with full borders: finite, max |d| < 1e-3 and
-     mean |d| < 1e-5 on rgb;
+     mean |d| < 1e-5 on rgb (expected bitwise);
   3b. K3, K4 (low-degree transfer), K4b (K4's exact-transfer mode) and K6
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
@@ -29,8 +30,10 @@ Phases, each reported on its own lines:
      the xor demo's fbm field with analytic and fd normals, the trig field
      with emission and the bitwise xor field, at t = 0 and 1.7, sphere clip
      on and off (expected bitwise; held at test_pallas.py's 5e-3 / 1e-5);
-     K9 (the xor volumes) at 256^3 within test_pallas.py:80-90's bounds and
-     K8 (the u8 density) at 512^3 equal, bitwise shares printed;
+     K7 with a hash table cut short must trap (a process of its own exits
+     3 after the synchronization raised); K9 (the xor volumes) at 256^3
+     within test_pallas.py:80-90's bounds and K8 (the u8 density) at 512^3
+     equal, bitwise shares printed;
   4. the exact main path: engine.loop.run(BonsaiDemo) for 8 frames at
      1024x1024 on "cuda", which must launch K1 once per frame (and no fast
      kernel) and end in a finite, non-background frame that agrees with the
@@ -60,17 +63,26 @@ Phases, each reported on its own lines:
      (K9's volumes through render_compute_tex) against the inline oracle;
      run(TrigDemo), which launches no kernel;
   4g. config 5 at reduced depth: 2 batches, each K8 at 512^3 (t = 0.3 b)
-     and 8 orbit views at 512^2 through K1 with 888 steps; one view against
-     K1's plain version;
-  5. timing with CUDA events: median ms of each kernel and of its plain
-     version at the bench pose, the frames' other stages, whole exact, fast
-     and hybrid frames (the hybrid's stages at I=512/budget 128 and
-     I=1024/budget 64), and one PyTorch call computing each of K3's, K6's
-     and K5's warps (grid_sample) as a yardstick; K7 (xor analytic, xor fd,
-     trig at 512^2), K9 at 256^3, K8 at 512^3 and their plain versions, the
-     whole xor demo frame at 1280x720 with its host syncs and idle share,
-     the trig demo frame and the trig field frame, and one full config-5
-     batch of 64 views.
+     and 8 orbit views at 512^2 through K1 with 888 steps (the first builds
+     the volume's occupancy table); one view against K1's plain version;
+  5. timing with CUDA events. Each kernel's device_ms: a CUDA graph of 50
+     launches replayed between two events, over 50 (the host's wrapper
+     code is not in it); its call_ms (also the JSON line's ms): one wrapper
+     call between two events, median of 100 (what a host-bound frame pays). Both for every kernel
+     (K1, K1b, K2, K3, K4, K4b, K5, K6, K7 in its three modes, K8, K9) and
+     for the grid_sample yardsticks of K3's and K6's functions (and of
+     K5's warp alone: K5's statistics have no library counterpart); plain
+     versions, the frames' other stages, whole exact, fast and hybrid
+     frames (the hybrid's stages at I=512/budget 128 and I=1024/budget 64),
+     the bounds (K1's and K2's count a skipped step's work, not a sampled
+     one's) and the ranking by device ms - bound. K1's and K2's share of
+     marched steps skipped (skip_counts) at the bench pose and for a
+     config-5 view, and the occupancy tables' build times;
+     K7 at 512^2 with its lane efficiency (sum of steps over the sum of 32 x
+     each warp's longest ray) and the hash table's build time, K9 at 256^3,
+     K8 at 512^3, the whole xor demo frame at 1280x720 with its host syncs,
+     idle share and lane efficiency, the trig demo frame and the trig field
+     frame, and one full config-5 batch of 64 views.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and ``{"ok": true, "device": {...}}``. Any failed check or
@@ -94,6 +106,7 @@ RES = 1024  # the flagship frame: 256^3 bonsai at 1024^2 (bench.py:65)
 MAX_TOL, MEAN_TOL = 1e-3, 1e-5  # the exact kernel's parity contract
 TIMED_FRAMES = 20
 WARMUP = 3
+GRAPH_LAUNCHES = 50  # launches per CUDA graph for a kernel's device time
 MAIN_FRAMES = 8
 II = 512  # FastBonsaiRenderer's default intermediate
 II_HYBRID = 1024  # the hybrid's operating point (OPPOINT.json)
@@ -116,6 +129,10 @@ F32_FLOPS = 67e12
 # float32 operations per unit of work, counted from the CUDA sources (adds,
 # subtracts, multiplies, min/max, floor; each cosf/expf/logf as one):
 OPS_K1_STEP = 86  # march_bonsai.cu: 41 trilinear + 27 transfer + 11 composite + 7 advance
+# a step K1 or K2 skips (march_bonsai.cu march_ray): 6 texel position + 3
+# floors for the lower taps, whose cell decides the skip, + 7 advance (the
+# cell index is integer work, uncounted as the tap addresses are)
+OPS_SKIP_STEP = 16
 OPS_K3_TEXEL = 13  # shear_resample.cu: 2 floors, 2 fractions, 3 lerps
 OPS_K4_SAMPLE = 73  # low-degree: 9 smoothstep, 2 + 48 palette, 5 alpha, 9 composite
 OPS_K4B_SAMPLE = 41  # exact: 9 smoothstep, 3 x 6 palette (one cosf), 5 alpha, 9 composite
@@ -137,6 +154,29 @@ XOR_RES = (1280, 720)  # the xor demo's backbuffer (HdrBackBuffer default)
 FIELD_RES = 512  # configs 1 and 2 (bench.py:442-444)
 K7_MAX, K7_MEAN = 5e-3, 1e-5  # test_pallas.py:41-58, K7 vs plain if not bitwise
 VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-371)
+
+
+# K7 with a hash table that misses most of octave 0's lattice arguments: the
+# kernel must trap and the stream's synchronization raise (exit 3)
+TRAP_CHECK = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from vokselis_torch.core.camera import Camera
+from vokselis_torch.ops.cuda import march_field as mf
+dev = torch.device("cuda", 0)
+(lo, _), *rest = mf.HASH_RANGES
+bad = mf.build_hash_table(dev, ((lo, lo + 300), *rest))
+rays = mf.field_rays(Camera.xor(1.0).uniform(dev), 64, 64)
+mf.launch(mf.time_vector(0.0, dev), rays, "noise", "xor", 256, True, 348, "analytic", 8,
+          table=bad)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", str(e).strip().splitlines()[0])
+    sys.exit(3)
+print("no error")
+"""
 
 
 def check(cond: bool, msg: str) -> None:
@@ -168,6 +208,79 @@ def median_ms(fn, n: int, torch, warmup: int = WARMUP) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, torch, n: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
+    """The device time of one call of ``fn``: ``n`` calls captured in one
+    CUDA graph, replayed between two CUDA events, divided by ``n`` (median
+    of ``reps`` replays after one warm replay). The host's wrapper code runs
+    only while the graph is captured, so a kernel and a library call are
+    timed alike, without the host's share; L2 is warm."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    times.sort()
+    return times[len(times) // 2]
+
+
+def lane_efficiency(steps, torch) -> float:
+    """K7's SIMT lane efficiency from per-pixel step counts (H, W): the sum
+    of steps over the sum, over warps (32 consecutive pixels of a row, as
+    K7's 32-wide blocks lay them out), of 32 x the warp's longest ray."""
+    s = torch.nn.functional.pad(steps.float(), (0, (-steps.shape[1]) % 32))
+    s = s.reshape(steps.shape[0], -1, 32)
+    return float(s.sum() / (32.0 * s.amax(dim=-1)).sum())
+
+
+def skip_counts(vol, eye, dirs, steps, torch):
+    """K1's and K2's work on the rays ``dirs`` (H, W, 3) from ``eye``, given
+    the plain march's per-ray step counts ``steps``: (steps marched, steps
+    skipped). Each ray's positions are accumulated as the march accumulates
+    them, and a step skips where the cell of its lower taps holds no voxel
+    above OCC_CUT in the volume's occupancy table (march_bonsai.cu
+    march_ray's test)."""
+    from vokselis_torch.core import geometry
+    from vokselis_torch.ops.cuda import march_bonsai as mb
+    from vokselis_torch.volume.sample import trilinear_weights
+
+    dims = vol.shape[0]
+    occ = mb.occupancy_table(vol).reshape(-1).long()
+    cells = -(-dims // mb.OCC_CELL)
+    d = dirs.reshape(-1, 3)
+    n = steps.reshape(-1)
+    eye_b = eye.expand_as(d)
+    t0, _ = geometry.intersect_box_unit(eye_b, d)
+    dt = torch.amin(1.0 / (float(dims) * torch.abs(d)), dim=-1)
+    p = eye_b + torch.clamp(t0, min=0.0)[:, None] * d
+    sizes = torch.full((3,), float(dims), dtype=torch.float32, device=d.device)
+    skipped = torch.zeros((), dtype=torch.int64, device=d.device)
+    for k in range(int(n.max())):
+        active = n > k
+        lower = torch.clamp(trilinear_weights(p, sizes)[0], 0, dims - 1) // mb.OCC_CELL
+        empty = occ[(lower[:, 2] * cells + lower[:, 1]) * cells + lower[:, 0]] <= mb.OCC_CUT
+        skipped += (active & empty).sum()
+        p = torch.where(active[:, None], p + d * dt[:, None], p)
+    return int(n.sum()), int(skipped)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -502,6 +615,15 @@ def main() -> int:
                       f"K7 {name} t={t} clip {clip} disagrees with plain")
                 worst["K7"] = max(worst["K7"], mx)
     del img_k, img_p, d7
+    # a lattice argument outside K7's hash table traps; the context is lost
+    # then, so the check runs in a process of its own
+    trap = subprocess.run([sys.executable, "-c", TRAP_CHECK, ROOT], capture_output=True,
+                          text=True, timeout=300)
+    said = (trap.stdout.strip().splitlines() or ["(no output)"])[-1]
+    print(f"phase 3d K7 with octave 0's table cut to 301 entries: exit {trap.returncode}, {said}",
+          flush=True)
+    check(trap.returncode == 3, f"K7 read outside its hash table without an error:\n"
+          f"{trap.stdout}{trap.stderr}")
     for t in (0.0, 1.25):
         dens, nrm = genvol.generate_xor_volumes(t, 256, dev)
         dens_p, nrm_p = genvol.generate_xor_volumes_plain(t, 256, dev)
@@ -704,7 +826,8 @@ def main() -> int:
               "xor frame is not finite or has the wrong shape")
         lit = float(((hdr[..., :3] - clear).abs().amax(dim=-1) > 1e-3).float().mean())
         check(lit > 0.01, f"xor frame shows no field ({lit:.4%} lit pixels)")
-        hdr_p = mf.render_field_plain(xctx.camera_uniform, 0.0, w, h)
+        hdr_p, xsteps = mf.render_field_plain(xctx.camera_uniform, 0.0, w, h,
+                                              return_steps=True)
         d7 = (hdr - hdr_p).abs()
         same = float((hdr == hdr_p).all(dim=-1).float().mean())
         print(f"phase 4f xor main path: run(XorDemo) {MAIN_FRAMES} frames {w}x{h} (grad "
@@ -714,7 +837,7 @@ def main() -> int:
         check(float(d7.max()) <= K7_MAX and float(d7.mean()) <= K7_MEAN,
               "xor frame disagrees with the plain version")
         worst["K7"] = max(worst["K7"], float(d7.max()))
-        xor_runs[(w, h)] = (xctx, xl)
+        xor_runs[(w, h)] = (xctx, xl, lane_efficiency(xsteps, torch))
     oracle = reference.render_compute_inline(xor_u, 0.0, width=FIELD_RES, height=FIELD_RES)
     for grad, tol in (("fd", MEAN_TOL), ("analytic", HYBRID_CONTRACT)):
         img7 = mf.render_field(xor_u, 0.0, FIELD_RES, FIELD_RES, grad=grad)
@@ -763,7 +886,8 @@ def main() -> int:
     views5 = orbit_camera_batch(VIEWS, device=dev)
 
     def config5_batch(b, views):
-        """One batch: the time-varying volume (K8), then every view (K1)."""
+        """One batch: the time-varying volume (K8), then every view (K1,
+        whose first launch builds the volume's occupancy table)."""
         vol = genvol.generate_density_u8(0.3 * b, VOL5, dev)
         imgs = []
         for u in views:
@@ -806,6 +930,12 @@ def main() -> int:
                      TIMED_FRAMES, torch)
     k2_ms = median_ms(lambda: mb.render_bonsai_rays_cuda(vol_bonsai, eye, dxyz),
                       5 * TIMED_FRAMES, torch)
+    k1_dev = device_ms(lambda: mb.render_bonsai_rays_cuda(vol_bonsai, eye, dxyz), torch)
+    occ_ms = (device_ms(lambda: mb.occupancy_table(vol_bonsai), torch),
+              median_ms(lambda: mb.occupancy_table(vol_bonsai), 5 * TIMED_FRAMES, torch))
+    _, steps = reference.render_bonsai_rays(vol_bonsai, eye, dirs, return_steps=True)
+    k1_steps, k1_skipped = skip_counts(vol_bonsai, eye, dirs, steps, torch)
+    k1_skip = k1_skipped / k1_steps
     rays_ms = median_ms(lambda: geometry.rays_fragment_soa(uni, RES, RES),
                         5 * TIMED_FRAMES, torch)
     hdr = mb.render_bonsai_rays_cuda(vol_bonsai, eye, dxyz)
@@ -822,8 +952,11 @@ def main() -> int:
     print(f"phase 5 timing ({card}; median of {5 * TIMED_FRAMES} / {TIMED_FRAMES} "
           f"frames after {WARMUP} warm-up, CUDA events, bench pose, 256^3 "
           f"{RES}x{RES}):", flush=True)
-    print(f"phase 5 K1 kernel: {k_ms:.4f} ms/frame ({mrays / k_ms * 1e3:.1f} Mrays/s); "
-          f"again after the plain runs: {k2_ms:.4f} ms/frame")
+    print(f"phase 5 K1 kernel: device {k1_dev:.4f} ms ({mrays / k1_dev * 1e3:.1f} Mrays/s; "
+          f"CUDA graph of {GRAPH_LAUNCHES} launches); one wrapper call {k_ms:.4f} ms, again "
+          f"after the plain runs {k2_ms:.4f} ms; marched steps skipped "
+          f"{k1_skip:.4f}; occupancy table (256^3 -> 32^3) device {occ_ms[0]:.4f} ms, one call "
+          f"{occ_ms[1]:.4f} ms")
     print(f"phase 5 K1 plain torch: {p_ms:.4f} ms/frame "
           f"({mrays / p_ms * 1e3:.2f} Mrays/s)")
     print(f"phase 5 other stages: rays_fragment_soa {rays_ms:.4f} ms, "
@@ -868,6 +1001,18 @@ def main() -> int:
     grid6 = torch.stack([bu / (II - 1) * 2 - 1, av / (II - 1) * 2 - 1], dim=-1)[None]
     lib6_ms = median_ms(lambda: gs(chans[None], grid6, mode="bilinear", padding_mode="zeros",
                                    align_corners=True), n, torch)
+    dev_ms = {
+        "K3": device_ms(lambda: sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v,
+                                                  geo.occ_k), torch),
+        "K4": device_ms(lambda: sr.composite(stack_b, geo.sgn, geo.irho, geo.occ_rb), torch),
+        "K4b": device_ms(lambda: sr.composite(stack_b, geo.sgn, geo.irho, geo.occ_rb,
+                                              "exact"), torch),
+        "K6": device_ms(lambda: w2.warp_bilinear(chans, av, bu, ok), torch),
+        "grid_sample K3": device_ms(lambda: gs(slabs, grid3, mode="bilinear",
+                                               padding_mode="zeros", align_corners=True), torch),
+        "grid_sample K6": device_ms(lambda: gs(chans[None], grid6, mode="bilinear",
+                                               padding_mode="zeros", align_corners=True), torch),
+    }
     del slabs, grid3
     fast_demo = FastDemo.init(fctx)
 
@@ -881,14 +1026,16 @@ def main() -> int:
                                                           plain=True), TIMED_FRAMES, torch)
     print(f"phase 5 fast path ({card}; bench pose, 256^3 {RES}x{RES}, I={II}; medians "
           f"of {n} / {TIMED_FRAMES} plain):", flush=True)
-    print(f"phase 5 fast stages: geometry (torch) {geo_ms:.4f} ms, K3 resample "
+    print(f"phase 5 fast stages (one call): geometry (torch) {geo_ms:.4f} ms, K3 resample "
           f"{k3_ms:.4f} ms, K4 composite {k4_ms:.4f} ms (K4b exact transfer "
           f"{k4b_ms:.4f} ms), warp coords (torch) {coords_ms:.4f} ms, K6 warp "
           f"{k6_ms:.4f} ms")
+    print(f"phase 5 device times (CUDA graph of {GRAPH_LAUNCHES} launches): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items()))
     print(f"phase 5 fast plain torch: K3 {k3p_ms:.4f} ms, K4 {k4p_ms:.4f} ms (K4b "
           f"{k4bp_ms:.4f} ms), K6 "
           f"{k6p_ms:.4f} ms, whole plain fast frame {fplain_ms:.4f} ms")
-    print(f"phase 5 yardsticks (grid_sample, f32): K3's function {lib3_ms:.4f} ms, "
+    print(f"phase 5 yardsticks (grid_sample, f32, one call): K3's function {lib3_ms:.4f} ms, "
           f"K6's function {lib6_ms:.4f} ms")
     print(f"phase 5 whole fast frame (Context.update + BonsaiDemo.render + present): "
           f"{fframe_ms:.4f} ms/frame ({mrays / fframe_ms * 1e3:.1f} Mrays/s)", flush=True)
@@ -941,10 +1088,14 @@ def main() -> int:
             "whole hybrid frame (renderer call)": median_ms(lambda: r_ii(uni, RES, RES), n,
                                                             torch),
         }
+        row["K5 device"] = device_ms(lambda: w2.warp_stats(*k5_args), torch)
+        row["K2 device"] = device_ms(lambda: mb._launch_tiles(
+            vol_bonsai, rays, ids, RES, RES, tpu, reference.MAX_STEPS_BONSAI, True, base, False),
+            torch)
         n_sel = int((ids < n_units).sum())
         print(f"phase 5 hybrid stages ({card}; bench pose, 256^3 {RES}x{RES}, I={ii}, budget "
               f"{budget}, {n_sel} of {ids.numel()} {'pairs' if pair else 'tiles'} "
-              f"selected; medians of {n}): "
+              f"selected; one call, medians of {n}; device: CUDA graph of {GRAPH_LAUNCHES}): "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()), flush=True)
         return row, k5_args, ids, rays, base, n_sel
 
@@ -957,6 +1108,8 @@ def main() -> int:
     grid5 = torch.stack([hbu / (II - 1) * 2 - 1, hav / (II - 1) * 2 - 1], dim=-1)[None]
     lib5_ms = median_ms(lambda: gs(hchans[None], grid5, mode="bilinear", padding_mode="border",
                                    align_corners=True), n, torch)
+    lib5_dev = device_ms(lambda: gs(hchans[None], grid5, mode="bilinear", padding_mode="border",
+                                    align_corners=True), torch)
     k2p_ms = median_ms(lambda: mb.render_bonsai_tiles_into_plain(
         vol_bonsai, base, uni, ids, RES, RES, tpu, True), TIMED_FRAMES, torch)
     # K1b, K2's compact mode (tests only), on the same units
@@ -964,14 +1117,20 @@ def main() -> int:
     k1b_ms = median_ms(lambda: mb._launch_tiles(vol_bonsai, rays, ids, RES, RES, tpu,
                                                 reference.MAX_STEPS_BONSAI, True, compact,
                                                 True), n, torch)
+    k1b_dev = device_ms(lambda: mb._launch_tiles(vol_bonsai, rays, ids, RES, RES, tpu,
+                                                 reference.MAX_STEPS_BONSAI, True, compact,
+                                                 True), torch)
     k1bp_ms = median_ms(lambda: mb.render_bonsai_tiles_plain(vol_bonsai, uni, ids, RES, RES,
                                                              tpu, True), TIMED_FRAMES, torch)
-    _, k2_steps = reference.render_bonsai_rays(vol_bonsai, rays[0], torch.stack(rays[1], dim=-1),
-                                               return_steps=True, fast_transfer=True)
-    k2_steps = int((k2_steps * (ids.repeat_interleave(tpu * 32) < n_units)[:, None]).sum())
+    k2_dirs = torch.stack(rays[1], dim=-1)
+    _, k2_steps = reference.render_bonsai_rays(vol_bonsai, rays[0], k2_dirs, return_steps=True,
+                                               fast_transfer=True)
+    listed = (ids.repeat_interleave(tpu * 32) < n_units)[:, None]
+    k2_steps, k2_skipped = skip_counts(vol_bonsai, rays[0], k2_dirs, k2_steps * listed, torch)
+    k2_skip = k2_skipped / k2_steps
     k2_pixels = n_sel * tpu * 32 * 32
     k5_ok = int(hok.sum())
-    del k5_args, hchans, grid5, base, rays, compact
+    del k5_args, hchans, grid5, base, rays, compact, k2_dirs
     hyb_demo = HybridDemo.init(hctx)
 
     def hyb_frame():
@@ -980,9 +1139,11 @@ def main() -> int:
         hctx.render()
 
     hframe_ms = median_ms(hyb_frame, n, torch)
-    print(f"phase 5 K5 plain torch {k5p_ms:.4f} ms, K2 plain torch {k2p_ms:.4f} ms, K5's "
-          f"warp as grid_sample (4 channels, f32) {lib5_ms:.4f} ms; K1b (compact mode, same "
-          f"units) {k1b_ms:.4f} ms, plain {k1bp_ms:.4f} ms")
+    print(f"phase 5 K5 plain torch {k5p_ms:.4f} ms, K2 plain torch {k2p_ms:.4f} ms; K5's "
+          f"warp alone as grid_sample (4 channels, f32, none of K5's tile statistics, so no "
+          f"library time of K5's function): device {lib5_dev:.4f} ms, one call {lib5_ms:.4f} "
+          f"ms; K1b (compact mode, same units): device {k1b_dev:.4f} ms, one call "
+          f"{k1b_ms:.4f} ms, plain {k1bp_ms:.4f} ms; K2's marched steps skipped {k2_skip:.4f}")
     print(f"phase 5 whole hybrid frame (Context.update + BonsaiDemo.render + present, I={II}, "
           f"budget {hy.DEFAULT_BUDGET}): {hframe_ms:.4f} ms/frame "
           f"({mrays / hframe_ms * 1e3:.1f} Mrays/s)", flush=True)
@@ -996,10 +1157,11 @@ def main() -> int:
               f"per frame {syncs}, {trace}", flush=True)
 
     # bounds from this run's inputs and data-dependent work
-    _, steps = reference.render_bonsai_rays(vol_bonsai, eye, dirs, return_steps=True)
-    k1_steps = int(steps.sum())
+    # K1 and K2 count OPS_K1_STEP / OPS_K2_STEP a sampled step and
+    # OPS_SKIP_STEP a skipped one: what this run's data needs
+    k1_sampled = k1_steps - k1_skipped
     k1_bound = bound_ms(vol_bonsai.numel() + 3 * RES * RES * 4 + 12 + RES * RES * 16,
-                        k1_steps * OPS_K1_STEP)
+                        k1_sampled * OPS_K1_STEP + k1_skipped * OPS_SKIP_STEP)
     hot = int(geo.occ_k.sum())
     k3_bound = bound_ms(hot * d * d * 2 + 2 * gp * II * 4 + gp + 4 + gp * II * II * 2,
                         hot * II * II * OPS_K3_TEXEL)
@@ -1017,12 +1179,15 @@ def main() -> int:
     k5_bound = bound_ms(4 * II * II * 4 + n_px * (1 + 12) + (n_px - k5_ok) + k5_ok * 8
                         + ny * nx * 20,
                         k5_ok * (OPS_K6_PIXEL + 4 * OPS_K6_CHANNEL) + n_px * OPS_K5_PIXEL)
+    k2_sampled = k2_steps - k2_skipped
     k2_bound = bound_ms(vol_bonsai.numel() + k2_pixels * (12 + 12) + 12 + 4 * ids.numel(),
-                        k2_steps * OPS_K2_STEP)
-    print(f"phase 5 work: K1 {k1_steps} samples ({k1_steps / (RES * RES):.1f} per ray); "
+                        k2_sampled * OPS_K2_STEP + k2_skipped * OPS_SKIP_STEP)
+    print(f"phase 5 work: K1 {k1_steps} steps marched ({k1_steps / (RES * RES):.1f} per ray), "
+          f"{k1_sampled} of them sampled, {k1_skipped} skipped; "
           f"K3 {hot} hot slabs of {gp}; K4 {k4_samples} samples composited "
           f"({k4_samples / (II * II):.1f} per texel); K6 {n_hit} hit pixels; K5 {k5_ok} ok "
-          f"pixels of {n_px}; K2 {k2_steps} samples over {k2_pixels} pixels")
+          f"pixels of {n_px}; K2 {k2_steps} steps over {k2_pixels} pixels, {k2_sampled} sampled, "
+          f"{k2_skipped} skipped")
     print(f"phase 5 bounds (ms, H100 SXM 3.35 TB/s, 67 TFLOP/s f32): K1 {k1_bound[0]:.4f} "
           f"({k1_bound[1]}), K3 {k3_bound[0]:.4f} ({k3_bound[1]}), K4 {k4_bound[0]:.4f} "
           f"({k4_bound[1]}), K4b {k4b_bound[0]:.4f} ({k4b_bound[1]}), K6 {k6_bound[0]:.4f} "
@@ -1033,13 +1198,19 @@ def main() -> int:
     # this run's work, the xor demo frame and one full config-5 batch
     t_dev = torch.zeros((), dtype=torch.float32, device=dev)
     tvec = mf.time_vector(t_dev, dev)
-    k7_ms, k7p_ms, k7_samples, k7_bound = {}, {}, {}, {}
+    k7_ms, k7_dev, k7p_ms, k7_samples, k7_bound, k7_lanes = {}, {}, {}, {}, {}, {}
+    hash_ms = (device_ms(lambda: mf.build_hash_table(dev), torch),
+               median_ms(lambda: mf.build_hash_table(dev), n, torch))
     for name in ("xor analytic", "xor fd", "trig"):
         field, shading, quantize, grad = k7_cases[name]
         rays = mf.field_rays(xor_u, FIELD_RES, FIELD_RES, field, 256, quantize, True)
-        k7_ms[name] = median_ms(lambda: mf.launch(tvec, rays, field, shading, 256, quantize,
-                                                  reference.MAX_STEPS_COMPUTE, grad,
-                                                  mf.DEFAULT_TILE_H), n, torch)
+
+        def k7_call():
+            return mf.launch(tvec, rays, field, shading, 256, quantize,
+                             reference.MAX_STEPS_COMPUTE, grad, mf.DEFAULT_TILE_H)
+
+        k7_ms[name] = median_ms(k7_call, n, torch)
+        k7_dev[name] = device_ms(k7_call, torch)
         kw = dict(field=field, shading=shading, quantize=quantize, grad=grad)
         k7p_ms[name] = median_ms(lambda: mf.render_field_plain(xor_u, t_dev, FIELD_RES,
                                                                FIELD_RES, **kw), 5, torch,
@@ -1047,21 +1218,31 @@ def main() -> int:
         _, steps = mf.render_field_plain(xor_u, t_dev, FIELD_RES, FIELD_RES, return_steps=True,
                                          **kw)
         k7_samples[name] = int(steps.sum())
+        k7_lanes[name] = lane_efficiency(steps, torch)
         k7_bound[name] = bound_ms(FIELD_RES * FIELD_RES * (9 * 4 + 16) + 8,
                                   k7_samples[name] * OPS_K7_SAMPLE[name])
     k9_ms = median_ms(lambda: genvol.generate_xor_volumes(t_dev, 256), TIMED_FRAMES, torch)
     k9p_ms = median_ms(lambda: genvol.generate_xor_volumes_plain(t_dev, 256), 5, torch, warmup=1)
     k8_ms = median_ms(lambda: genvol.generate_density_u8(t_dev, VOL5), TIMED_FRAMES, torch)
     k8p_ms = median_ms(lambda: genvol.generate_density_u8_plain(t_dev, VOL5), 3, torch, warmup=1)
+    # the volume wrappers' device time includes their sin(t) (two tiny torch kernels)
+    k9_dev = device_ms(lambda: genvol.generate_xor_volumes(t_dev, 256), torch, reps=3)
+    k8_dev = device_ms(lambda: genvol.generate_density_u8(t_dev, VOL5), torch, reps=3)
     k9_bound = bound_ms(256 ** 3 * 32 + 4, 256 ** 3 * OPS_K9_VOXEL)
     k8_bound = bound_ms(VOL5 ** 3 + 4, VOL5 ** 3 * OPS_K8_VOXEL)
     print(f"phase 5 field kernels ({card}; {FIELD_RES}^2 Camera.xor(1.0), t = 0, sphere clip; "
-          f"medians of {n} / 5 plain): " + ", ".join(
-              f"K7 {k} {k7_ms[k]:.4f} ms (plain {k7p_ms[k]:.2f}, {k7_samples[k]} samples, "
-              f"bound {k7_bound[k][0]:.4f} {k7_bound[k][1]})" for k in k7_ms), flush=True)
-    print(f"phase 5 volume kernels ({card}): K9 256^3 {k9_ms:.4f} ms (plain {k9p_ms:.2f}, bound "
-          f"{k9_bound[0]:.4f} {k9_bound[1]}), K8 {VOL5}^3 {k8_ms:.4f} ms (plain {k8p_ms:.2f}, "
-          f"bound {k8_bound[0]:.4f} {k8_bound[1]})", flush=True)
+          f"device: CUDA graph of {GRAPH_LAUNCHES}; one call: median of {n}; plain: 5): "
+          + ", ".join(f"K7 {k} device {k7_dev[k]:.4f} ms, one call {k7_ms[k]:.4f} ms (plain "
+                      f"{k7p_ms[k]:.2f}, {k7_samples[k]} samples, lane efficiency "
+                      f"{k7_lanes[k]:.4f}, bound {k7_bound[k][0]:.4f} {k7_bound[k][1]})"
+                      for k in k7_ms)
+          + f"; hash table build ({mf.hash_table(dev).values.numel()} floats) device "
+            f"{hash_ms[0]:.4f} ms, one call {hash_ms[1]:.4f} ms", flush=True)
+    print(f"phase 5 volume kernels ({card}; device: CUDA graph of {GRAPH_LAUNCHES}): K9 256^3 "
+          f"device {k9_dev:.4f} ms, one call {k9_ms:.4f} ms (plain {k9p_ms:.2f}, bound "
+          f"{k9_bound[0]:.4f} {k9_bound[1]}), K8 {VOL5}^3 device {k8_dev:.4f} ms, one call "
+          f"{k8_ms:.4f} ms (plain {k8p_ms:.2f}, bound {k8_bound[0]:.4f} {k8_bound[1]})",
+          flush=True)
     xctx = xor_runs[XOR_RES][0]
     xor_demo = XorDemo.init(xctx)
 
@@ -1079,6 +1260,9 @@ def main() -> int:
         "K7": median_ms(lambda: mf.launch(tvec, xrays, "noise", "xor", 256, True,
                                           reference.MAX_STEPS_COMPUTE, xgrad, mf.DEFAULT_TILE_H),
                         n, torch),
+        "K7 device": device_ms(lambda: mf.launch(tvec, xrays, "noise", "xor", 256, True,
+                                                 reference.MAX_STEPS_COMPUTE, xgrad,
+                                                 mf.DEFAULT_TILE_H), torch),
         "present": median_ms(lambda: present(xctx.render_backbuffer.texture,
                                              out_height=xh, out_width=xw), n, torch),
         "whole frame (update + render + present)": median_ms(xor_frame, n, torch),
@@ -1088,7 +1272,8 @@ def main() -> int:
     trace = ("no device events in the trace" if share is None else
              f"{share[0]:.1f} device kernels/copies per frame, device busy {share[1]:.4f} ms "
              f"per frame, device idle share {share[2]:.3f}")
-    print(f"phase 5 xor demo frame ({card}; {xw}x{xh}, grad {xgrad}, medians of {n}): "
+    print(f"phase 5 xor demo frame ({card}; {xw}x{xh}, grad {xgrad}, K7 lane efficiency "
+          f"{xor_runs[XOR_RES][2]:.4f}, medians of {n}): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in xor_stages.items())
           + f"; profile (10 frames, torch.profiler on): host syncs per frame {syncs}, {trace}",
           flush=True)
@@ -1109,49 +1294,88 @@ def main() -> int:
           f"field frame {FIELD_RES}^2 (render_field: rays + clip + K7) {trig_field_ms:.4f} ms",
           flush=True)
     eye5, dxyz5 = geometry.rays_fragment_soa(views5[0], VIEW_RES, VIEW_RES)
+    occ5_ms = (device_ms(lambda: mb.occupancy_table(vol5), torch),
+               median_ms(lambda: mb.occupancy_table(vol5), n, torch))
+    dirs5 = torch.stack(dxyz5, dim=-1)
+    _, c5_steps = reference.render_bonsai_rays(vol5, eye5, dirs5, max_steps=max_steps5,
+                                               return_steps=True)
+    c5_marched, c5_skipped = skip_counts(vol5, eye5, dirs5, c5_steps, torch)
     c5_view_ms = median_ms(lambda: mb.render_bonsai_rays_cuda(vol5, eye5, dxyz5,
                                                               max_steps=max_steps5), n, torch)
+    c5_view_dev = device_ms(lambda: mb.render_bonsai_rays_cuda(vol5, eye5, dxyz5,
+                                                               max_steps=max_steps5), torch)
     c5_rays_ms = median_ms(lambda: geometry.rays_fragment_soa(views5[0], VIEW_RES, VIEW_RES), n,
                            torch)
     c5_ms = median_ms(lambda: config5_batch(0, views5), 3, torch, warmup=1)
     print(f"phase 5 config 5 ({card}): one batch (K8 {VOL5}^3 + {VIEWS} views {VIEW_RES}^2, "
           f"{max_steps5} steps) {c5_ms:.2f} ms ({VIEWS * VIEW_RES ** 2 / c5_ms / 1e3:.1f} "
-          f"Mrays/s); K1 one view {c5_view_ms:.4f} ms, its rays {c5_rays_ms:.4f} ms, K8 "
-          f"{k8_ms:.4f} ms", flush=True)
+          f"Mrays/s); K1 one view: device {c5_view_dev:.4f} ms, one call {c5_view_ms:.4f} ms; "
+          f"its rays {c5_rays_ms:.4f} ms; its marched steps skipped "
+          f"{c5_skipped / c5_marched:.4f} of {c5_marched}; occupancy table ({VOL5}^3) device "
+          f"{occ5_ms[0]:.4f} ms, one call {occ5_ms[1]:.4f} ms; K8 device {k8_dev:.4f} ms",
+          flush=True)
 
-    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bound, lib_ms):
+    # PERF.md's ranking on device times: slower than a same-function library
+    # call first, then launches per frame (one each here) x (device - bound)
+    per_frame = {"K1": (k1_dev, k1_bound[0]), "K2": (hyb_rows[II]["K2 device"], k2_bound[0]),
+                 "K3": (dev_ms["K3"], k3_bound[0]), "K4": (dev_ms["K4"], k4_bound[0]),
+                 "K5": (hyb_rows[II]["K5 device"], k5_bound[0]), "K6": (dev_ms["K6"], k6_bound[0]),
+                 "K7": (k7_dev["xor analytic"], k7_bound["xor analytic"][0])}
+    order = sorted(per_frame, key=lambda k: per_frame[k][1] - per_frame[k][0])
+    print("phase 5 ranking (device ms - bound ms per frame, largest first): " + ", ".join(
+        f"{k} {per_frame[k][0] - per_frame[k][1]:.4f} ({per_frame[k][0] / per_frame[k][1]:.1f}x "
+        f"its bound)" for k in order))
+    print(f"phase 5 against grid_sample (device ms, same coordinates, f32): K6 "
+          f"{dev_ms['K6']:.4f} vs {dev_ms['grid_sample K6']:.4f} "
+          f"({dev_ms['K6'] / dev_ms['grid_sample K6']:.2f}x), K3 {dev_ms['K3']:.4f} vs "
+          f"{dev_ms['grid_sample K3']:.4f} ({dev_ms['K3'] / dev_ms['grid_sample K3']:.2f}x)",
+          flush=True)
+
+    def entry(name, source, replaces, n_launches, err, dev, call, plain_ms, bound, lib=None):
+        """One kernel's line: ``ms`` and ``call_ms`` are one wrapper call's
+        time, ``device_ms`` the kernel's own; ``lib`` the (device, call)
+        times of one PyTorch call computing the same function, where there
+        is one."""
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms}
+                "launches": n_launches, "max_abs_err": err, "ms": call, "device_ms": dev,
+                "call_ms": call, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None if lib is None else lib[0],
+                "library_call_ms": None if lib is None else lib[1]}
 
+    k7_modes = {k: {"device_ms": k7_dev[k], "call_ms": k7_ms[k], "plain_ms": k7p_ms[k],
+                    "bound_ms": k7_bound[k][0], "samples": k7_samples[k],
+                    "lane_efficiency": k7_lanes[k]} for k in k7_dev}
     kernels = [
         entry("march_bonsai", "vokselis_torch/csrc/march_bonsai.cu",
               "vokselis_tpu/ops/pallas/march_bonsai.py:131", exact_launches["K1"],
-              worst["K1"], k_ms, p_ms, k1_bound, None),
+              worst["K1"], k1_dev, k_ms, p_ms, k1_bound),
         entry("resample_slabs", "vokselis_torch/csrc/shear_resample.cu",
               "vokselis_tpu/ops/pallas/shear_resample.py:117", fast_launches["K3"],
-              worst["K3"], k3_ms, k3p_ms, k3_bound, lib3_ms),
+              worst["K3"], dev_ms["K3"], k3_ms, k3p_ms, k3_bound,
+              (dev_ms["grid_sample K3"], lib3_ms)),
         entry("composite", "vokselis_torch/csrc/shear_resample.cu",
               "vokselis_tpu/ops/pallas/shear_resample.py:236", fast_launches["K4"],
-              worst["K4"], k4_ms, k4p_ms, k4_bound, None),
+              worst["K4"], dev_ms["K4"], k4_ms, k4p_ms, k4_bound),
         entry("warp_bilinear", "vokselis_torch/csrc/warp2d.cu",
               "vokselis_tpu/ops/pallas/warp2d.py:218", fast_launches["K6"],
-              worst["K6"], k6_ms, k6p_ms, k6_bound, lib6_ms),
+              worst["K6"], dev_ms["K6"], k6_ms, k6p_ms, k6_bound,
+              (dev_ms["grid_sample K6"], lib6_ms)),
         entry("march_tiles", "vokselis_torch/csrc/march_bonsai.cu",
               "vokselis_tpu/ops/pallas/march_bonsai.py:1021", hyb_launches["K2"],
-              worst["K2"], hyb_rows[II]["K2"], k2p_ms, k2_bound, None),
+              worst["K2"], hyb_rows[II]["K2 device"], hyb_rows[II]["K2"], k2p_ms, k2_bound),
+        # grid_sample computes K5's warp but none of its tile statistics: no library time
         entry("warp_stats", "vokselis_torch/csrc/warp2d.cu",
               "vokselis_tpu/ops/pallas/warp2d.py:470", hyb_launches["K5"],
-              worst["K5"], hyb_rows[II]["K5"], k5p_ms, k5_bound, lib5_ms),
-        entry("march_field", "vokselis_torch/csrc/march_field.cu",
-              "vokselis_tpu/ops/pallas/march_field.py:61", xor_runs[XOR_RES][1]["K7"],
-              worst["K7"], k7_ms["xor analytic"], k7p_ms["xor analytic"],
-              k7_bound["xor analytic"], None),
+              worst["K5"], hyb_rows[II]["K5 device"], hyb_rows[II]["K5"], k5p_ms, k5_bound),
+        dict(entry("march_field", "vokselis_torch/csrc/march_field.cu",
+                   "vokselis_tpu/ops/pallas/march_field.py:61", xor_runs[XOR_RES][1]["K7"],
+                   worst["K7"], k7_dev["xor analytic"], k7_ms["xor analytic"],
+                   k7p_ms["xor analytic"], k7_bound["xor analytic"]), modes=k7_modes),
         entry("genvol", "vokselis_torch/csrc/genvol.cu", "vokselis_tpu/ops/pallas/genvol.py:27",
-              tex_launches["K9"], worst["K9"], k9_ms, k9p_ms, k9_bound, None),
+              tex_launches["K9"], worst["K9"], k9_dev, k9_ms, k9p_ms, k9_bound),
         entry("gendensity", "vokselis_torch/csrc/genvol.cu",
-              "vokselis_tpu/ops/pallas/genvol.py:86", c5_launches["K8"], worst["K8"], k8_ms,
-              k8p_ms, k8_bound, None),
+              "vokselis_tpu/ops/pallas/genvol.py:86", c5_launches["K8"], worst["K8"], k8_dev,
+              k8_ms, k8p_ms, k8_bound),
     ]
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())

@@ -19,9 +19,11 @@ import torch
 
 from vokselis_torch.core import geometry
 from vokselis_torch.core.camera import Camera, CameraUniform
+from vokselis_torch.core.colors import bonsai_transfer_fast_soa, linear_to_srgb
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda import march_bonsai as mb
 from vokselis_torch.volume.io import get_bonsai
+from vokselis_torch.volume.sample import sample_trilinear_r8, trilinear_weights
 
 POSES = {
     "bench": dict(zoom=1.0, pitch=0.5, yaw=1.0, target=(0.5, 0.5, 0.5)),
@@ -185,6 +187,153 @@ def test_cuda_device_without_cuda_raises():
         mb.BonsaiRenderer(get_bonsai(32), "cuda")
 
 
+def _border_volume(d=60, seed=7):
+    """A random-border volume: every interior voxel random in [0, 25] (empty
+    for the skip, yet not zero), a one-voxel shell random in [0, 160) on
+    every face; d = 60 leaves the last occupancy cell partial."""
+    rng = np.random.default_rng(seed)
+    vol = rng.integers(0, 26, (d, d, d), dtype=np.uint8)
+    shell = np.zeros((d, d, d), bool)
+    shell[[0, -1]] = shell[:, [0, -1]] = shell[:, :, [0, -1]] = True
+    vol[shell] = rng.integers(0, 160, int(shell.sum()), dtype=np.uint8)
+    return vol
+
+
+SKIP_VOLUMES = {"bonsai64": lambda: get_bonsai(64), "border60": _border_volume}
+
+
+@torch.no_grad()
+def _skip_march_plain(vol, occ, eye, dirs, fast_transfer=False):
+    """The kernels' march with their empty-space skip, in plain torch:
+    reference.render_bonsai_rays, except that a step whose lower taps lie in
+    a cell of ``occ`` with no voxel above OCC_CUT takes no sample and
+    composites nothing; it still advances its position and t. Returns
+    ``(image, marched, skipped)``, the last two (H, W) int32 step counts."""
+    height, width = dirs.shape[:2]
+    npix = width * height
+    d = dirs.reshape(npix, 3)
+    eye_b = eye.expand(npix, 3)
+    t0, t1 = geometry.intersect_box_unit(eye_b, d)
+    hit = t0 <= t1
+    t = torch.clamp(t0, min=0.0)
+    dims = vol.shape[0]
+    dt = torch.amin(1.0 / (float(dims) * torch.abs(d)), dim=-1)
+    p = eye_b + t[:, None] * d
+    rgb = torch.zeros((npix, 3), dtype=torch.float32)
+    a = torch.zeros((npix,), dtype=torch.float32)
+    marched = torch.zeros((npix,), dtype=torch.int32)
+    skipped = torch.zeros_like(marched)
+    occ_flat, cells = occ.reshape(-1).long(), occ.shape[0]
+    sizes = torch.full((3,), float(dims), dtype=torch.float32)
+    for _ in range(reference.MAX_STEPS_BONSAI):
+        active = hit & (t < t1) & (a < 0.95)
+        if not bool(active.any()):
+            break
+        lower = torch.clamp(trilinear_weights(p, sizes)[0], 0, dims - 1) // mb.OCC_CELL
+        empty = occ_flat[(lower[:, 2] * cells + lower[:, 1]) * cells + lower[:, 0]] <= mb.OCC_CUT
+        marched += active
+        skipped += active & empty
+        idx = torch.nonzero(active & ~empty).squeeze(1)
+        r = sample_trilinear_r8(vol, p[idx])
+        if fast_transfer:
+            c_a, cr, cg, cb = bonsai_transfer_fast_soa(r)
+            c_rgb = torch.stack([cr, cg, cb], dim=-1)
+        else:
+            c_rgb, c_a = reference._bonsai_transfer(r)
+        a_i = a[idx]
+        rgb[idx] = rgb[idx] + (1.0 - a_i)[:, None] * c_a[:, None] * c_rgb
+        a[idx] = a_i + (1.0 - a_i) * c_a
+        p = torch.where(active[:, None], p + d * dt[:, None], p)
+        t = torch.where(active, t + dt, t)
+    rgb = linear_to_srgb(torch.where(hit[:, None], rgb, 0.0))
+    img = torch.cat([rgb, torch.ones((npix, 1), dtype=torch.float32)], dim=-1)
+    return (img.reshape(height, width, 4), marched.reshape(height, width),
+            skipped.reshape(height, width))
+
+
+@pytest.mark.parametrize("volume", sorted(SKIP_VOLUMES))
+def test_occupancy_table_matches_brute_force(volume):
+    """Each cell's entry is the numpy max over voxels 8c .. min(8c + 8, D - 1)
+    on every axis (one voxel of overlap toward +)."""
+    vol = SKIP_VOLUMES[volume]()
+    d = vol.shape[0]
+    occ = mb.occupancy_table(torch.from_numpy(vol))
+    cells = -(-d // 8)
+    assert occ.dtype == torch.uint8 and occ.shape == (cells,) * 3 and occ.is_contiguous()
+    want = np.empty((cells,) * 3, np.uint8)
+    for z in range(cells):
+        for y in range(cells):
+            for x in range(cells):
+                want[z, y, x] = vol[8 * z:min(8 * z + 9, d), 8 * y:min(8 * y + 9, d),
+                                    8 * x:min(8 * x + 9, d)].max()
+    np.testing.assert_array_equal(occ.numpy(), want)
+
+
+@pytest.mark.parametrize("pose", sorted(POSES))
+@pytest.mark.parametrize("volume", sorted(SKIP_VOLUMES))
+def test_skip_march_is_bitwise_the_plain_march(volume, pose):
+    """The kernels' empty-space skip is exact: the plain skip-aware march
+    equals the unskipped plain march bit for bit at 64x36, in both palette
+    modes, with the same step counts, and skips real work: every hit ray of
+    the bonsai skips a step, and the random-border volume skips more than
+    one step per hit ray on average (rays that cross only the shell's cells
+    skip none)."""
+    vol = torch.from_numpy(SKIP_VOLUMES[volume]())
+    occ = mb.occupancy_table(vol)
+    eye, dxyz = _rays(Camera(aspect=64 / 36, **POSES[pose]), 64, 36, "cpu")
+    dirs = torch.stack(dxyz, dim=-1)
+    t0, t1 = geometry.intersect_box_unit(eye.expand(36, 64, 3), dirs)
+    hit = t0 <= t1
+    for fast in (False, True):
+        ref, steps = reference.render_bonsai_rays(vol, eye, dirs, return_steps=True,
+                                                  fast_transfer=fast)
+        img, marched, skipped = _skip_march_plain(vol, occ, eye, dirs, fast_transfer=fast)
+        torch.testing.assert_close(img, ref, rtol=0, atol=0)
+        assert torch.equal(marched, steps)
+        assert float(img[..., :3].max()) > 0.1
+    if volume == "bonsai64":
+        assert int(skipped[hit].min()) >= 1
+    assert int(skipped.sum()) >= int(hit.sum())
+    assert int(skipped.sum()) < int(marched.sum())
+
+
+def _edit_in_place(vol):
+    vol[1, 2, 3] = 200
+
+
+def _edit_through_a_view(vol):
+    vol.view(-1)[5] = 200
+
+
+CACHE_EDITS = {"in_place": _edit_in_place, "through_a_view": _edit_through_a_view,
+               "new_tensor_same_size": None}
+
+
+@pytest.mark.parametrize("case", sorted(CACHE_EDITS))
+def test_volume_occupancy_follows_the_volume(case):
+    """The wrappers' table cache: the same table while the volume is
+    unchanged, a new and right one after an in-place write (directly or
+    through a view) and for another volume of the same size, and no entry
+    left once the volume is gone."""
+    vol = torch.zeros((24, 24, 24), dtype=torch.uint8)
+    occ = mb.volume_occupancy(vol)
+    assert mb.volume_occupancy(vol) is occ and int(occ.max()) == 0
+    edit = CACHE_EDITS[case]
+    if edit is None:
+        other = vol.clone()
+        other[1, 2, 3] = 200
+        assert mb.volume_occupancy(vol) is occ
+        vol, other = other, None
+    else:
+        edit(vol)
+    occ2 = mb.volume_occupancy(vol)
+    assert occ2 is not occ and torch.equal(occ2, mb.occupancy_table(vol))
+    assert int(occ2.max()) == 200
+    key = id(vol)
+    del vol, occ2
+    assert key not in mb._occ_cache
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("volume,pose", [
     ("bonsai256", "bench"), ("bonsai256", "eye_inside"), ("bonsai256", "diagonal"),
@@ -226,3 +375,32 @@ def test_launch_counting_on_gpu(cuda_device):
         mb.render_bonsai_rays_cuda(pack, eye, (dx.double(), dy, dz))
     assert mb.LAUNCHES == 4
     torch.testing.assert_close(img, r(u, 40, 24), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("volume", sorted(SKIP_VOLUMES))
+def test_skip_kernels_match_plain_on_gpu(cuda_device, volume):
+    """K1, K2 and K1b with the skip against their plain versions, bit for
+    bit, on the card; the table built there equals the CPU's."""
+    vol_np = SKIP_VOLUMES[volume]()
+    vol = mb.volume_tensor(vol_np, cuda_device)
+    occ = mb.volume_occupancy(vol)
+    assert torch.equal(occ.cpu(), mb.occupancy_table(torch.from_numpy(vol_np)))
+    for pose in sorted(POSES):
+        u = Camera(aspect=96 / 64, **POSES[pose]).uniform(cuda_device)
+        eye, dxyz = geometry.rays_fragment_soa(u, 96, 64)
+        img = mb.render_bonsai_rays_cuda(vol, eye, dxyz)
+        ref = reference.render_bonsai_rays(vol, eye, torch.stack(dxyz, dim=-1))
+        assert torch.equal(img, ref), float((img - ref).abs().max())
+        ids = torch.tensor([0, 3, 5, 6], dtype=torch.int32, device=cuda_device)
+        for fast in (False, True):
+            base = torch.rand((3, 64, 96), generator=torch.Generator().manual_seed(1)).to(
+                cuda_device)
+            k2 = mb.render_bonsai_tiles_into(vol, base.clone(), u, ids, 96, 64,
+                                             fast_transfer=fast)
+            p2 = mb.render_bonsai_tiles_into_plain(vol, base.clone(), u, ids, 96, 64,
+                                                   fast_transfer=fast)
+            assert torch.equal(k2, p2)
+            k1b = mb.render_bonsai_tiles(vol, u, ids, 96, 64, fast_transfer=fast)
+            p1b = mb.render_bonsai_tiles_plain(vol, u, ids, 96, 64, fast_transfer=fast)
+            assert torch.equal(k1b, p1b)

@@ -26,7 +26,7 @@ from vokselis_torch.core.camera import Camera, CameraUniform
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda import genvol
 from vokselis_torch.ops.cuda import march_field as mf
-from vokselis_torch.volume import fields
+from vokselis_torch.volume import fields, fields_soa
 
 # (field, shading, quantize, grad) of test_pallas.py:41-77 and :221-272
 COMBOS = {
@@ -259,6 +259,81 @@ def test_miss_pixels_and_initial_alpha():
     np.testing.assert_allclose(k7[0, 0].numpy(), [0.023, 0.02, 0.02, 1.0], atol=1e-6)
 
 
+# -- K7's hash table ----------------------------------------------------------------------
+
+def test_hash_table_is_the_plain_hash():
+    """The table holds fields_soa.hash_ of every integer of each octave's
+    range, bitwise (the f32 arange is exact: the values are integers below
+    2^24), at the documented ranges."""
+    assert mf.HASH_RANGES == ((66397, 85653), (133900, 171555), (270852, 346049))
+    table = mf.build_hash_table("cpu")
+    assert table.values.dtype == torch.float32 and table.values.numel() == 132111
+    for o, (lo, hi) in enumerate(mf.HASH_RANGES):
+        n = torch.arange(lo, hi + 1, dtype=torch.int64).to(torch.float32)
+        assert torch.equal(n, torch.arange(lo, hi + 1, dtype=torch.float32))
+        got = table.values[table.off[o]:table.off[o] + n.numel()]
+        assert torch.equal(got, fields_soa.hash_(n))
+        assert table.lo[o] == lo and table.last[o] == hi - lo - 271
+    assert mf.hash_table("cpu") is mf.hash_table("cpu")
+
+
+def _extreme_points():
+    """c and sin t at the extremes K7 samples: the box corners (and a
+    rounding step past them), the quantized voxel centres nearest the faces
+    at dims 256 and 512, each at sin t in {-1, 0, 1}, plus random points."""
+    corners = [np.array(c, np.float32) for c in np.ndindex(2, 2, 2)]
+    pts = [2.0 * c - 1.0 for c in corners] + [(2.0 * c - 1.0) * np.float32(1 + 1e-5)
+                                               for c in corners]
+    for dims in (256, 512):
+        ends = np.array([0 - dims / 2, dims - 1 - dims / 2], np.float32) / np.float32(dims)
+        pts += [ends[list(i)] for i in np.ndindex(2, 2, 2)]
+    pts += list(np.random.default_rng(3).uniform(-1, 1, (2000, 3)).astype(np.float32))
+    c = torch.from_numpy(np.stack(pts))
+    c = c.repeat(3, 1)
+    sin_t = torch.tensor([-1.0, 0.0, 1.0]).repeat_interleave(len(pts))
+    return c[:, 0], c[:, 1], c[:, 2], sin_t
+
+
+def _lattice_arguments(cx, cy, cz, sin_t):
+    """Per octave, every hash argument n + k the noise field and its normals
+    read at these points: the corners of the base cell and of the three
+    one-sided offset points' cells (fields_soa.fbm_base/_offsets_from_base,
+    noise_volume and gradient)."""
+    eps = 1e-4
+    x, y, z = fields_soa._lattice(cx, cy, cz, sin_t)
+    xe, ye, ze = fields_soa._lattice(cx - eps, cy - eps, cz - eps, sin_t)
+    args = []
+    for s in (2.01, 2.02, None):
+        px, py, pz = torch.floor(x), torch.floor(y), torch.floor(z)
+        pxe, pye, pze = torch.floor(xe), torch.floor(ye), torch.floor(ze)
+        cells = (px + py * 157.0 + 113.0 * pz, pxe + py * 157.0 + 113.0 * pz,
+                 px + pye * 157.0 + 113.0 * pz, px + py * 157.0 + 113.0 * pze)
+        args.append(torch.cat([n + k for n in cells for k in fields_soa._CORNERS]))
+        if s is not None:
+            x, y, z, xe, ye, ze = x * s, y * s, z * s, xe * s, ye * s, ze * s
+    return args
+
+
+def test_table_hash_at_the_extreme_lattice_points():
+    """A plain table read, fed every lattice argument the extreme points
+    reach, equals the direct hash bitwise, and every argument lies inside
+    its octave's range (so the kernel never traps on the field's domain)."""
+    table = mf.build_hash_table("cpu")
+    for o, n in enumerate(_lattice_arguments(*_extreme_points())):
+        lo, hi = mf.HASH_RANGES[o]
+        assert float(n.min()) >= lo and float(n.max()) <= hi, (o, float(n.min()), float(n.max()))
+        assert torch.equal(n, torch.round(n))
+        assert torch.equal(mf.table_hash(table, o, n), fields_soa.hash_(n))
+
+
+def test_table_hash_raises_outside_its_range():
+    table = mf.build_hash_table("cpu")
+    (lo, hi), _, _ = mf.HASH_RANGES
+    for n in (lo - 1.0, hi + 1.0, float("nan")):
+        with pytest.raises(IndexError):
+            mf.table_hash(table, 0, torch.tensor([float(lo), n]))
+
+
 # -- K7 on the card -----------------------------------------------------------------------
 
 @pytest.mark.gpu
@@ -279,3 +354,49 @@ def test_kernel_matches_plain_on_gpu(cuda_device, combo, time):
         p = mf.render_field_plain(u, time, 96, 64, **kw)
         assert torch.equal(k, p), float((k - p).abs().max())
         assert torch.equal(k, mf.render_field(u, time, 96, 64, tile_h=1, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [("analytic", 0.0, 256, 256), ("fd", 1.7, 160, 90)])
+def test_table_hash_kernel_bitwise_on_gpu(cuda_device, case):
+    """K7 with its hash table, bit for bit its plain version (which takes
+    the sine hash) at two inputs; the table built on the card is the
+    plain hash there too."""
+    grad, time, w, h = case
+    table = mf.hash_table(cuda_device)
+    lo, hi = mf.HASH_RANGES[2]
+    n = torch.arange(lo, hi + 1, dtype=torch.float32, device=cuda_device)
+    assert torch.equal(table.values[table.off[2]:], fields_soa.hash_(n))
+    u = Camera.xor(w / h).uniform(cuda_device)
+    k = mf.render_field(u, time, w, h, grad=grad)
+    assert torch.equal(k, mf.render_field_plain(u, time, w, h, grad=grad))
+
+
+@pytest.mark.gpu
+def test_out_of_range_table_traps_on_gpu(cuda_device):
+    """A table that misses most of octave 0's lattice arguments makes K7
+    trap; the stream's synchronization raises (in a process of its own: the
+    CUDA context is lost)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys, torch\n"
+        "from vokselis_torch.core.camera import Camera\n"
+        "from vokselis_torch.ops.cuda import march_field as mf\n"
+        "dev = torch.device('cuda', 0)\n"
+        "(lo, _), *rest = mf.HASH_RANGES\n"
+        "bad = mf.build_hash_table(dev, ((lo, lo + 300), *rest))\n"
+        "rays = mf.field_rays(Camera.xor(1.0).uniform(dev), 32, 32)\n"
+        "mf.launch(mf.time_vector(0.0, dev), rays, 'noise', 'xor', 256, True, 348,\n"
+        "          'analytic', 8, table=bad)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError:\n"
+        "    sys.exit(3)\n"
+    )
+    root = str(Path(__file__).resolve().parents[1])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 3, proc.stdout + proc.stderr

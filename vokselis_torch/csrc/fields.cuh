@@ -16,6 +16,15 @@
 // floor-valued floats far below 2^24, so it is exact integer arithmetic; the
 // fused field-and-gradient evaluations below rely on that to share corner
 // hashes between the base point and its eps-offset points bitwise.
+//
+// Where the noise functions take their hashes from is a template argument H
+// (the last parameter, SinHash by default): SinHash evaluates hash(n + k)
+// with sinf (K9, K8); TableHash reads the same values from a table that the
+// plain version's own hash filled for every integer n each octave can reach
+// (K7; vokselis_torch/ops/cuda/march_field.py:hash_table). Octaves 1 and 2
+// hash arguments of 1.3e5-3.5e5, past sinf's fast reduction (~1.05e5): there
+// the accurate sinf takes the Payne-Hanek path through local memory, and one
+// table load replaces it, bitwise.
 
 #pragma once
 
@@ -46,6 +55,33 @@ __device__ __forceinline__ float fract(float x) { return x - floorf(x); }
 
 __device__ __forceinline__ float hash(float h) { return fract(sinf(h) * HASH_SCALE); }
 
+// The hashes of lattice cell n of octave o: cell(o, n) once, then at(cell, k)
+// is hash(n + k) for the corner offsets k in [0, 271].
+struct SinHash {
+  struct Cell {
+    float n;
+  };
+  __device__ __forceinline__ Cell cell(int, float n) const { return {n}; }
+  __device__ __forceinline__ float at(Cell c, float k) const { return hash(c.n + k); }
+};
+
+// hash(n) of octave o at values[off[o] + n - lo[o]] for n in [lo[o], lo[o] +
+// last[o] + 271]. A cell outside its octave's range (or a NaN n) traps: the
+// launch fails rather than read a wrong hash.
+struct TableHash {
+  const float* values;
+  int lo[3], off[3], last[3];
+  struct Cell {
+    const float* p;
+  };
+  __device__ __forceinline__ Cell cell(int o, float n) const {
+    const float i = n - (float)lo[o];  // exact: both are integers below 2^24
+    if (!(i >= 0.0f && i <= (float)last[o])) __trap();
+    return {values + off[o] + (int)i};
+  }
+  __device__ __forceinline__ float at(Cell c, float k) const { return __ldg(c.p + (int)k); }
+};
+
 __device__ __forceinline__ float mix(float a, float b, float t) { return a + (b - a) * t; }
 
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
@@ -75,40 +111,44 @@ struct Corners {
   float h0, h1, h2, h3, h4, h5, h6, h7;
 };
 
-__device__ __forceinline__ Corners corners(float n) {
+template <class H>
+__device__ __forceinline__ Corners corners(const H& h, int o, float n) {
+  const typename H::Cell q = h.cell(o, n);
   Corners c;
-  c.h0 = hash(n + 0.0f);
-  c.h1 = hash(n + 1.0f);
-  c.h2 = hash(n + 157.0f);
-  c.h3 = hash(n + 158.0f);
-  c.h4 = hash(n + 113.0f);
-  c.h5 = hash(n + 114.0f);
-  c.h6 = hash(n + 270.0f);
-  c.h7 = hash(n + 271.0f);
+  c.h0 = h.at(q, 0.0f);
+  c.h1 = h.at(q, 1.0f);
+  c.h2 = h.at(q, 157.0f);
+  c.h3 = h.at(q, 158.0f);
+  c.h4 = h.at(q, 113.0f);
+  c.h5 = h.at(q, 114.0f);
+  c.h6 = h.at(q, 270.0f);
+  c.h7 = h.at(q, 271.0f);
   return c;
 }
 
-// value noise (xor.wgsl:22-35)
-__device__ __forceinline__ float noise(float x, float y, float z) {
+// value noise (xor.wgsl:22-35) of octave o
+template <class H>
+__device__ __forceinline__ float noise(float x, float y, float z, int o, const H& h) {
   const float px = floorf(x), py = floorf(y), pz = floorf(z);
   float fx = x - px, fy = y - py, fz = z - pz;
   fx = fx * fx * (3.0f - 2.0f * fx);
   fy = fy * fy * (3.0f - 2.0f * fy);
   fz = fz * fz * (3.0f - 2.0f * fz);
-  const Corners c = corners(lattice_n(px, py, pz));
+  const Corners c = corners(h, o, lattice_n(px, py, pz));
   return mix8(c.h0, c.h1, c.h2, c.h3, c.h4, c.h5, c.h6, c.h7, fx, fy, fz);
 }
 
-__device__ __forceinline__ float fbm(float x, float y, float z) {
-  float f = amp(0) * noise(x, y, z);
+template <class H>
+__device__ __forceinline__ float fbm(float x, float y, float z, const H& h) {
+  float f = amp(0) * noise(x, y, z, 0, h);
   x = x * scale(0);
   y = y * scale(0);
   z = z * scale(0);
-  f = f + amp(1) * noise(x, y, z);
+  f = f + amp(1) * noise(x, y, z, 1, h);
   x = x * scale(1);
   y = y * scale(1);
   z = z * scale(1);
-  f = f + amp(2) * noise(x, y, z);
+  f = f + amp(2) * noise(x, y, z, 2, h);
   return f;
 }
 
@@ -125,19 +165,21 @@ __device__ __forceinline__ float radius(float cx, float cy, float cz) {
 }
 
 // noise_volume (xor.wgsl:55-61): (val, alpha)
+template <class H = SinHash>
 __device__ __forceinline__ float noise_volume(float cx, float cy, float cz, float sin_t,
-                                              float& alpha) {
+                                              float& alpha, const H& h = H()) {
   float x, y, z;
   lattice(cx, cy, cz, sin_t, x, y, z);
-  const float val = fbm(x, y, z);
+  const float val = fbm(x, y, z, h);
   alpha = val * smoothstep(0.5f, INV_NOISE_WIN, radius(cx, cy, cz));
   return val;
 }
 
-__device__ __forceinline__ float noise_volume_alpha(float cx, float cy, float cz,
-                                                    float sin_t) {
+template <class H = SinHash>
+__device__ __forceinline__ float noise_volume_alpha(float cx, float cy, float cz, float sin_t,
+                                                    const H& h = H()) {
   float alpha;
-  noise_volume(cx, cy, cz, sin_t, alpha);
+  noise_volume(cx, cy, cz, sin_t, alpha, h);
   return alpha;
 }
 
@@ -152,20 +194,22 @@ __device__ __forceinline__ void normalize(float gx, float gy, float gz, float& n
 
 // gradient (xor.wgsl:63-67): the one-sided difference normal of the alpha,
 // from five independent field evaluations
+template <class H = SinHash>
 __device__ __forceinline__ void gradient(float cx, float cy, float cz, float sin_t, float& nx,
-                                         float& ny, float& nz) {
-  const float a0 = noise_volume_alpha(cx, cy, cz, sin_t);
-  const float gx = a0 - noise_volume_alpha(cx - EPS, cy, cz, sin_t);
-  const float gy = a0 - noise_volume_alpha(cx, cy - EPS, cz, sin_t);
-  const float gz = a0 - noise_volume_alpha(cx, cy, cz - EPS, sin_t);
+                                         float& ny, float& nz, const H& h = H()) {
+  const float a0 = noise_volume_alpha(cx, cy, cz, sin_t, h);
+  const float gx = a0 - noise_volume_alpha(cx - EPS, cy, cz, sin_t, h);
+  const float gy = a0 - noise_volume_alpha(cx, cy - EPS, cz, sin_t, h);
+  const float gz = a0 - noise_volume_alpha(cx, cy, cz - EPS, sin_t, h);
   normalize(gx, gy, gz, nx, ny, nz);
 }
 
 // fbm4 (fields_soa.fbm_base + fbm_offsets_from_base): fbm at (x, y, z) and
 // at the three one-sided offset points, hash-shared: 60 sins instead of 96,
 // bitwise the same values.
+template <class H>
 __device__ __forceinline__ void fbm4(float x, float y, float z, float xe, float ye, float ze,
-                                     float& f0, float& fxo, float& fyo, float& fzo) {
+                                     float& f0, float& fxo, float& fyo, float& fzo, const H& h) {
   f0 = 0.0f;
   fxo = 0.0f;
   fyo = 0.0f;
@@ -174,31 +218,31 @@ __device__ __forceinline__ void fbm4(float x, float y, float z, float xe, float 
   for (int o = 0; o < 3; ++o) {
     const float px = floorf(x), py = floorf(y), pz = floorf(z);
     const float fx = smooth(x - px), fy = smooth(y - py), fz = smooth(z - pz);
-    const Corners c = corners(lattice_n(px, py, pz));
+    const Corners c = corners(h, o, lattice_n(px, py, pz));
     f0 = f0 + amp(o) * mix8(c.h0, c.h1, c.h2, c.h3, c.h4, c.h5, c.h6, c.h7, fx, fy, fz);
 
     const float pxe = floorf(xe);
     const bool cxs = pxe < px;
-    const float n_x = lattice_n(pxe, py, pz);
+    const typename H::Cell q_x = h.cell(o, lattice_n(pxe, py, pz));
     const float fxe = smooth(xe - pxe);
-    const float vx = mix8(hash(n_x + 0.0f), cxs ? c.h0 : c.h1, hash(n_x + 157.0f),
-                          cxs ? c.h2 : c.h3, hash(n_x + 113.0f), cxs ? c.h4 : c.h5,
-                          hash(n_x + 270.0f), cxs ? c.h6 : c.h7, fxe, fy, fz);
+    const float vx = mix8(h.at(q_x, 0.0f), cxs ? c.h0 : c.h1, h.at(q_x, 157.0f),
+                          cxs ? c.h2 : c.h3, h.at(q_x, 113.0f), cxs ? c.h4 : c.h5,
+                          h.at(q_x, 270.0f), cxs ? c.h6 : c.h7, fxe, fy, fz);
 
     const float pye = floorf(ye);
     const bool cys = pye < py;
-    const float n_y = lattice_n(px, pye, pz);
+    const typename H::Cell q_y = h.cell(o, lattice_n(px, pye, pz));
     const float fye = smooth(ye - pye);
-    const float vy = mix8(hash(n_y + 0.0f), hash(n_y + 1.0f), cys ? c.h0 : c.h2,
-                          cys ? c.h1 : c.h3, hash(n_y + 113.0f), hash(n_y + 114.0f),
+    const float vy = mix8(h.at(q_y, 0.0f), h.at(q_y, 1.0f), cys ? c.h0 : c.h2,
+                          cys ? c.h1 : c.h3, h.at(q_y, 113.0f), h.at(q_y, 114.0f),
                           cys ? c.h4 : c.h6, cys ? c.h5 : c.h7, fx, fye, fz);
 
     const float pze = floorf(ze);
     const bool czs = pze < pz;
-    const float n_z = lattice_n(px, py, pze);
+    const typename H::Cell q_z = h.cell(o, lattice_n(px, py, pze));
     const float fze = smooth(ze - pze);
-    const float vz = mix8(hash(n_z + 0.0f), hash(n_z + 1.0f), hash(n_z + 157.0f),
-                          hash(n_z + 158.0f), czs ? c.h0 : c.h4, czs ? c.h1 : c.h5,
+    const float vz = mix8(h.at(q_z, 0.0f), h.at(q_z, 1.0f), h.at(q_z, 157.0f),
+                          h.at(q_z, 158.0f), czs ? c.h0 : c.h4, czs ? c.h1 : c.h5,
                           czs ? c.h2 : c.h6, czs ? c.h3 : c.h7, fx, fy, fze);
     fxo = fxo + amp(o) * vx;
     fyo = fyo + amp(o) * vy;
@@ -216,15 +260,16 @@ __device__ __forceinline__ void fbm4(float x, float y, float z, float xe, float 
 
 // noise_volume_grad: (val, alpha, normal) of the fbm field from one fbm4,
 // bitwise noise_volume + gradient
+template <class H = SinHash>
 __device__ __forceinline__ float noise_volume_grad(float cx, float cy, float cz, float sin_t,
-                                                   float& a0, float& nx, float& ny,
-                                                   float& nz) {
+                                                   float& a0, float& nx, float& ny, float& nz,
+                                                   const H& h = H()) {
   const float ox = cx - EPS, oy = cy - EPS, oz = cz - EPS;
   float x, y, z, xe, ye, ze;
   lattice(cx, cy, cz, sin_t, x, y, z);
   lattice(ox, oy, oz, sin_t, xe, ye, ze);
   float f0, fxo, fyo, fzo;
-  fbm4(x, y, z, xe, ye, ze, f0, fxo, fyo, fzo);
+  fbm4(x, y, z, xe, ye, ze, f0, fxo, fyo, fzo, h);
   a0 = f0 * smoothstep(0.5f, INV_NOISE_WIN, radius(cx, cy, cz));
   const float gx = a0 - fxo * smoothstep(0.5f, INV_NOISE_WIN, radius(ox, cy, cz));
   const float gy = a0 - fyo * smoothstep(0.5f, INV_NOISE_WIN, radius(cx, oy, cz));
@@ -235,9 +280,11 @@ __device__ __forceinline__ float noise_volume_grad(float cx, float cy, float cz,
 
 // noise_volume_grad_analytic: the normal from the closed-form gradient of
 // alpha, from the value's own 24 corner hashes (fbm_grad_base)
+template <class H = SinHash>
 __device__ __forceinline__ float noise_volume_grad_analytic(float cx, float cy, float cz,
                                                             float sin_t, float& a0, float& nx,
-                                                            float& ny, float& nz) {
+                                                            float& ny, float& nz,
+                                                            const H& h = H()) {
   float x, y, z;
   lattice(cx, cy, cz, sin_t, x, y, z);
   float f0 = 0.0f, gpx = 0.0f, gpy = 0.0f, gpz = 0.0f;
@@ -249,7 +296,7 @@ __device__ __forceinline__ float noise_volume_grad_analytic(float cx, float cy, 
     const float dsx = 6.0f * tx * (1.0f - tx);
     const float dsy = 6.0f * ty * (1.0f - ty);
     const float dsz = 6.0f * tz * (1.0f - tz);
-    const Corners c = corners(lattice_n(px, py, pz));
+    const Corners c = corners(h, o, lattice_n(px, py, pz));
     const float m01 = mix(c.h0, c.h1, fx);
     const float m23 = mix(c.h2, c.h3, fx);
     const float m45 = mix(c.h4, c.h5, fx);

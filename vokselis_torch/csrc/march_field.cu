@@ -24,12 +24,18 @@
 //   5. composite with the clear colour's ambient term (clear.a = 0);
 //   6. misses keep the clear colour; alpha out is 1.
 //
-// What bounds it on this card: arithmetic, and within it the sines. A noise
-// step takes 24 (analytic) or 60 (one-sided difference) hash sines plus ~600
-// other operations; octaves 2 and 3 hash arguments of 1.6e5-3.5e5, beyond
-// sinf's fast range (~1e5), where CUDA's accurate sinf takes a Payne-Hanek
-// reduction through local memory (ptxas reports a stack frame). The reads are
-// nine (H, W) planes once per pixel. The design: one thread per pixel with its
+// What bounds it on this card: arithmetic and divergence. A noise step
+// takes ~600 float operations beside its 24 (analytic) or 60 (one-sided
+// difference) lattice hashes, and those it reads from a table instead of
+// computing them (fields.cuh TableHash: 132111 floats, 0.53 MB, L2-resident,
+// built by the plain version's own hash, march_field.py:hash_table): the
+// octave-1 and -2 arguments (1.3e5-3.5e5) lie past sinf's fast reduction,
+// where the accurate sinf took a Payne-Hanek reduction through local memory,
+// and one load replaces each, bit for bit. A lattice cell outside the table
+// traps: no clamp, no fallback to sinf. Rays stop at their own alpha exit
+// and step count, so a warp runs as long as its longest ray (lane efficiency
+// 0.70 at 512^2, 0.76 at the demo's 1280x720, PERF.md). The reads are nine
+// (H, W) planes once per pixel. The design: one thread per pixel with its
 // own loop, so each ray stops at its own alpha exit (the TPU kernel looped a
 // whole tile until every lane was done); 32-wide blocks along a row keep the
 // plane loads coalesced. The block's height (tile_h) is the xor demo's
@@ -37,9 +43,9 @@
 //
 // Numerics: the march repeats its plain version
 // (vokselis_torch/ops/cuda/march_field.py:render_field_plain) operation for
-// operation, built with --fmad=false; see fields.cuh for the hash. Field,
-// shading and gradient are template arguments (7 instantiations); quantize is
-// a runtime flag.
+// operation, built with --fmad=false; see fields.cuh for the hash and its
+// table. Field, shading and gradient are template arguments (7
+// instantiations); quantize is a runtime flag.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,8 +91,8 @@ __device__ __forceinline__ void xor_shade(float val, float nx, float ny, float n
 
 template <int FIELD>
 __device__ __forceinline__ float field_value(float cx, float cy, float cz, float time,
-                                             float& alpha) {
-  if (FIELD == NOISE) return vkf::noise_volume(cx, cy, cz, time, alpha);
+                                             float& alpha, const vkf::TableHash& tab) {
+  if (FIELD == NOISE) return vkf::noise_volume(cx, cy, cz, time, alpha, tab);
   if (FIELD == XOR) return vkf::xor_field(cx, cy, cz, time, alpha);
   return vkf::trig_field(cx, cy, cz, time, alpha);
 }
@@ -99,7 +105,7 @@ __global__ void __launch_bounds__(BLOCK_X* MAX_TILE_H)
                        const float* __restrict__ dzs, const float* __restrict__ t0s,
                        const float* __restrict__ t1s, const float* __restrict__ dts,
                        int height, int width, int dims, float inv_dims, int quantize,
-                       int max_steps, float* __restrict__ out) {
+                       int max_steps, const vkf::TableHash tab, float* __restrict__ out) {
   const int ix = blockIdx.x * BLOCK_X + threadIdx.x;
   const int iy = blockIdx.y * blockDim.y + threadIdx.y;
   if (ix >= width || iy >= height) return;
@@ -128,15 +134,16 @@ __global__ void __launch_bounds__(BLOCK_X* MAX_TILE_H)
       float val, valpha, cr, cg, cb;
       if (FIELD == NOISE && XOR_SHADE) {
         float nx, ny, nz;
-        val = ANALYTIC ? vkf::noise_volume_grad_analytic(cx, cy, cz, sin_t, valpha, nx, ny, nz)
-                       : vkf::noise_volume_grad(cx, cy, cz, sin_t, valpha, nx, ny, nz);
+        val = ANALYTIC
+                  ? vkf::noise_volume_grad_analytic(cx, cy, cz, sin_t, valpha, nx, ny, nz, tab)
+                  : vkf::noise_volume_grad(cx, cy, cz, sin_t, valpha, nx, ny, nz, tab);
         xor_shade(val, nx, ny, nz, px, py, pz, cr, cg, cb);
       } else {
-        val = field_value<FIELD>(cx, cy, cz, field_time, valpha);
+        val = field_value<FIELD>(cx, cy, cz, field_time, valpha, tab);
         if (XOR_SHADE) {
           // the normal is the noise field's, whatever the field
           float nx, ny, nz;
-          vkf::gradient(cx, cy, cz, sin_t, nx, ny, nz);
+          vkf::gradient(cx, cy, cz, sin_t, nx, ny, nz, tab);
           xor_shade(val, nx, ny, nz, px, py, pz, cr, cg, cb);
         } else {
           cr = cg = cb = val;
@@ -159,7 +166,7 @@ __global__ void __launch_bounds__(BLOCK_X* MAX_TILE_H)
 
 using KernelFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                           const float*, const float*, const float*, const float*, const float*,
-                          int, int, int, float, int, int, float*);
+                          int, int, int, float, int, int, const vkf::TableHash, float*);
 
 KernelFn pick(int field, int xor_shade, int analytic) {
   if (field == NOISE && xor_shade)
@@ -183,27 +190,36 @@ const char* vk_cuda_error_string(int err) {
 
 // Launches K7 on `stream` and returns the launch's cudaError_t (0 on
 // success). Device pointers: tvec (2 f32: raw time, sin(time)); ex..dt (nine
-// height*width f32 planes: eye, direction, t0, t1, dt); out (height*width*4
-// f32, 16-byte aligned). field: 0 noise, 1 xor, 2 trig; tile_h: the block's
-// rows (1, 2, 4, 8 or 16), 32 columns each.
+// height*width f32 planes: eye, direction, t0, t1, dt); hash (the f32 hash
+// table: octave o's hash(n) at hash[off_o + n - lo_o] for n - lo_o in
+// [0, last_o + 271]); out (height*width*4 f32, 16-byte aligned). field: 0
+// noise, 1 xor, 2 trig; tile_h: the block's rows (1, 2, 4, 8 or 16), 32
+// columns each. A lattice cell outside the table traps in the kernel: the
+// launch fails, and the stream's next synchronization reports it.
 int vk_march_field(const void* tvec, const void* ex, const void* ey, const void* ez,
                    const void* dx, const void* dy, const void* dz, const void* t0,
                    const void* t1, const void* dt, int height, int width, int field,
                    int xor_shade, int analytic, int quantize, int dims, float inv_dims,
-                   int max_steps, int tile_h, void* out, int device, void* stream) {
+                   int max_steps, int tile_h, const void* hash, int lo0, int lo1, int lo2,
+                   int off0, int off1, int off2, int last0, int last1, int last2, void* out,
+                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (height <= 0 || width <= 0) return (int)cudaSuccess;
   KernelFn kernel = pick(field, xor_shade, analytic);
   if (kernel == nullptr || tile_h < 1 || tile_h > MAX_TILE_H || (tile_h & (tile_h - 1)))
     return (int)cudaErrorInvalidValue;
+  if (hash == nullptr || last0 < 0 || last1 < 0 || last2 < 0)
+    return (int)cudaErrorInvalidValue;
+  const vkf::TableHash tab{(const float*)hash, {lo0, lo1, lo2}, {off0, off1, off2},
+                           {last0, last1, last2}};
   const dim3 block(BLOCK_X, tile_h);
   const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + tile_h - 1) / tile_h);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)tvec, (const float*)ex, (const float*)ey, (const float*)ez,
       (const float*)dx, (const float*)dy, (const float*)dz, (const float*)t0,
       (const float*)t1, (const float*)dt, height, width, dims, inv_dims, quantize, max_steps,
-      (float*)out);
+      tab, (float*)out);
   return (int)cudaGetLastError();
 }
 

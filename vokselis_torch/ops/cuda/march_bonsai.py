@@ -19,11 +19,19 @@ that lie on the CPU. A failed build or launch raises; there is no fallback.
 ``LAUNCHES``, ``LAUNCHES_TILES`` and ``LAUNCHES_TILES_COMPACT`` count the
 kernels' launches (one per successful launch, and nowhere else), so that a
 run can show its frames went through the kernels.
+
+The kernels skip empty space exactly: :func:`occupancy_table` holds each
+8^3 cell's largest voxel, and a step whose lower taps lie in a cell with no
+voxel above ``OCC_CUT`` adds nothing (its transfer is exactly 0), so it
+only advances. The wrappers look the table up in a cache of their own,
+keyed on the volume tensor: it is built at a volume's first launch and
+again only after the volume's data changed.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -35,6 +43,12 @@ from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
 from vokselis_torch.utils.grid import TILE, cdiv
 
 SOURCE = CSRC / "march_bonsai.cu"
+# empty-space skipping: cells of OCC_CELL^3 voxels; a sample whose every tap
+# is <= OCC_CUT is <= 25/255 < 0.1, where the transfer
+# smoothstep(0.10, 1.2, min(0.9, s)) is 0 (the TPU kernel's OCC_CUT,
+# vokselis_tpu/ops/pallas/march_bonsai.py:107-115)
+OCC_CELL = 8
+OCC_CUT = 25
 
 LAUNCHES = 0
 LAUNCHES_TILES = 0
@@ -52,12 +66,69 @@ def build() -> ctypes.CDLL:
         return _lib
     lib, BUILD_LOG = load_library(SOURCE, NVCC_FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vk_march_bonsai.argtypes = [p, i, p, p, p, p, i, i, i, i, p, i, p]
+    lib.vk_march_bonsai.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, i, p]
     lib.vk_march_bonsai.restype = i
-    lib.vk_march_tiles.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, p]
+    lib.vk_march_tiles.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, p]
     lib.vk_march_tiles.restype = i
     _lib = lib
     return lib
+
+
+def _cell_max(x, axis: int):
+    """Max over the OCC_CELL + 1 voxels 8c .. min(8c + 8, D - 1) of each cell
+    c along ``axis``: each cell's own block, and for every cell but the
+    last (which already ends at D - 1) the first voxel of the next."""
+    d = x.shape[axis]
+    cells = -(-d // OCC_CELL)
+    full = OCC_CELL * cells
+    if full > d:  # replicate the last voxel so that the last block is whole
+        shape = list(x.shape)
+        shape[axis] = full - d
+        x = torch.cat([x, x.narrow(axis, d - 1, 1).expand(shape)], dim=axis)
+    blocks = x.reshape(x.shape[:axis] + (cells, OCC_CELL) + x.shape[axis + 1:])
+    blocks = blocks.amax(dim=axis + 1)
+    step = [slice(None)] * x.ndim
+    step[axis] = slice(OCC_CELL, full, OCC_CELL)
+    head = torch.maximum(blocks.narrow(axis, 0, cells - 1), x[tuple(step)])
+    return torch.cat([head, blocks.narrow(axis, cells - 1, 1)], dim=axis)
+
+
+def occupancy_table(vol) -> torch.Tensor:
+    """The march's occupancy table of the (D, D, D) uint8 volume ``vol``:
+    the largest voxel of each OCC_CELL^3 cell with one voxel of overlap
+    toward +, cell c covering voxels 8c .. min(8c + 8, D - 1) on each axis,
+    so that both taps of every trilinear pair (x0, x0 + 1) whose lower tap
+    lies in the cell lie inside it. (C, C, C) uint8, C = ceil(D / 8),
+    [z, y, x], on the volume's device: 32 KB at 256^3, 256 KB at 512^3.
+    Three separable max passes of plain torch, x first (the contiguous
+    axis, which shrinks the volume 8x for the other two)."""
+    occ = vol
+    for axis in (2, 1, 0):
+        occ = _cell_max(occ, axis)
+    return occ
+
+
+# id(volume tensor) -> (weak reference to it, its data_ptr, its version
+# counter, its occupancy table); an entry leaves with its volume
+_occ_cache: dict = {}
+
+
+def volume_occupancy(vol) -> torch.Tensor:
+    """:func:`occupancy_table` of ``vol``, kept while ``vol`` lives: built
+    at the first call for this tensor and again only when its storage or
+    its version counter (which every in-place write, through any view,
+    advances) has changed. An inference-mode tensor has no version
+    counter: its table is built at every call."""
+    if vol.is_inference():
+        return occupancy_table(vol)
+    key = id(vol)
+    hit = _occ_cache.get(key)
+    if hit is not None and hit[0]() is vol and hit[1:3] == (vol.data_ptr(), vol._version):
+        return hit[3]
+    occ = occupancy_table(vol)
+    ref = weakref.ref(vol, lambda _, key=key: _occ_cache.pop(key, None))
+    _occ_cache[key] = (ref, vol.data_ptr(), vol._version, occ)
+    return occ
 
 
 def _check_inputs(vol, eye, dx, dy, dz, max_steps):
@@ -95,8 +166,8 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
     ``vol``: (D, D, D) uint8 [z, y, x]; ``eye``: (3,) float32; ``dxyz``:
     (dx, dy, dz), each (H, W) float32 and normalized; all contiguous and on
     one device. Returns the (H, W, 4) float32 image (sRGB-encoded rgb when
-    ``srgb``, alpha 1). CUDA tensors launch the kernel; CPU tensors take the
-    plain version.
+    ``srgb``, alpha 1). CUDA tensors launch the kernel, which skips empty
+    space over :func:`volume_occupancy`; CPU tensors take the plain version.
     """
     global LAUNCHES
     dx, dy, dz = dxyz
@@ -106,11 +177,12 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
             vol, eye, torch.stack([dx, dy, dz], dim=-1),
             max_steps=max_steps, srgb=srgb,
         )
+    occ = volume_occupancy(vol)
     lib = build()
     height, width = dx.shape
     out = torch.empty((height, width, 4), dtype=torch.float32, device=vol.device)
     err = lib.vk_march_bonsai(
-        vol.data_ptr(), vol.shape[0], dx.data_ptr(), dy.data_ptr(),
+        vol.data_ptr(), occ.data_ptr(), vol.shape[0], dx.data_ptr(), dy.data_ptr(),
         dz.data_ptr(), eye.data_ptr(), height, width, max_steps, int(srgb),
         out.data_ptr(), vol.device.index,
         torch.cuda.current_stream(vol.device).cuda_stream,
@@ -195,8 +267,9 @@ def _launch_tiles(vol, rays, unit_ids, width, height, tpu, max_steps, fast, out,
     lib = build()
     eye, (dx, dy, dz), _ = rays
     _check_inputs(vol, eye, dx, dy, dz, max_steps)
+    occ = volume_occupancy(vol)
     err = lib.vk_march_tiles(
-        vol.data_ptr(), vol.shape[0], dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+        vol.data_ptr(), occ.data_ptr(), vol.shape[0], dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
         eye.data_ptr(), unit_ids.data_ptr(), unit_ids.shape[0],
         _n_units(width, height, tpu), tpu, cdiv(width, TILE), height, width, max_steps,
         int(fast), int(compact), out.data_ptr(), vol.device.index,
@@ -313,13 +386,15 @@ def volume_tensor(vol_u8, device) -> torch.Tensor:
 
 
 class BonsaiRenderer:
-    """Holds the volume on its device; call to render (the analog of the
-    reference's VolumeTexture + RaycastPipeline pair,
-    examples/bonsai/raycast.rs:12-141)."""
+    """Holds the volume on its device, and on a card builds its occupancy
+    table; call to render (the analog of the reference's VolumeTexture +
+    RaycastPipeline pair, examples/bonsai/raycast.rs:12-141)."""
 
     def __init__(self, vol_u8, device):
         self.device = torch.device(device)
         self.vol = volume_tensor(vol_u8, self.device)
+        if self.vol.is_cuda:
+            volume_occupancy(self.vol)
         self.dims = self.vol.shape[0]
         # a windowless kernel cannot overflow; kept for API parity
         self.last_overflow = 0
