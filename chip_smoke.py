@@ -10,7 +10,8 @@ Phases, each reported on its own lines:
   2. build: compile every kernel from vokselis_torch/csrc with nvcc, one
      nvcc per source, all started together: K1 + K2 (march_bonsai.cu), K3 +
      K4 (shear_resample.cu), K6 + K5 (warp2d.cu), K7 (march_field.cu) and
-     K9 + K8 (genvol.cu); ptxas registers and spills;
+     K9 + K8 (genvol.cu); ptxas registers and spills; K9 and K8 must have
+     no stack frame and no local-memory access in their SASS (cuobjdump);
   3. K1 (with its empty-space skip over the volume's occupancy table)
      against its plain torch version on the card, at 1024x1024 on the
      256^3 bonsai (bench, eye-inside and diagonal poses) and on a random
@@ -30,10 +31,11 @@ Phases, each reported on its own lines:
      the xor demo's fbm field with analytic and fd normals, the trig field
      with emission and the bitwise xor field, at t = 0 and 1.7, sphere clip
      on and off (expected bitwise; held at test_pallas.py's 5e-3 / 1e-5);
-     K7 with a hash table cut short must trap (a process of its own exits
-     3 after the synchronization raised); K9 (the xor volumes) at 256^3
-     within test_pallas.py:80-90's bounds and K8 (the u8 density) at 512^3
-     equal, bitwise shares printed;
+     K7 and K8 with a hash table cut short must trap (a process of its own
+     each, which exits 3 after the synchronization raised); K9 (the xor
+     volumes) at 256^3, t = 0 and 1.25, and K8 (the u8 density) at 512^3
+     and 100^3, t = 0, 1.25 and +-pi/2 (sin t = +-1), equal (test_pallas.py's
+     K9 tolerances printed beside);
   4. the exact main path: engine.loop.run(BonsaiDemo) for 8 frames at
      1024x1024 on "cuda", which must launch K1 once per frame (and no fast
      kernel) and end in a finite, non-background frame that agrees with the
@@ -80,9 +82,11 @@ Phases, each reported on its own lines:
      config-5 view, and the occupancy tables' build times;
      K7 at 512^2 with its lane efficiency (sum of steps over the sum of 32 x
      each warp's longest ray) and the hash table's build time, K9 at 256^3,
-     K8 at 512^3, the whole xor demo frame at 1280x720 with its host syncs,
-     idle share and lane efficiency, the trig demo frame and the trig field
-     frame, and one full config-5 batch of 64 views.
+     K8 at 512^3 (each octave's table window per brick, and the device
+     times of other bricks, each equal to the default's), the whole xor
+     demo frame at 1280x720 with its host syncs, idle share and lane
+     efficiency, the trig demo frame and the trig field frame, and one full
+     config-5 batch of 64 views.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and ``{"ok": true, "device": {...}}``. Any failed check or
@@ -95,6 +99,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -148,28 +153,51 @@ OPS_K5_PIXEL = 20  # warp2d.cu: lum 4, log/exp 3, slope 3, sRGB lum 2, curv 2, e
 # analytic normals 432 (24 hash sines), with the hash-shared one-sided
 # difference 841 (60 sines); the trig field 28
 OPS_K7_SAMPLE = {"xor analytic": 53 + 46 + 432, "xor fd": 53 + 46 + 841, "trig": 32 + 28}
-OPS_K9_VOXEL = 854  # genvol.cu: coordinates 6 + fused field and normal 841 + |n| 6 + val/2 1
-OPS_K8_VOXEL = 292  # coordinates 6 + fbm alpha 282 + quantize 4
+# the volume kernels' function evaluated voxel by voxel: coordinates 6 + fused
+# field and normal 841 + |n| 6 + val/2 1 (K9); coordinates 6 + fbm alpha 282 +
+# quantize 4 (K8)
+OPS_K9_VOXEL = 854
+OPS_K8_VOXEL = 292
+# the volume kernels' function at its least work, the bounds' count (that of
+# the voxel-by-voxel evaluation above is printed beside). Per voxel only what
+# differs from voxel to voxel: each octave's z mix (3), amplitude and sum
+# (K8 14; K9 56 over its four points), each point's radius from the per-axis
+# squares (two adds and sqrt 3), smoothstep 8 and alpha 1, then K8's
+# quantization 4 (30), or K9's three differences, normalize 11, |n| 6 and
+# val/2 1 (125). The rest is shared (lattice_ops): per axis coordinate its
+# centre 2, lattice 2, square 1, three octaves' floor, fraction and smooth
+# 18 and two scalings (25; K9's offset ones 26 with the - eps); per lattice
+# point and octave its hash fract(sin(n) * 43758.5453) 4; the trilinear mix
+# axis by axis, 3 a mix: x mixes per x and lattice row and plane, y mixes
+# per voxel column and plane
+OPS_K8_VOXEL_MIN = 30
+OPS_K9_VOXEL_MIN = 125
+OPS_AXIS = 25
+OPS_HASH = 4
+OPS_MIX = 3
 XOR_RES = (1280, 720)  # the xor demo's backbuffer (HdrBackBuffer default)
 FIELD_RES = 512  # configs 1 and 2 (bench.py:442-444)
 K7_MAX, K7_MEAN = 5e-3, 1e-5  # test_pallas.py:41-58, K7 vs plain if not bitwise
 VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-371)
 
 
-# K7 with a hash table that misses most of octave 0's lattice arguments: the
-# kernel must trap and the stream's synchronization raise (exit 3)
+# K7 or K8 (argv[2]) with a hash table that misses most of octave 0's lattice
+# arguments: the kernel must trap and the stream's synchronization raise (exit 3)
 TRAP_CHECK = """
 import sys
 import torch
 sys.path.insert(0, sys.argv[1])
 from vokselis_torch.core.camera import Camera
-from vokselis_torch.ops.cuda import march_field as mf
+from vokselis_torch.ops.cuda import genvol, hash_table as ht, march_field as mf
 dev = torch.device("cuda", 0)
-(lo, _), *rest = mf.HASH_RANGES
-bad = mf.build_hash_table(dev, ((lo, lo + 300), *rest))
-rays = mf.field_rays(Camera.xor(1.0).uniform(dev), 64, 64)
-mf.launch(mf.time_vector(0.0, dev), rays, "noise", "xor", 256, True, 348, "analytic", 8,
-          table=bad)
+(lo, _), *rest = ht.HASH_RANGES
+bad = ht.build_hash_table(dev, ((lo, lo + 300), *rest))
+if sys.argv[2] == "K7":
+    rays = mf.field_rays(Camera.xor(1.0).uniform(dev), 64, 64)
+    mf.launch(mf.time_vector(0.0, dev), rays, "noise", "xor", 256, True, 348, "analytic", 8,
+              table=bad)
+else:
+    genvol.launch_density(torch.zeros((), device=dev), 512, table=bad)
 try:
     torch.cuda.synchronize()
 except RuntimeError as e:
@@ -281,6 +309,54 @@ def skip_counts(vol, eye, dirs, steps, torch):
         skipped += (active & empty).sum()
         p = torch.where(active[:, None], p + d * dt[:, None], p)
     return int(n.sum()), int(skipped)
+
+
+def lattice_ops(dims: int, sin_t: float, offsets: bool, torch) -> int:
+    """The operations of the volume kernels' function at dims^3 that voxels
+    share, at their least (K9 with ``offsets``: its one-sided offset points'
+    too): each axis coordinate's terms once, each octave's hashes once per
+    lattice point its voxels reach, and the trilinear mix taken axis by
+    axis: x mixes once per x, lattice row and lattice plane, y mixes once
+    per voxel column and plane, over the rows and planes the whole grid
+    reaches. The z mixes are per voxel (OPS_K8_VOXEL_MIN, OPS_K9_VOXEL_MIN)."""
+    from vokselis_torch.ops.cuda import genvol
+
+    c = (torch.arange(dims, dtype=torch.float32) - dims / 2.0) * genvol._inv(dims)
+    s = torch.tensor(sin_t, dtype=torch.float32)
+
+    def cells(v):
+        """Each octave's lattice cells of the coordinates v: floors and
+        floors + 1."""
+        out = []
+        for scale in (2.01, 2.02, None):
+            p = set(torch.floor(v).long().tolist())
+            out.append(p | {q + 1 for q in p})
+            if scale is not None:
+                v = v * scale
+        return out
+
+    def axes(c):
+        return [cells((c + 1.0) * 32.0), cells((c + s * 0.1) * 32.0), cells((c + 21.0) * 32.0)]
+
+    (xs, ys, zs), ops = axes(c), 3 * dims * OPS_AXIS
+    if offsets:
+        (xes, yes, zes), ops = axes(c - 1e-4), ops + 3 * dims * (OPS_AXIS + 1)
+    for o in range(3):
+        x, y, z = xs[o], ys[o], zs[o]
+        if not offsets:
+            ops += (OPS_HASH * len(x) * len(y) * len(z) + OPS_MIX * dims * len(y) * len(z)
+                    + OPS_MIX * dims * dims * len(z))
+            continue
+        xe, ye, ze = xes[o], yes[o], zes[o]
+        zv = z | ze  # the value column's planes, its z-offset point's included
+        ops += OPS_HASH * (len(x | xe) * len(y) * len(z) + len(x) * len(ye - y) * len(z)
+                           + len(x) * len(y) * len(ze - z))
+        # x mixes at each x's fraction (the value and its y- and z-offset
+        # points) and at its offset's (the x-offset point)
+        ops += OPS_MIX * dims * (len(y) * len(zv) + len(ye - y) * len(z) + len(y) * len(z))
+        # y mixes of the value's column and of the x- and y-offset columns
+        ops += OPS_MIX * dims * dims * (len(zv) + 2 * len(z))
+    return ops
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -427,6 +503,24 @@ def main() -> int:
         for line in m.BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"phase 2 ptxas {name}: {line.strip()}")
+    # K9 and K8 read their hashes from the table and call no sinf, whose slow
+    # reduction of large arguments takes a local-memory stack frame
+    # reduction of large arguments takes a local-memory stack frame. The
+    # library's SASS is the evidence; ptxas's report only when this process
+    # built it
+    frames = [int(b) for b in re.findall(r"(\d+) bytes stack frame", genvol.BUILD_LOG)]
+    cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
+    check(os.path.isfile(cuobjdump), f"no {cuobjdump} to read K9's and K8's SASS")
+    sass = subprocess.run([cuobjdump, "-sass", genvol.build()._name], capture_output=True,
+                          text=True, check=True).stdout
+    entries = sorted(set(re.findall(r"Function : \S*?(gen(?:vol|density)_kernel)", sass)))
+    local = len(re.findall(r"\b(?:LDL|STL)\b", sass))
+    print(f"phase 2 K9+K8: kernels {entries} in the SASS, local-memory loads and stores "
+          f"{local}; ptxas stack frames "
+          + (f"{frames} bytes" if frames else "not reported (the library was built before)"),
+          flush=True)
+    check(len(entries) == 2, f"K9's and K8's kernels not both in the SASS ({entries})")
+    check(local == 0 and not any(frames), "K9 or K8 uses local memory (a sinf reduction?)")
 
     # -- phase 3: K1 against its plain version ----------------------------
     vol_bonsai = mb.volume_tensor(get_bonsai(), dev)
@@ -615,39 +709,44 @@ def main() -> int:
                       f"K7 {name} t={t} clip {clip} disagrees with plain")
                 worst["K7"] = max(worst["K7"], mx)
     del img_k, img_p, d7
-    # a lattice argument outside K7's hash table traps; the context is lost
-    # then, so the check runs in a process of its own
-    trap = subprocess.run([sys.executable, "-c", TRAP_CHECK, ROOT], capture_output=True,
-                          text=True, timeout=300)
-    said = (trap.stdout.strip().splitlines() or ["(no output)"])[-1]
-    print(f"phase 3d K7 with octave 0's table cut to 301 entries: exit {trap.returncode}, {said}",
-          flush=True)
-    check(trap.returncode == 3, f"K7 read outside its hash table without an error:\n"
-          f"{trap.stdout}{trap.stderr}")
+    # a lattice argument outside the hash table traps K7 and K8; the context
+    # is lost then, so each check runs in a process of its own
+    for kernel in ("K7", "K8"):
+        trap = subprocess.run([sys.executable, "-c", TRAP_CHECK, ROOT, kernel],
+                              capture_output=True, text=True, timeout=300)
+        said = (trap.stdout.strip().splitlines() or ["(no output)"])[-1]
+        print(f"phase 3d {kernel} with octave 0's table cut to 301 entries: exit "
+              f"{trap.returncode}, {said}", flush=True)
+        check(trap.returncode == 3, f"{kernel} read outside its hash table without an error:\n"
+              f"{trap.stdout}{trap.stderr}")
     for t in (0.0, 1.25):
         dens, nrm = genvol.generate_xor_volumes(t, 256, dev)
         dens_p, nrm_p = genvol.generate_xor_volumes_plain(t, 256, dev)
         torch.cuda.synchronize()
         dd, dn = (dens - dens_p).abs(), (nrm - nrm_p).abs()
         over = float((dn > 1e-2).float().mean())
-        print(f"phase 3d K9 vs plain t={t} 256^3: density max {float(dd.max()):.3e} mean "
-              f"{float(dd.mean()):.3e} (tol 2e-3 / 1e-5), normals over 1e-2 {over:.2e} (tol "
-              f"0.01), bitwise-equal density {float((dens == dens_p).float().mean()):.6f} "
-              f"normals {float((nrm == nrm_p).float().mean()):.6f}", flush=True)
-        check(float(dd.max()) <= 2e-3 and float(dd.mean()) <= 1e-5 and over <= 0.01,
-              f"K9 disagrees with plain at t={t}")
+        equal = torch.equal(dens, dens_p) and torch.equal(nrm, nrm_p)
+        print(f"phase 3d K9 vs plain t={t} 256^3: equal {equal}, density max "
+              f"{float(dd.max()):.3e} mean {float(dd.mean()):.3e} (test_pallas.py:80-90's "
+              f"tol 2e-3 / 1e-5), normals over 1e-2 {over:.2e} (tol 0.01), bitwise-equal "
+              f"density {float((dens == dens_p).float().mean()):.6f} normals "
+              f"{float((nrm == nrm_p).float().mean()):.6f}", flush=True)
+        check(equal, f"K9 disagrees with plain at t={t}")
         worst["K9"] = max(worst["K9"], float(dd.max()), float(dn.max()))
         del dens, nrm, dens_p, nrm_p, dd, dn
-        vol_k = genvol.generate_density_u8(t, VOL5, dev)
-        vol_p = genvol.generate_density_u8_plain(t, VOL5, dev)
-        diff = int((vol_k.int() - vol_p.int()).abs().max())
-        print(f"phase 3d K8 vs plain t={t} {VOL5}^3: equal {torch.equal(vol_k, vol_p)}, max "
-              f"level difference {diff}, bitwise-equal voxels "
-              f"{float((vol_k == vol_p).float().mean()):.6f}, mean level "
-              f"{float(vol_k.float().mean()):.3f}", flush=True)
-        check(torch.equal(vol_k, vol_p), f"K8 disagrees with plain at t={t}")
-        worst["K8"] = max(worst["K8"], float(diff))
-        del vol_k, vol_p
+    # sin t = 0, 0.95, 1, -1; 100 is a multiple of neither brick
+    for t in (0.0, 1.25, math.pi / 2, -math.pi / 2):
+        for dims in (VOL5, 100):
+            vol_k = genvol.generate_density_u8(t, dims, dev)
+            vol_p = genvol.generate_density_u8_plain(t, dims, dev)
+            diff = int((vol_k.int() - vol_p.int()).abs().max())
+            print(f"phase 3d K8 vs plain t={t:.6f} {dims}^3: equal {torch.equal(vol_k, vol_p)}, "
+                  f"max level difference {diff}, bitwise-equal voxels "
+                  f"{float((vol_k == vol_p).float().mean()):.6f}, mean level "
+                  f"{float(vol_k.float().mean()):.3f}", flush=True)
+            check(torch.equal(vol_k, vol_p), f"K8 disagrees with plain at t={t}, {dims}^3")
+            worst["K8"] = max(worst["K8"], float(diff))
+            del vol_k, vol_p
 
     # -- phase 4: the exact main path -------------------------------------
     ctx = Context(RES, RES, camera=BonsaiDemo.default_camera(1.0),
@@ -1228,8 +1327,23 @@ def main() -> int:
     # the volume wrappers' device time includes their sin(t) (two tiny torch kernels)
     k9_dev = device_ms(lambda: genvol.generate_xor_volumes(t_dev, 256), torch, reps=3)
     k8_dev = device_ms(lambda: genvol.generate_density_u8(t_dev, VOL5), torch, reps=3)
-    k9_bound = bound_ms(256 ** 3 * 32 + 4, 256 ** 3 * OPS_K9_VOXEL)
-    k8_bound = bound_ms(VOL5 ** 3 + 4, VOL5 ** 3 * OPS_K8_VOXEL)
+    k9_shared = lattice_ops(256, 0.0, True, torch)
+    k8_shared = lattice_ops(VOL5, 0.0, False, torch)
+    k9_bound = bound_ms(256 ** 3 * 32 + 4, 256 ** 3 * OPS_K9_VOXEL_MIN + k9_shared)
+    k8_bound = bound_ms(VOL5 ** 3 + 4, VOL5 ** 3 * OPS_K8_VOXEL_MIN + k8_shared)
+    k9_voxelwise = bound_ms(256 ** 3 * 32 + 4, 256 ** 3 * OPS_K9_VOXEL)
+    k8_voxelwise = bound_ms(VOL5 ** 3 + 4, VOL5 ** 3 * OPS_K8_VOXEL)
+    # each octave's table window per brick at this run's sin t (the
+    # kernels' rule, genvol.brick_windows) against its capacity
+    windows = {}
+    for name, dims, brick, offsets in (("K9", 256, genvol.K9_BRICK, True),
+                                       ("K8", VOL5, genvol.K8_BRICK, False)):
+        w = genvol.brick_windows(dims, 0.0, brick, offsets)
+        size = (w[..., 1] - w[..., 0] + 1).reshape(-1, 3).float()
+        windows[name] = "; ".join(
+            f"octave {o} mean {float(size[:, o].mean()):.1f} max {int(size[:, o].max())} "
+            f"of {cap} floats" for o, cap in enumerate(genvol.window_capacity(dims, brick,
+                                                                              offsets)))
     print(f"phase 5 field kernels ({card}; {FIELD_RES}^2 Camera.xor(1.0), t = 0, sphere clip; "
           f"device: CUDA graph of {GRAPH_LAUNCHES}; one call: median of {n}; plain: 5): "
           + ", ".join(f"K7 {k} device {k7_dev[k]:.4f} ms, one call {k7_ms[k]:.4f} ms (plain "
@@ -1240,9 +1354,13 @@ def main() -> int:
             f"{hash_ms[0]:.4f} ms, one call {hash_ms[1]:.4f} ms", flush=True)
     print(f"phase 5 volume kernels ({card}; device: CUDA graph of {GRAPH_LAUNCHES}): K9 256^3 "
           f"device {k9_dev:.4f} ms, one call {k9_ms:.4f} ms (plain {k9p_ms:.2f}, bound "
-          f"{k9_bound[0]:.4f} {k9_bound[1]}), K8 {VOL5}^3 device {k8_dev:.4f} ms, one call "
-          f"{k8_ms:.4f} ms (plain {k8p_ms:.2f}, bound {k8_bound[0]:.4f} {k8_bound[1]})",
-          flush=True)
+          f"{k9_bound[0]:.4f} {k9_bound[1]}: {k9_shared} shared operations; voxel by voxel "
+          f"{k9_voxelwise[0]:.4f} {k9_voxelwise[1]}), K8 {VOL5}^3 device {k8_dev:.4f} ms, one "
+          f"call {k8_ms:.4f} ms (plain {k8p_ms:.2f}, bound {k8_bound[0]:.4f} {k8_bound[1]}: "
+          f"{k8_shared} shared operations; voxel by voxel {k8_voxelwise[0]:.4f} "
+          f"{k8_voxelwise[1]})", flush=True)
+    for name, brick in (("K9", genvol.K9_BRICK), ("K8", genvol.K8_BRICK)):
+        print(f"phase 5 {name} windows (brick {brick}, sin t = 0): {windows[name]}", flush=True)
     xctx = xor_runs[XOR_RES][0]
     xor_demo = XorDemo.init(xctx)
 

@@ -13,10 +13,13 @@ angle bounds of tests/test_fields.py:25-51. Every input is made from a numpy
 seed.
 
 Tests marked ``gpu`` need a CUDA card and skip without one: they launch K9
-and K8 and hold them bitwise against their plain versions.
+and K8 and hold them bitwise against their plain versions
+(tests/test_torch_genvol_table.py holds the kernels' table and brick
+windows on the CPU).
 """
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -309,14 +312,19 @@ def test_genvol_wrappers_on_cpu_count_nothing():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("time", [0.0, 1.25])
+@pytest.mark.parametrize("time", [0.0, 1.25, math.pi / 2, -math.pi / 2])
 def test_genvol_kernels_match_plain_on_gpu(cuda_device, time):
     """K9 and K8 bitwise equal to their plain versions on the card (the
-    kernel's sinf and CUDA torch.sin are both libdevice's; --fmad=false)."""
+    kernels read the table that the plain sine hash filled there;
+    --fmad=false), at sin t = 0, 0.95 and +-1, at dims that are not
+    multiples of the bricks (96, 100; 98 also not of K8's 4-voxel stores),
+    and K8 at config 5's 512."""
     before = (genvol.LAUNCHES_GENVOL, genvol.LAUNCHES_DENSITY)
-    d, n = genvol.generate_xor_volumes(time, 64, cuda_device)
-    d_p, n_p = genvol.generate_xor_volumes_plain(time, 64, cuda_device)
-    assert torch.equal(d, d_p) and torch.equal(n, n_p)
-    v = genvol.generate_density_u8(time, 96, cuda_device)
-    assert torch.equal(v, genvol.generate_density_u8_plain(time, 96, cuda_device))
-    assert (genvol.LAUNCHES_GENVOL, genvol.LAUNCHES_DENSITY) == (before[0] + 1, before[1] + 1)
+    for dims in (96, 100):
+        d, n = genvol.generate_xor_volumes(time, dims, cuda_device)
+        d_p, n_p = genvol.generate_xor_volumes_plain(time, dims, cuda_device)
+        assert torch.equal(d, d_p) and torch.equal(n, n_p), dims
+    for dims in (96, 98, 100, 512):
+        v = genvol.generate_density_u8(time, dims, cuda_device)
+        assert torch.equal(v, genvol.generate_density_u8_plain(time, dims, cuda_device)), dims
+    assert (genvol.LAUNCHES_GENVOL, genvol.LAUNCHES_DENSITY) == (before[0] + 2, before[1] + 4)

@@ -1,30 +1,32 @@
 // The procedural fields of the xor demo (shaders/xor.wgsl) as device
-// functions, shared by march_field.cu (K7) and genvol.cu (K9, K8).
+// functions: the fields and normals of march_field.cu (K7), and the lattice
+// and window helpers genvol.cu (K9, K8) builds its walk from.
 //
 // Every function repeats its plain version in vokselis_torch/volume/fields_soa.py
 // operation for operation, in the same order, so that the kernels agree with
 // those plain versions bitwise on the card. The sources are built with
 // --fmad=false (no contracted a*b+c the plain version does not have). The
 // hash fract(sin(h) * 43758.5453123) amplifies any one-ulp difference of its
-// sine ~4e4 times, so it takes the accurate sinf, as PyTorch's CUDA sin does,
-// never __sinf or fast math. A plain-version multiplication or division by a
-// Python scalar is a float32 multiplication by the scalar (a division by the
-// reciprocal taken in double and rounded to float), as PyTorch computes it on
-// the card; the constants below are written that way.
+// sine ~4e4 times, so the kernels read it from a table that the plain
+// version's own hash filled on the card (the trig field's sines are the
+// accurate sinf, as PyTorch's CUDA sin, never __sinf or fast math). A
+// plain-version multiplication or division by a Python scalar is a float32
+// multiplication by the scalar (a division by the reciprocal taken in double
+// and rounded to float), as PyTorch computes it on the card; the constants
+// below are written that way.
 //
 // The lattice argument n = px + 157 py + 113 pz of the hash is built from
 // floor-valued floats far below 2^24, so it is exact integer arithmetic; the
 // fused field-and-gradient evaluations below rely on that to share corner
 // hashes between the base point and its eps-offset points bitwise.
 //
-// Where the noise functions take their hashes from is a template argument H
-// (the last parameter, SinHash by default): SinHash evaluates hash(n + k)
-// with sinf (K9, K8); TableHash reads the same values from a table that the
-// plain version's own hash filled for every integer n each octave can reach
-// (K7; vokselis_torch/ops/cuda/march_field.py:hash_table). Octaves 1 and 2
-// hash arguments of 1.3e5-3.5e5, past sinf's fast reduction (~1.05e5): there
-// the accurate sinf takes the Payne-Hanek path through local memory, and one
-// table load replaces it, bitwise.
+// The noise functions take their hashes from their last parameter, a
+// TableHash: hash(n) read from the table that the plain version's own hash
+// filled for every integer n each octave can reach
+// (vokselis_torch/ops/cuda/hash_table.py). Octaves 1 and 2 hash arguments of
+// 1.3e5-3.5e5, past sinf's fast reduction (~1.05e5): there the accurate sinf
+// takes the Payne-Hanek path through local memory, and one table load
+// replaces it, bitwise.
 
 #pragma once
 
@@ -32,7 +34,6 @@
 
 namespace vkf {
 
-constexpr float HASH_SCALE = 43758.5453123f;
 constexpr float EPS = 1e-4f;  // the one-sided difference step (xor.wgsl:63-67)
 constexpr float RES = 25.0f;  // the xor field's lattice scale (xor.wgsl:48)
 constexpr float INV_RES = (float)(1.0 / 25.0);
@@ -51,20 +52,8 @@ __device__ __forceinline__ float grad_w(int o) {
                 : (o == 1 ? (float)(0.25 * 2.01) : (float)(0.125 * (2.01 * 2.02)));
 }
 
-__device__ __forceinline__ float fract(float x) { return x - floorf(x); }
-
-__device__ __forceinline__ float hash(float h) { return fract(sinf(h) * HASH_SCALE); }
-
 // The hashes of lattice cell n of octave o: cell(o, n) once, then at(cell, k)
-// is hash(n + k) for the corner offsets k in [0, 271].
-struct SinHash {
-  struct Cell {
-    float n;
-  };
-  __device__ __forceinline__ Cell cell(int, float n) const { return {n}; }
-  __device__ __forceinline__ float at(Cell c, float k) const { return hash(c.n + k); }
-};
-
+// is hash(n + k) for the corner offsets k in [0, 271], from the table:
 // hash(n) of octave o at values[off[o] + n - lo[o]] for n in [lo[o], lo[o] +
 // last[o] + 271]. A cell outside its octave's range (or a NaN n) traps: the
 // launch fails rather than read a wrong hash.
@@ -111,9 +100,8 @@ struct Corners {
   float h0, h1, h2, h3, h4, h5, h6, h7;
 };
 
-template <class H>
-__device__ __forceinline__ Corners corners(const H& h, int o, float n) {
-  const typename H::Cell q = h.cell(o, n);
+__device__ __forceinline__ Corners corners(const TableHash& h, int o, float n) {
+  const TableHash::Cell q = h.cell(o, n);
   Corners c;
   c.h0 = h.at(q, 0.0f);
   c.h1 = h.at(q, 1.0f);
@@ -127,8 +115,7 @@ __device__ __forceinline__ Corners corners(const H& h, int o, float n) {
 }
 
 // value noise (xor.wgsl:22-35) of octave o
-template <class H>
-__device__ __forceinline__ float noise(float x, float y, float z, int o, const H& h) {
+__device__ __forceinline__ float noise(float x, float y, float z, int o, const TableHash& h) {
   const float px = floorf(x), py = floorf(y), pz = floorf(z);
   float fx = x - px, fy = y - py, fz = z - pz;
   fx = fx * fx * (3.0f - 2.0f * fx);
@@ -138,8 +125,7 @@ __device__ __forceinline__ float noise(float x, float y, float z, int o, const H
   return mix8(c.h0, c.h1, c.h2, c.h3, c.h4, c.h5, c.h6, c.h7, fx, fy, fz);
 }
 
-template <class H>
-__device__ __forceinline__ float fbm(float x, float y, float z, const H& h) {
+__device__ __forceinline__ float fbm(float x, float y, float z, const TableHash& h) {
   float f = amp(0) * noise(x, y, z, 0, h);
   x = x * scale(0);
   y = y * scale(0);
@@ -152,12 +138,18 @@ __device__ __forceinline__ float fbm(float x, float y, float z, const H& h) {
   return f;
 }
 
-// the fbm field's lattice coordinates (xor.wgsl:57)
+// the fbm field's lattice coordinates (xor.wgsl:57), axis by axis
+__device__ __forceinline__ float lattice_x(float cx) { return (cx + 1.0f) * 32.0f; }
+__device__ __forceinline__ float lattice_y(float cy, float sin_t) {
+  return (cy + sin_t * 0.1f) * 32.0f;
+}
+__device__ __forceinline__ float lattice_z(float cz) { return (cz + 21.0f) * 32.0f; }
+
 __device__ __forceinline__ void lattice(float cx, float cy, float cz, float sin_t, float& x,
                                         float& y, float& z) {
-  x = (cx + 1.0f) * 32.0f;
-  y = (cy + sin_t * 0.1f) * 32.0f;
-  z = (cz + 21.0f) * 32.0f;
+  x = lattice_x(cx);
+  y = lattice_y(cy, sin_t);
+  z = lattice_z(cz);
 }
 
 __device__ __forceinline__ float radius(float cx, float cy, float cz) {
@@ -165,9 +157,8 @@ __device__ __forceinline__ float radius(float cx, float cy, float cz) {
 }
 
 // noise_volume (xor.wgsl:55-61): (val, alpha)
-template <class H = SinHash>
 __device__ __forceinline__ float noise_volume(float cx, float cy, float cz, float sin_t,
-                                              float& alpha, const H& h = H()) {
+                                              float& alpha, const TableHash& h) {
   float x, y, z;
   lattice(cx, cy, cz, sin_t, x, y, z);
   const float val = fbm(x, y, z, h);
@@ -175,9 +166,8 @@ __device__ __forceinline__ float noise_volume(float cx, float cy, float cz, floa
   return val;
 }
 
-template <class H = SinHash>
 __device__ __forceinline__ float noise_volume_alpha(float cx, float cy, float cz, float sin_t,
-                                                    const H& h = H()) {
+                                                    const TableHash& h) {
   float alpha;
   noise_volume(cx, cy, cz, sin_t, alpha, h);
   return alpha;
@@ -194,9 +184,8 @@ __device__ __forceinline__ void normalize(float gx, float gy, float gz, float& n
 
 // gradient (xor.wgsl:63-67): the one-sided difference normal of the alpha,
 // from five independent field evaluations
-template <class H = SinHash>
 __device__ __forceinline__ void gradient(float cx, float cy, float cz, float sin_t, float& nx,
-                                         float& ny, float& nz, const H& h = H()) {
+                                         float& ny, float& nz, const TableHash& h) {
   const float a0 = noise_volume_alpha(cx, cy, cz, sin_t, h);
   const float gx = a0 - noise_volume_alpha(cx - EPS, cy, cz, sin_t, h);
   const float gy = a0 - noise_volume_alpha(cx, cy - EPS, cz, sin_t, h);
@@ -207,9 +196,9 @@ __device__ __forceinline__ void gradient(float cx, float cy, float cz, float sin
 // fbm4 (fields_soa.fbm_base + fbm_offsets_from_base): fbm at (x, y, z) and
 // at the three one-sided offset points, hash-shared: 60 sins instead of 96,
 // bitwise the same values.
-template <class H>
 __device__ __forceinline__ void fbm4(float x, float y, float z, float xe, float ye, float ze,
-                                     float& f0, float& fxo, float& fyo, float& fzo, const H& h) {
+                                     float& f0, float& fxo, float& fyo, float& fzo,
+                                     const TableHash& h) {
   f0 = 0.0f;
   fxo = 0.0f;
   fyo = 0.0f;
@@ -223,7 +212,7 @@ __device__ __forceinline__ void fbm4(float x, float y, float z, float xe, float 
 
     const float pxe = floorf(xe);
     const bool cxs = pxe < px;
-    const typename H::Cell q_x = h.cell(o, lattice_n(pxe, py, pz));
+    const TableHash::Cell q_x = h.cell(o, lattice_n(pxe, py, pz));
     const float fxe = smooth(xe - pxe);
     const float vx = mix8(h.at(q_x, 0.0f), cxs ? c.h0 : c.h1, h.at(q_x, 157.0f),
                           cxs ? c.h2 : c.h3, h.at(q_x, 113.0f), cxs ? c.h4 : c.h5,
@@ -231,7 +220,7 @@ __device__ __forceinline__ void fbm4(float x, float y, float z, float xe, float 
 
     const float pye = floorf(ye);
     const bool cys = pye < py;
-    const typename H::Cell q_y = h.cell(o, lattice_n(px, pye, pz));
+    const TableHash::Cell q_y = h.cell(o, lattice_n(px, pye, pz));
     const float fye = smooth(ye - pye);
     const float vy = mix8(h.at(q_y, 0.0f), h.at(q_y, 1.0f), cys ? c.h0 : c.h2,
                           cys ? c.h1 : c.h3, h.at(q_y, 113.0f), h.at(q_y, 114.0f),
@@ -239,7 +228,7 @@ __device__ __forceinline__ void fbm4(float x, float y, float z, float xe, float 
 
     const float pze = floorf(ze);
     const bool czs = pze < pz;
-    const typename H::Cell q_z = h.cell(o, lattice_n(px, py, pze));
+    const TableHash::Cell q_z = h.cell(o, lattice_n(px, py, pze));
     const float fze = smooth(ze - pze);
     const float vz = mix8(h.at(q_z, 0.0f), h.at(q_z, 1.0f), h.at(q_z, 157.0f),
                           h.at(q_z, 158.0f), czs ? c.h0 : c.h4, czs ? c.h1 : c.h5,
@@ -260,10 +249,9 @@ __device__ __forceinline__ void fbm4(float x, float y, float z, float xe, float 
 
 // noise_volume_grad: (val, alpha, normal) of the fbm field from one fbm4,
 // bitwise noise_volume + gradient
-template <class H = SinHash>
 __device__ __forceinline__ float noise_volume_grad(float cx, float cy, float cz, float sin_t,
                                                    float& a0, float& nx, float& ny, float& nz,
-                                                   const H& h = H()) {
+                                                   const TableHash& h) {
   const float ox = cx - EPS, oy = cy - EPS, oz = cz - EPS;
   float x, y, z, xe, ye, ze;
   lattice(cx, cy, cz, sin_t, x, y, z);
@@ -280,11 +268,10 @@ __device__ __forceinline__ float noise_volume_grad(float cx, float cy, float cz,
 
 // noise_volume_grad_analytic: the normal from the closed-form gradient of
 // alpha, from the value's own 24 corner hashes (fbm_grad_base)
-template <class H = SinHash>
 __device__ __forceinline__ float noise_volume_grad_analytic(float cx, float cy, float cz,
                                                             float sin_t, float& a0, float& nx,
                                                             float& ny, float& nz,
-                                                            const H& h = H()) {
+                                                            const TableHash& h) {
   float x, y, z;
   lattice(cx, cy, cz, sin_t, x, y, z);
   float f0 = 0.0f, gpx = 0.0f, gpy = 0.0f, gpz = 0.0f;

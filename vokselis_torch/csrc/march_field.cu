@@ -28,7 +28,8 @@
 // takes ~600 float operations beside its 24 (analytic) or 60 (one-sided
 // difference) lattice hashes, and those it reads from a table instead of
 // computing them (fields.cuh TableHash: 132111 floats, 0.53 MB, L2-resident,
-// built by the plain version's own hash, march_field.py:hash_table): the
+// built by the plain version's own hash, hash_table.py, shared with K9 and
+// K8): the
 // octave-1 and -2 arguments (1.3e5-3.5e5) lie past sinf's fast reduction,
 // where the accurate sinf took a Payne-Hanek reduction through local memory,
 // and one load replaces each, bit for bit. A lattice cell outside the table

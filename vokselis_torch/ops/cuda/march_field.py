@@ -19,10 +19,11 @@ fallback. ``LAUNCHES_FIELD`` counts the kernel's launches (one per
 successful launch, and nowhere else).
 
 The kernel reads the fbm field's lattice hashes from :func:`hash_table`
-(built once per device by the plain version's own hash over every lattice
-argument the field can reach, :data:`HASH_RANGES`) instead of evaluating
-sinf: the same values bit for bit, without sinf's slow reduction of the
-large arguments. An argument outside the table makes the kernel trap.
+(``hash_table.py``, shared with K9 and K8: built once per device by the
+plain version's own hash over every lattice argument the field can reach,
+:data:`HASH_RANGES`) instead of evaluating sinf: the same values bit for
+bit, without sinf's slow reduction of the large arguments. An argument
+outside the table makes the kernel trap.
 
 Normals of the fused noise + xor march: ``grad="analytic"`` (the default,
 or ``VOK_XOR_GRAD=analytic``) differentiates alpha in closed form from the
@@ -36,7 +37,6 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +44,9 @@ import torch
 from vokselis_torch.core import geometry
 from vokselis_torch.core.colors import mix, smoothstep
 from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
+# the shared hash table (hash_table.py), importable from here too
+from vokselis_torch.ops.cuda.hash_table import (  # noqa: F401
+    HASH_RANGES, HashTable, build_hash_table, hash_table, table_args, table_hash)
 from vokselis_torch.ops.reference import MAX_STEPS_COMPUTE
 from vokselis_torch.volume import fields_soa
 
@@ -69,84 +72,6 @@ _MASK_DIR_N = tuple(c / math.sqrt(3.0) for c in (1.0, 1.0, -1.0))
 # each field windows its alpha to zero beyond this |p| (noise and xor in the
 # quantized coordinate (g - D/2)/D ~ p/2, trig at p itself)
 _RADIUS = {"noise": 1.0, "xor": 1.4, "trig": 0.9}
-
-# The hash table K7 reads instead of sinf (fields.cuh TableHash). For c in
-# [-1, 1]^3 and sin t in [-1, 1] the fbm lattice (fields_soa._lattice) spans
-# x in [0, 64], y in [-35.2, 35.2], z in [640, 704]; octave o scales it by 1,
-# 2.01 and 2.01 * 2.02. Each axis's floor range grows by one lattice cell on
-# either side, which covers the fd eps (1e-4 moves a point 0.013 cells at
-# most), a sample's rounding past the box and the quantized voxel centres
-# (inside [-0.5, 0.5]); the corner offsets add up to 271. So octave o's
-# lattice argument n = px + 157 py + 113 pz lies in HASH_RANGES[o]:
-# (66397, 85653), (133900, 171555), (270852, 346049), 132111 floats in all.
-_LATTICE_BOX = ((0.0, 64.0), (-35.2, 35.2), (640.0, 704.0))
-_OCTAVE_SCALES = (1.0, 2.01, 2.01 * 2.02)
-_LATTICE_W = (1, 157, 113)
-_CORNER_MAX = 271
-
-
-def _hash_ranges():
-    ranges = []
-    for s in _OCTAVE_SCALES:
-        lo = sum(w * (math.floor(a * s) - 1) for w, (a, _) in zip(_LATTICE_W, _LATTICE_BOX))
-        hi = sum(w * (math.floor(b * s) + 1) for w, (_, b) in zip(_LATTICE_W, _LATTICE_BOX))
-        ranges.append((lo, hi + _CORNER_MAX))
-    return tuple(ranges)
-
-
-HASH_RANGES = _hash_ranges()
-
-
-class HashTable(NamedTuple):
-    """The f32 hash values of every octave, concatenated: octave o's hash(n)
-    at ``values[off[o] + n - lo[o]]``; a lattice cell's base n may be at most
-    ``lo[o] + last[o]`` (its corners reach n + 271)."""
-
-    values: torch.Tensor
-    lo: tuple
-    off: tuple
-    last: tuple
-
-
-def build_hash_table(device, ranges=HASH_RANGES) -> HashTable:
-    """hash(n) = fract(sin(n) * 43758.5453123) for every integer n of each
-    octave's range, computed by the plain version's own
-    :func:`fields_soa.hash_` on ``device``: on the card the same libdevice
-    sine and float32 arithmetic as the kernel's sinf hash, so a table read is
-    that hash bit for bit. ``ranges`` other than :data:`HASH_RANGES` is a
-    test hook (a table cut short, which the kernel must trap on)."""
-    parts, off, start = [], [], 0
-    for lo, hi in ranges:
-        parts.append(fields_soa.hash_(torch.arange(lo, hi + 1, dtype=torch.float32,
-                                                   device=device)))
-        off.append(start)
-        start += hi - lo + 1
-    return HashTable(torch.cat(parts), tuple(lo for lo, _ in ranges), tuple(off),
-                     tuple(hi - lo - _CORNER_MAX for lo, hi in ranges))
-
-
-_tables: dict = {}
-
-
-def hash_table(device) -> HashTable:
-    """:func:`build_hash_table` of ``device``, built once per device and
-    kept (0.53 MB)."""
-    device = torch.device(device)
-    if device not in _tables:
-        _tables[device] = build_hash_table(device)
-    return _tables[device]
-
-
-def table_hash(table: HashTable, octave: int, n):
-    """The kernel's table read in plain torch: hash(n) of ``octave`` for the
-    integer-valued f32 tensor ``n``. Raises IndexError if an n lies outside
-    the octave's range (the kernel traps)."""
-    i = n - float(table.lo[octave])
-    inside = (i >= 0.0) & (i <= float(table.last[octave] + _CORNER_MAX))
-    if not bool(inside.all()):
-        raise IndexError(f"lattice argument outside octave {octave}'s hash table")
-    return table.values[table.off[octave] + i.long()]
-
 
 def build() -> ctypes.CDLL:
     """Compile (once per source and flag set) and load the kernel library."""
@@ -356,9 +281,8 @@ def launch(tvec, rays, field, shading, dims, quantize, max_steps, grad, tile_h, 
     err = lib.vk_march_field(
         tvec.data_ptr(), *(x.data_ptr() for x in rays), height, width, FIELDS.index(field),
         int(shading == "xor"), int(grad == "analytic"), int(quantize), dims,
-        float(np.float32(1.0 / dims)), max_steps, tile_h, table.values.data_ptr(), *table.lo,
-        *table.off, *table.last, out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        float(np.float32(1.0 / dims)), max_steps, tile_h, *table_args(table), out.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(lib, err, "march_field")
     LAUNCHES_FIELD += 1
