@@ -9,9 +9,10 @@ Phases, each reported on its own lines:
   1. device: the card, as nvidia-smi names it, with its power limit;
   2. build: compile every kernel from vokselis_torch/csrc with nvcc, one
      nvcc per source, all started together: K1 + K2 (march_bonsai.cu), K3 +
-     K4 (shear_resample.cu), K6 + K5 (warp2d.cu), K7 (march_field.cu) and
-     K9 + K8 (genvol.cu); ptxas registers and spills; K9 and K8 must have
-     no stack frame and no local-memory access in their SASS (cuobjdump);
+     K4 + K34, their fusion (shear_resample.cu), K6 + K5 (warp2d.cu), K7
+     (march_field.cu) and K9 + K8 (genvol.cu); ptxas registers and spills;
+     K9 and K8 must have no stack frame and no local-memory access in their
+     SASS (cuobjdump), nor K34's low-degree instantiation;
   3. K1 (with its empty-space skip over the volume's occupancy table)
      against its plain torch version on the card, at 1024x1024 on the
      256^3 bonsai (bench, eye-inside and diagonal poses) and on a random
@@ -21,7 +22,12 @@ Phases, each reported on its own lines:
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
      directions: K3 within one bf16 ulp of the value and mean <= 1e-6, K4
-     and K4b max <= 1e-4, K6 max <= 1e-6;
+     and K4b max <= 1e-4, K6 max <= 1e-6; K34 (K3 -> K4 in one kernel, the
+     frames' slab stage) at I=512 and I=1024, the bench and eye-inside
+     poses, and at I=64 (tiles whose windows exceed the shared capacity),
+     both directions and transfers: bitwise equal to the K3 -> K4 kernel
+     pair and within 1e-4 of its plain version, its device count of windows
+     over capacity equal to the window rule's;
   3c. K5 (the stats warp) against its plain version at the bench pose's
      fast geometry, I=512 and I=1024: rgb bitwise, STAT_OVF/EXT/PEAK exact,
      STAT_CURV/EDGE within 1e-5 relative; K2 (the tile re-march) and K1b (its
@@ -41,16 +47,16 @@ Phases, each reported on its own lines:
      kernel) and end in a finite, non-background frame that agrees with the
      plain version;
   4b. the fast main path: run(BonsaiDemo with renderer="fast") for 8 frames
-     at 1024x1024, which must launch K3, K4 and K6 once per frame (and not
-     K1) and end in a finite, non-background frame that agrees with the
+     at 1024x1024, which must launch K34 and K6 once per frame (and not
+     K1, K3 or K4) and end in a finite, non-background frame that agrees with the
      plain fast path on the card;
   4c. the fast frame (I=512) against the port's exact K1 frame at four
      poses: mean |d| over rgba within 1.25x of the JAX package's measured
      fast-mode error (PARITY_REPORT.md:60-63);
   4d. the hybrid main path: run(BonsaiDemo with renderer="hybrid", I=512,
      budget 128) for 8 frames at 1024x1024 at the bench pose, which the pose
-     classification renders hybrid: K3, K4, K5 and K2 once per frame, K6 and
-     K1 never; its last frame against the plain hybrid path (selected ids
+     classification renders hybrid: K34, K5 and K2 once per frame, K3, K4,
+     K6 and K1 never; its last frame against the plain hybrid path (selected ids
      that differ, max on the tiles both selected);
   4e. the hybrid at the reference's operating point (I=1024, budget 64)
      against the port's K1 frame: the bench pose and the 72-pose sweep
@@ -71,7 +77,7 @@ Phases, each reported on its own lines:
      launches replayed between two events, over 50 (the host's wrapper
      code is not in it); its call_ms (also the JSON line's ms): one wrapper
      call between two events, median of 100 (what a host-bound frame pays). Both for every kernel
-     (K1, K1b, K2, K3, K4, K4b, K5, K6, K7 in its three modes, K8, K9) and
+     (K1, K1b, K2, K3, K4, K4b, K34, K5, K6, K7 in its three modes, K8, K9) and
      for the grid_sample yardsticks of K3's and K6's functions (and of
      K5's warp alone: K5's statistics have no library counterpart); plain
      versions, the frames' other stages, whole exact, fast and hybrid
@@ -79,7 +85,13 @@ Phases, each reported on its own lines:
      the bounds (K1's and K2's count a skipped step's work, not a sampled
      one's) and the ranking by device ms - bound. K1's and K2's share of
      marched steps skipped (skip_counts) at the bench pose and for a
-     config-5 view, and the occupancy tables' build times;
+     config-5 view, and the occupancy tables' build times; K34 at I=512
+     and I=1024, both transfers, beside the K3 -> K4 pair on the same
+     inputs, with its bound (the pack texels its composited samples tap)
+     and mean window; K6's and its
+     grid_sample's replays (min / median / max); the peak device memory of
+     a fast frame (I=512) and a hybrid call (I=1024), with K34 and with the
+     pair in its place;
      K7 at 512^2 with its lane efficiency (sum of steps over the sum of 32 x
      each warp's longest ray) and the hash table's build time, K9 at 256^3,
      K8 at 512^3 (each octave's table window per brick, and the device
@@ -141,6 +153,9 @@ OPS_SKIP_STEP = 16
 OPS_K3_TEXEL = 13  # shear_resample.cu: 2 floors, 2 fractions, 3 lerps
 OPS_K4_SAMPLE = 73  # low-degree: 9 smoothstep, 2 + 48 palette, 5 alpha, 9 composite
 OPS_K4B_SAMPLE = 41  # exact: 9 smoothstep, 3 x 6 palette (one cosf), 5 alpha, 9 composite
+# the fused kernel: K3's resample for every sample K4 reads, K4's (K4b's)
+# shading for those above 0.1 (the others add an exact zero)
+OPS_SHADE = {"lowdeg": OPS_K4_SAMPLE, "exact": OPS_K4B_SAMPLE}
 OPS_K6_PIXEL = 8  # warp2d.cu: 4 clamps, 2 floors, 2 fractions ...
 OPS_K6_CHANNEL = 9  # ... and 3 lerps per channel
 # K2 with the polynomial palette: 41 trilinear + 9 smoothstep + 2 + 80 Horner
@@ -238,12 +253,13 @@ def median_ms(fn, n: int, torch, warmup: int = WARMUP) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, torch, n: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
+def device_ms(fn, torch, n: int = GRAPH_LAUNCHES, reps: int = 5, spread: bool = False):
     """The device time of one call of ``fn``: ``n`` calls captured in one
     CUDA graph, replayed between two CUDA events, divided by ``n`` (median
-    of ``reps`` replays after one warm replay). The host's wrapper code runs
-    only while the graph is captured, so a kernel and a library call are
-    timed alike, without the host's share; L2 is warm."""
+    of ``reps`` replays after one warm replay; with ``spread``, the replays'
+    (min, median, max)). The host's wrapper code runs only while the graph
+    is captured, so a kernel and a library call are timed alike, without
+    the host's share; L2 is warm."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -268,7 +284,8 @@ def device_ms(fn, torch, n: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
         times.append(start.elapsed_time(end) / n)
     del graph
     times.sort()
-    return times[len(times) // 2]
+    mid = times[len(times) // 2]
+    return (times[0], mid, times[-1]) if spread else mid
 
 
 def lane_efficiency(steps, torch) -> float:
@@ -361,9 +378,11 @@ def lattice_ops(dims: int, sin_t: float, offsets: bool, torch) -> int:
 
 def bound_ms(n_bytes: float, n_ops: float):
     """Least time for the work: the larger of bytes over the memory rate and
-    operations over the float32 peak; returns (ms, which bound)."""
+    operations over the float32 peak; returns (ms, which bound, bytes ms,
+    operations ms)."""
     t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes * 1e3, t_ops * 1e3)
 
 
 def host_syncs(fn, torch) -> int:
@@ -409,6 +428,68 @@ def device_share(fn, frames: int, torch):
     busy += cur_hi - cur_lo
     span = max(hi for _, hi in spans) - spans[0][0]
     return len(spans) / frames, busy / frames / 1e3, 1.0 - busy / span
+
+
+def shaded_samples(stack, sgn, irho, occ_rb, transfer, torch):
+    """Of the samples K4 composites (marching order, row-block gate, alpha
+    below 0.95), those above 0.1: the ones the fused kernel shades. Alpha
+    follows composite_plain's update, which a sample <= 0.1 leaves as it is."""
+    from vokselis_torch.core.colors import bonsai_transfer_pow_lowdeg_soa, bonsai_transfer_soa
+
+    g, iv, _ = stack.shape
+    rows = occ_rb.repeat_interleave(iv // occ_rb.shape[1], dim=1)
+    a = torch.zeros(stack.shape[1:], dtype=torch.float32, device=stack.device)
+    count = torch.zeros((), dtype=torch.int64, device=stack.device)
+    for t in range(g):
+        k = t if int(sgn[0]) > 0 else g - 1 - t
+        s = stack[k].float()
+        live = (a < 0.95) & rows[k][:, None]
+        count += (live & (s > 0.1)).sum()
+        if transfer == "exact":
+            tv = bonsai_transfer_soa(s)[0]
+            alpha = 1.0 - torch.exp(irho * torch.log(1.0 - tv))
+        else:
+            alpha = bonsai_transfer_pow_lowdeg_soa(s, irho)[0]
+        a = a + torch.where(live, (1.0 - a) * alpha, 0.0)
+    return int(count)
+
+
+def tapped_texels(pack, geo, count, torch):
+    """What the fused kernel must read for the samples it composites:
+    (distinct pack texels (slab, v, u) their valid taps touch, samples
+    resampled, slabs with such a sample). At a texel, composite_plain's live
+    samples are the first ``count`` slabs in marching order that its row
+    block's gate keeps (alpha only grows, so once it reaches 0.95 no later
+    slab is live); of those, the slabs occ_k keeps (k < G) are resampled, the
+    others add an exact zero with no taps."""
+    from vokselis_torch.ops.cuda import shear_resample as sr
+
+    g, d = pack.shape[1], pack.shape[2]
+    gp, iv = geo.pos_v.shape
+    nrb = geo.occ_rb.shape[1]
+    block = torch.arange(iv, device=pack.device) // (iv // nrb)
+    seen = torch.zeros(nrb, dtype=torch.int32, device=pack.device)  # gated slabs so far
+    resampled = torch.zeros((), dtype=torch.int64, device=pack.device)
+    texels = torch.zeros((), dtype=torch.int64, device=pack.device)
+    slabs = torch.zeros((), dtype=torch.int64, device=pack.device)
+    hit = torch.zeros(d * d, dtype=torch.bool, device=pack.device)
+    occ_k = geo.occ_k.tolist()
+    for k in (range(gp) if int(geo.sgn[0]) > 0 else range(gp - 1, -1, -1)):
+        if k < g and occ_k[k]:
+            live = geo.occ_rb[k][block][:, None] & (seen[block][:, None] < count)
+            v0, v1, v0ok, v1ok, _ = sr._taps(geo.pos_v[k], d)
+            u0, u1, u0ok, u1ok, _ = sr._taps(geo.pos_u[k], d)
+            hit.zero_()
+            for vi, vok in ((v0, v0ok), (v1, v1ok)):
+                for ui, uok in ((u0, u0ok), (u1, u1ok)):
+                    ok = live & vok[:, None] & uok[None, :]
+                    hit[(vi[:, None] * d + ui[None, :])[ok]] = True
+            n_live = live.sum()
+            resampled += n_live
+            texels += hit.sum()
+            slabs += n_live > 0
+        seen += geo.occ_rb[k].int()
+    return int(texels), int(resampled), int(slabs)
 
 
 def rgb_err(a, b):
@@ -467,12 +548,14 @@ def main() -> int:
 
     def reset_launches():
         mb.LAUNCHES = sr.LAUNCHES_RESAMPLE = sr.LAUNCHES_COMPOSITE = w2.LAUNCHES_WARP = 0
+        sr.LAUNCHES_RESAMPLE_COMPOSITE = 0
         mb.LAUNCHES_TILES = w2.LAUNCHES_STATS = 0
         mf.LAUNCHES_FIELD = genvol.LAUNCHES_GENVOL = genvol.LAUNCHES_DENSITY = 0
 
     def launches():
         return {"K1": mb.LAUNCHES, "K3": sr.LAUNCHES_RESAMPLE,
-                "K4": sr.LAUNCHES_COMPOSITE, "K6": w2.LAUNCHES_WARP,
+                "K4": sr.LAUNCHES_COMPOSITE, "K34": sr.LAUNCHES_RESAMPLE_COMPOSITE,
+                "K6": w2.LAUNCHES_WARP,
                 "K5": w2.LAUNCHES_STATS, "K2": mb.LAUNCHES_TILES,
                 "K7": mf.LAUNCHES_FIELD, "K9": genvol.LAUNCHES_GENVOL,
                 "K8": genvol.LAUNCHES_DENSITY}
@@ -490,7 +573,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # -- phase 2: build (one nvcc per source, all started together) -------
-    modules = {"K1+K2": mb, "K3+K4": sr, "K6+K5": w2, "K7": mf, "K9+K8": genvol}
+    modules = {"K1+K2": mb, "K3+K4+K34": sr, "K6+K5": w2, "K7": mf, "K9+K8": genvol}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(modules)) as pool:
         for fut in [pool.submit(m.build) for m in modules.values()]:
@@ -521,6 +604,23 @@ def main() -> int:
           flush=True)
     check(len(entries) == 2, f"K9's and K8's kernels not both in the SASS ({entries})")
     check(local == 0 and not any(frames), "K9 or K8 uses local memory (a sinf reduction?)")
+    # the fused kernel (K34) per instantiation: <exact transfer>.
+    # The frame's low-degree ones must touch no local memory; the exact ones
+    # carry cosf's stack frame for arguments beyond 105615, which the
+    # transfer's (|x| <= 13.2) never reach
+    sass = subprocess.run([cuobjdump, "-sass", sr.build()._name], capture_output=True,
+                          text=True, check=True).stdout
+    k34_local = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        if "resample_composite_kernel" in name:
+            exact = re.search(r"ILb([01])E", name).group(1)
+            k34_local["exact" if exact == "1" else "lowdeg"] = len(
+                re.findall(r"\b(?:LDL|STL)\b", part))
+    print(f"phase 2 K34 (resample_composite_kernel) local-memory loads and stores per "
+          f"instantiation in the SASS: {k34_local}", flush=True)
+    check(len(k34_local) == 2, f"K34 instantiations {k34_local}")
+    check(k34_local["lowdeg"] == 0, "the frame's K34 instantiation uses local memory")
 
     # -- phase 3: K1 against its plain version ----------------------------
     vol_bonsai = mb.volume_tensor(get_bonsai(), dev)
@@ -537,8 +637,8 @@ def main() -> int:
         ("border256/bench", vol_border, bench),
         ("border256/diagonal", vol_border, diagonal),
     ]
-    worst = {"K1": 0.0, "K3": 0.0, "K4": 0.0, "K6": 0.0, "K5": 0.0, "K2": 0.0, "K7": 0.0,
-             "K9": 0.0, "K8": 0.0}
+    worst = {"K1": 0.0, "K3": 0.0, "K4": 0.0, "K34": 0.0, "K6": 0.0, "K5": 0.0, "K2": 0.0,
+             "K7": 0.0, "K9": 0.0, "K8": 0.0}
     for name, vol, cam in cases:
         eye, dxyz = geometry.rays_fragment_soa(cam.uniform(dev), RES, RES)
         before = mb.LAUNCHES
@@ -556,10 +656,66 @@ def main() -> int:
         check(mx < MAX_TOL and mean < MEAN_TOL, f"{name}: K1 disagrees with plain")
         worst["K1"] = max(worst["K1"], mx)
 
-    # -- phase 3b: K3, K4, K4b, K6 against their plain versions -----------
+    # -- phase 3b: K3, K4, K4b, K34, K6 against their plain versions -------
     fast_r = shear_warp.FastBonsaiRenderer(vol_bonsai, dev, intermediate=II)
     packs = fast_r.packs
     bench_u = bench.uniform(dev)
+    win_stats = {}
+
+    def window_stats(geo):
+        """K34's windows by the rule (sr.slab_windows) over the tile-slab
+        pairs it composites (both gates on, k < G): mean texels, tiles with a
+        window over capacity, windows over capacity."""
+        g, d = packs[0].shape[1], packs[0].shape[2]
+        wins = sr.slab_windows(geo.pos_u, geo.pos_v, d)
+        size = (wins[..., 1] - wins[..., 0] + 1) * (wins[..., 3] - wins[..., 2] + 1)
+        kept = geo.occ_k[:, None] & geo.occ_rb & (
+            torch.arange(geo.pos_u.shape[0], device=dev) < g)[:, None]
+        live = kept[:, :, None].expand_as(size)
+        over = live & (size > sr.WINDOW_CAPACITY)
+        mean = float(size[live].float().mean()) if bool(live.any()) else 0.0
+        return mean, int(over.any(dim=0).sum()), int(over.sum())
+
+    def fused_checks(label, geo, ii):
+        """K34 against the K3 -> K4 kernel pair (bitwise) and its plain
+        version (K4's tolerance), both marching directions and transfers;
+        its device count of windows over capacity against the rule's.
+        Returns window_stats(geo)."""
+        stack = sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v, geo.occ_k)
+        over = sr.over_capacity(dev)
+        over.zero_()
+        runs = 0
+        for sgn in (geo.sgn, -geo.sgn):
+            for transfer in sr.TRANSFERS:
+                args = (packs[0], geo.m, geo.pos_u, geo.pos_v, sgn, geo.irho, geo.occ_k,
+                        geo.occ_rb, transfer)
+                before = sr.LAUNCHES_RESAMPLE_COMPOSITE
+                fused = sr.resample_composite(*args)
+                pair = sr.composite(stack, sgn, geo.irho, geo.occ_rb, transfer)
+                plain = sr.resample_composite_plain(*args)
+                torch.cuda.synchronize()
+                check(sr.LAUNCHES_RESAMPLE_COMPOSITE == before + 1, "K34 did not count a launch")
+                runs += 1
+                equal = torch.equal(fused, pair)
+                d34 = (fused - plain).abs()
+                mx = float(d34.max())
+                print(f"phase 3b K34 vs the K3 -> K4 pair and plain {label} I={ii} sgn "
+                      f"{int(sgn[0]):+d} {transfer}: bitwise equal to the pair {equal}; vs plain "
+                      f"max {mx:.3e} mean {float(d34.mean()):.3e} (tol {K4_TOL:g}), "
+                      f"bitwise-equal texels "
+                      f"{float((fused == plain).all(dim=0).float().mean()):.6f}", flush=True)
+                check(equal and mx <= K4_TOL, f"K34 disagrees at {label} I={ii} sgn "
+                      f"{int(sgn[0])} {transfer}")
+                worst["K34"] = max(worst["K34"], mx)
+        stats = window_stats(geo)
+        got = over.tolist()
+        print(f"phase 3b K34 windows {label} I={ii} (tile 8x{sr.TILE_COLS}, capacity "
+              f"{sr.WINDOW_CAPACITY} texels): mean {stats[0]:.1f} texels over the tile-slab "
+              f"pairs composited; over capacity by the rule {stats[1]} tiles, {stats[2]} "
+              f"windows; device counter {got} after {runs} launches", flush=True)
+        check(got == [runs * stats[1], runs * stats[2]],
+              f"K34's over-capacity counter {got} disagrees with the rule {stats[1:]} x {runs}")
+        return stats
     for ii in (II, II_HYBRID):
         geo = shear_warp.fast_geometry(packs, bench_u, RES, RES, ii)
         stack = sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v, geo.occ_k)
@@ -589,6 +745,7 @@ def main() -> int:
                       f"over tol {n_over}, bitwise-equal {same:.6f}", flush=True)
                 check(mx <= K4_TOL, f"{name} disagrees with plain at I={ii}, sgn {int(sgn[0])}")
                 worst["K4"] = max(worst["K4"], mx)
+        win_stats[("bench", ii)] = fused_checks("bench", geo, ii)
         if ii == II:
             planes = sr.composite(stack, geo.sgn, geo.irho, geo.occ_rb)
             av, bu, ok = shear_warp.warp_coords(geo, ii, ii)
@@ -610,6 +767,16 @@ def main() -> int:
             _, k4b_count = sr.composite_plain(stack, geo.sgn, geo.irho, geo.occ_rb, "exact",
                                               return_count=True)
         del stack, stack_p
+    # the bench pose at the zoom clamp (eye inside the volume, clamped
+    # divisor), and an intermediate so coarse that its tiles' windows exceed
+    # the shared capacity
+    eye_in = Camera(zoom=0.3, pitch=0.5, yaw=1.0, target=(0.5, 0.5, 0.5), aspect=1.0)
+    for ii in (II, II_HYBRID):
+        geo = shear_warp.fast_geometry(packs, eye_in.uniform(dev), RES, RES, ii)
+        win_stats[("eye-inside", ii)] = fused_checks("eye-inside", geo, ii)
+    geo = shear_warp.fast_geometry(packs, bench_u, RES, RES, 64)
+    win_stats[("bench", 64)] = fused_checks("bench (over capacity)", geo, 64)
+    check(win_stats[("bench", 64)][1] > 0, "the over-capacity input has no tile over capacity")
 
     # -- phase 3c: K5 and K2 (with K1b) against their plain versions -------
     def stats_inputs(ii):
@@ -795,8 +962,8 @@ def main() -> int:
     torch.cuda.synchronize()
     frun_s = time.perf_counter() - t0
     fast_launches = launches()
-    check(fast_launches == only(K3=MAIN_FRAMES, K4=MAIN_FRAMES, K6=MAIN_FRAMES),
-          f"fast main path launched {fast_launches}, not K3/K4/K6 x {MAIN_FRAMES} only")
+    check(fast_launches == only(K34=MAIN_FRAMES, K6=MAIN_FRAMES),
+          f"fast main path launched {fast_launches}, not K34/K6 x {MAIN_FRAMES} only")
     img = fctx.display_image
     check(tuple(img.shape) == (RES, RES, 4), f"fast display shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "fast display image has non-finite pixels")
@@ -853,9 +1020,8 @@ def main() -> int:
     torch.cuda.synchronize()
     hrun_s = time.perf_counter() - t0
     hyb_launches = launches()
-    check(hyb_launches == only(K3=MAIN_FRAMES, K4=MAIN_FRAMES, K5=MAIN_FRAMES,
-                               K2=MAIN_FRAMES),
-          f"hybrid main path launched {hyb_launches}, not K3/K4/K5/K2 x {MAIN_FRAMES} only")
+    check(hyb_launches == only(K34=MAIN_FRAMES, K5=MAIN_FRAMES, K2=MAIN_FRAMES),
+          f"hybrid main path launched {hyb_launches}, not K34/K5/K2 x {MAIN_FRAMES} only")
     img = hctx.display_image
     check(bool(torch.isfinite(img).all()), "hybrid display image has non-finite pixels")
     hlit = float((img[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
@@ -900,7 +1066,8 @@ def main() -> int:
     sweep_recs, sweep = hybrid_sweep.sweep(dev, RES, II_HYBRID, BUDGET_OP, vol=vol_bonsai,
                                            log=lambda s: print(f"phase 4e {s}"))
     print(f"phase 4e sweep ({sweep['poses']} poses, {RES}^2, I={II_HYBRID}, budget "
-          f"{BUDGET_OP}): worst {sweep['worst']:.4e}, mean-of-means "
+          f"{BUDGET_OP}): worst {sweep['worst']:.4e} (an earlier H100 run: 9.0676e-4), "
+          f"mean-of-means "
           f"{sweep['mean_of_means']:.4e}, over {HYBRID_CONTRACT:g}: {sweep['over']}, routes "
           f"{sweep['routes']}, {time.perf_counter() - t0:.1f} s", flush=True)
     check(sweep["over"] == 0, f"{sweep['over']} sweep poses beyond the hybrid's contract: "
@@ -1106,13 +1273,110 @@ def main() -> int:
         "K4": device_ms(lambda: sr.composite(stack_b, geo.sgn, geo.irho, geo.occ_rb), torch),
         "K4b": device_ms(lambda: sr.composite(stack_b, geo.sgn, geo.irho, geo.occ_rb,
                                               "exact"), torch),
-        "K6": device_ms(lambda: w2.warp_bilinear(chans, av, bu, ok), torch),
         "grid_sample K3": device_ms(lambda: gs(slabs, grid3, mode="bilinear",
                                                padding_mode="zeros", align_corners=True), torch),
-        "grid_sample K6": device_ms(lambda: gs(chans[None], grid6, mode="bilinear",
-                                               padding_mode="zeros", align_corners=True), torch),
     }
+    # K6 against grid_sample: each replay's device time, both from this call
+    k6_spread = device_ms(lambda: w2.warp_bilinear(chans, av, bu, ok), torch, spread=True)
+    gs6_spread = device_ms(lambda: gs(chans[None], grid6, mode="bilinear", padding_mode="zeros",
+                                      align_corners=True), torch, spread=True)
+    dev_ms["K6"], dev_ms["grid_sample K6"] = k6_spread[1], gs6_spread[1]
     del slabs, grid3
+
+    # K34, the frames' slab stage, beside the K3 + K4 pair on the same inputs
+    # (bench pose, I=512 and I=1024, both transfers); its bound from this
+    # run's work: the pack texels its composited samples tap, those slabs'
+    # positions, irho, the gates, the planes written; resampled samples x
+    # K3's operations + shaded samples x K4's (K4b's)
+    k34, pair34 = {}, {}
+    for ii in (II, II_HYBRID):
+        g_ii = geo if ii == II else shear_warp.fast_geometry(packs, uni, RES, RES, ii)
+        st_ii = sr.resample_slabs(packs[0], g_ii.m, g_ii.pos_u, g_ii.pos_v, g_ii.occ_k)
+        gp_ii = g_ii.pos_u.shape[0]
+        k3_ii = device_ms(lambda: sr.resample_slabs(packs[0], g_ii.m, g_ii.pos_u, g_ii.pos_v,
+                                                    g_ii.occ_k), torch)
+        for transfer in sr.TRANSFERS:
+            args = (packs[0], g_ii.m, g_ii.pos_u, g_ii.pos_v, g_ii.sgn, g_ii.irho, g_ii.occ_k,
+                    g_ii.occ_rb, transfer)
+            _, count = sr.composite_plain(st_ii, g_ii.sgn, g_ii.irho, g_ii.occ_rb, transfer,
+                                          return_count=True)
+            texels, samples, live_slabs = tapped_texels(packs[0], g_ii, count, torch)
+            shaded = shaded_samples(st_ii, g_ii.sgn, g_ii.irho, g_ii.occ_rb, transfer, torch)
+            bound = bound_ms(texels * 2 + live_slabs * 2 * ii * 4 + ii * ii * 4
+                             + gp_ii + g_ii.occ_rb.numel() + 8 + 4 * ii * ii * 4,
+                             samples * OPS_K3_TEXEL + shaded * OPS_SHADE[transfer])
+            k34[(ii, transfer)] = {
+                "device": device_ms(lambda: sr.resample_composite(*args), torch),
+                "call": median_ms(lambda: sr.resample_composite(*args), n, torch),
+                "texels": texels, "samples": samples, "shaded": shaded,
+                "live slabs": live_slabs, "bound": bound,
+            }
+            k4_ii = device_ms(lambda: sr.composite(st_ii, g_ii.sgn, g_ii.irho, g_ii.occ_rb,
+                                                   transfer), torch)
+
+            def pair_call():
+                return sr.composite(sr.resample_slabs(packs[0], g_ii.m, g_ii.pos_u, g_ii.pos_v,
+                                                      g_ii.occ_k), g_ii.sgn, g_ii.irho,
+                                    g_ii.occ_rb, transfer)
+
+            pair34[(ii, transfer)] = {"K3 device": k3_ii, "K4 device": k4_ii,
+                                      "pair device": device_ms(pair_call, torch),
+                                      "pair call": median_ms(pair_call, n, torch)}
+        del st_ii
+    k34p_ms = median_ms(lambda: sr.resample_composite_plain(
+        packs[0], geo.m, geo.pos_u, geo.pos_v, geo.sgn, geo.irho, geo.occ_k, geo.occ_rb),
+        5, torch, warmup=1)
+    for (ii, transfer), row in k34.items():
+        pr = pair34[(ii, transfer)]
+        b = row["bound"]
+        print(f"phase 5 K34 ({card}; bench pose, I={ii}, {transfer}): device "
+              f"{row['device']:.4f} ms (tile 8x{sr.TILE_COLS}), one call {row['call']:.4f} ms; "
+              f"the K3 -> K4 pair on the same inputs: device "
+              f"{pr['pair device']:.4f} ms (K3 {pr['K3 device']:.4f} + K4 {pr['K4 device']:.4f}), "
+              f"one call {pr['pair call']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}; bytes "
+              f"{b[2]:.4f} ms: {row['texels']} pack texels tapped in {row['live slabs']} "
+              f"slabs; operations {b[3]:.4f} ms: {row['samples']} resampled x "
+              f"{OPS_K3_TEXEL} + {row['shaded']} above 0.1 x {OPS_SHADE[transfer]}), "
+              f"{row['device'] / b[0]:.1f}x its bound; mean window "
+              f"{win_stats[('bench', ii)][0]:.1f} texels", flush=True)
+    print(f"phase 5 K34 plain torch (I={II}, lowdeg): {k34p_ms:.4f} ms; K6 vs grid_sample K6, "
+          f"device ms min / median / max of {5} replays: K6 "
+          + " / ".join(f"{t:.4f}" for t in k6_spread) + ", grid_sample "
+          + " / ".join(f"{t:.4f}" for t in gs6_spread), flush=True)
+
+    # peak device memory of one fast frame (I=512) and one hybrid call
+    # (I=1024, budget 64), with K34 and with the K3 -> K4 pair in its place
+    def peak_mib(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    def pair_stage(pk, m, pos_u, pos_v, sgn, irho, occ_k=None, occ_rb=None, transfer="lowdeg"):
+        return sr.composite(sr.resample_slabs(pk, m, pos_u, pos_v, occ_k), sgn, irho, occ_rb,
+                            transfer)
+
+    hyb_peak_r = hy.HybridBonsaiRenderer(vol_bonsai, dev, intermediate=II_HYBRID,
+                                         budget=BUDGET_OP)
+    peaks = {}
+    for stage in ("K34", "pair", "K34 again"):
+        fused_fn = sr.resample_composite
+        if stage == "pair":
+            sr.resample_composite = pair_stage
+        try:
+            peaks[stage] = (peak_mib(lambda: fast_r(uni, RES, RES)),
+                            peak_mib(lambda: hyb_peak_r(uni, RES, RES)))
+        finally:
+            sr.resample_composite = fused_fn
+    del hyb_peak_r
+    gp = geo.pos_u.shape[0]
+    print(f"phase 5 peak device memory above the resident tensors (MiB; fast frame I={II} / "
+          f"hybrid call I={II_HYBRID}, budget {BUDGET_OP}): "
+          + ", ".join(f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in peaks.items())
+          + f"; the pair's stack {gp * II * II * 2 / 2 ** 20:.1f} / "
+          f"{gp * II_HYBRID * II_HYBRID * 2 / 2 ** 20:.1f}", flush=True)
     fast_demo = FastDemo.init(fctx)
 
     def fast_frame():
@@ -1150,8 +1414,9 @@ def main() -> int:
         r_ii = hy.HybridBonsaiRenderer(vol_bonsai, dev, intermediate=ii, budget=budget)
         check(r_ii.route(uni, RES, RES) == ("hybrid", ii, budget), "bench pose not hybrid")
         geo = shear_warp.fast_geometry(packs, uni, RES, RES, ii)
-        stack = sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v, geo.occ_k)
-        planes = sr.composite(stack, geo.sgn, geo.irho, geo.occ_rb)
+        k34_args = (packs[0], geo.m, geo.pos_u, geo.pos_v, geo.sgn, geo.irho, geo.occ_k,
+                    geo.occ_rb)
+        planes = sr.resample_composite(*k34_args)
 
         def coords_curv():
             av, bu, ok = shear_warp.warp_coords(geo, ii, ii)
@@ -1170,10 +1435,7 @@ def main() -> int:
         row = {
             "geometry (torch)": median_ms(
                 lambda: shear_warp.fast_geometry(packs, uni, RES, RES, ii), n, torch),
-            "K3": median_ms(lambda: sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v,
-                                                      geo.occ_k), n, torch),
-            "K4": median_ms(lambda: sr.composite(stack, geo.sgn, geo.irho, geo.occ_rb), n,
-                            torch),
+            "K34": median_ms(lambda: sr.resample_composite(*k34_args), n, torch),
             "coords + curvature (torch)": median_ms(coords_curv, n, torch),
             "K5": median_ms(lambda: w2.warp_stats(*k5_args), n, torch),
             "scoring + selection (torch)": median_ms(select, n, torch),
@@ -1434,9 +1696,11 @@ def main() -> int:
           flush=True)
 
     # PERF.md's ranking on device times: slower than a same-function library
-    # call first, then launches per frame (one each here) x (device - bound)
+    # call first, then launches per frame (one each here) x (device - bound);
+    # K3 and K4 left the frames for K34
+    k34_main = k34[(II, "lowdeg")]
     per_frame = {"K1": (k1_dev, k1_bound[0]), "K2": (hyb_rows[II]["K2 device"], k2_bound[0]),
-                 "K3": (dev_ms["K3"], k3_bound[0]), "K4": (dev_ms["K4"], k4_bound[0]),
+                 "K34": (k34_main["device"], k34_main["bound"][0]),
                  "K5": (hyb_rows[II]["K5 device"], k5_bound[0]), "K6": (dev_ms["K6"], k6_bound[0]),
                  "K7": (k7_dev["xor analytic"], k7_bound["xor analytic"][0])}
     order = sorted(per_frame, key=lambda k: per_frame[k][1] - per_frame[k][0])
@@ -1474,6 +1738,17 @@ def main() -> int:
         entry("composite", "vokselis_torch/csrc/shear_resample.cu",
               "vokselis_tpu/ops/pallas/shear_resample.py:236", fast_launches["K4"],
               worst["K4"], dev_ms["K4"], k4_ms, k4p_ms, k4_bound),
+        dict(entry("resample_composite", "vokselis_torch/csrc/shear_resample.cu",
+                   "vokselis_tpu/ops/pallas/shear_resample.py:402", fast_launches["K34"],
+                   worst["K34"], k34_main["device"], k34_main["call"], k34p_ms,
+                   k34_main["bound"]),
+             modes={f"I={ii} {t}": {"device_ms": r["device"], "call_ms": r["call"],
+                                    "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                                    "texels": r["texels"], "samples": r["samples"],
+                                    "shaded": r["shaded"],
+                                    "pair_device_ms": pair34[(ii, t)]["pair device"],
+                                    "pair_call_ms": pair34[(ii, t)]["pair call"]}
+                    for (ii, t), r in k34.items()}),
         entry("warp_bilinear", "vokselis_torch/csrc/warp2d.cu",
               "vokselis_tpu/ops/pallas/warp2d.py:218", fast_launches["K6"],
               worst["K6"], dev_ms["K6"], k6_ms, k6p_ms, k6_bound,

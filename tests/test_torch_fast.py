@@ -584,10 +584,12 @@ def test_build_fast_renderer_api():
     vol = get_bonsai(32)
     u = Camera.bonsai(1.0).uniform("cpu")
     render, pack = shear_warp.build_fast_renderer(vol, "cpu", intermediate=64)
-    before = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, warp2d.LAUNCHES_WARP)
+    before = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
+              warp2d.LAUNCHES_WARP)
     img = render(pack, u, 32, 32)
     assert img.shape == (32, 32, 4) and bool(torch.isfinite(img).all())
-    assert (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, warp2d.LAUNCHES_WARP) == before
+    assert (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
+            warp2d.LAUNCHES_WARP) == before
     assert sr._lib is None and warp2d._lib is None
     r = shear_warp.FastBonsaiRenderer(vol, "cpu", intermediate=64)
     torch.testing.assert_close(r(u, 32, 32), img, rtol=0, atol=0)
@@ -749,16 +751,18 @@ def test_kernels_match_plain_on_gpu(cuda_device, pose):
 
 @pytest.mark.gpu
 def test_fast_frame_launches_on_gpu(cuda_device):
-    """One fast frame on the card launches K3, K4 and K6 once each and
-    agrees with the plain path on the card (a rejected call launches
-    nothing)."""
+    """One fast frame on the card launches the fused slab stage (K3 -> K4
+    in one kernel) and K6 once each, K3 and K4 never, and agrees with the
+    plain path on the card (a rejected call launches nothing)."""
     r = shear_warp.FastBonsaiRenderer(get_bonsai(64), cuda_device, intermediate=128)
     u = Camera.bonsai(4 / 3).uniform(cuda_device)
-    before = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, warp2d.LAUNCHES_WARP)
+    before = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
+              warp2d.LAUNCHES_WARP)
     img = r(u, 160, 120)
     torch.cuda.synchronize()
-    after = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, warp2d.LAUNCHES_WARP)
-    assert after == tuple(b + 1 for b in before)
+    after = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
+             warp2d.LAUNCHES_WARP)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 1, 1)
     plain = shear_warp._render_fast(r.packs, u, 160, 120, 128, True, plain=True)
     assert img.shape == (120, 160, 4) and bool(torch.isfinite(img).all())
     assert float((img - plain).abs().max()) <= 2e-3  # K4's 1e-4 through sRGB's slope
@@ -766,4 +770,4 @@ def test_fast_frame_launches_on_gpu(cuda_device):
         warp2d.warp_bilinear(torch.zeros((3, 8, 8), device=cuda_device),
                              torch.zeros((4, 4), device=cuda_device, dtype=torch.float64),
                              torch.zeros((4, 4), device=cuda_device))
-    assert warp2d.LAUNCHES_WARP == after[2]
+    assert warp2d.LAUNCHES_WARP == after[3]

@@ -640,12 +640,13 @@ def test_run_hybrid_demo_cpu(monkeypatch):
                        backbuffer_resolution=(64, 48), device="cpu")
 
     counts = (mb.LAUNCHES, mb.LAUNCHES_TILES, sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE,
-              warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP)
+              sr.LAUNCHES_RESAMPLE_COMPOSITE, warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP)
     hyb = run(HybridDemo, frames=2, context=ctx(), quiet=True)
     exact = run(bonsai_model.BonsaiDemo, frames=2, context=ctx(), quiet=True)
     assert hyb.frame == 2
     assert counts == (mb.LAUNCHES, mb.LAUNCHES_TILES, sr.LAUNCHES_RESAMPLE,
-                      sr.LAUNCHES_COMPOSITE, warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP)
+                      sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
+                      warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP)
     assert mb._lib is None and sr._lib is None and warp2d._lib is None
     img, ref = hyb.display_image, exact.display_image
     assert img.shape == (48, 64, 4) and bool(torch.isfinite(img).all())
@@ -747,21 +748,22 @@ def test_hybrid_kernels_match_plain_on_gpu(cuda_device, pose):
 
 @pytest.mark.gpu
 def test_hybrid_frame_launches_on_gpu(cuda_device):
-    """One hybrid frame on the card launches K3, K4, K5 and K2 once each,
-    and neither K6 nor K1; it agrees with the plain hybrid path."""
+    """One hybrid frame on the card launches the fused slab stage (K3 ->
+    K4 in one kernel), K5 and K2 once each, and neither K3, K4, K6 nor K1;
+    it agrees with the plain hybrid path."""
     r = hy.HybridBonsaiRenderer(get_bonsai(64), cuda_device, intermediate=128, budget=8)
     u = Camera.bonsai(4 / 3).uniform(cuda_device)
     assert r.route(u, 160, 120)[0] == "hybrid"
     names = ("LAUNCHES", "LAUNCHES_TILES")
     before = [getattr(mb, n) for n in names] + [
-        sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, warp2d.LAUNCHES_STATS,
-        warp2d.LAUNCHES_WARP]
+        sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
+        warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP]
     img = r(u, 160, 120)
     torch.cuda.synchronize()
     after = [getattr(mb, n) for n in names] + [
-        sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, warp2d.LAUNCHES_STATS,
-        warp2d.LAUNCHES_WARP]
-    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 1, 1, 0]
+        sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
+        warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP]
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 0, 1, 1, 0]
     plain, _, _ = hy._render_hybrid(r.packs, r.vol, u, r.thresh, 160, 120, 128, 8, True,
                                     plain=True)
     assert img.shape == (120, 160, 4) and bool(torch.isfinite(img).all())

@@ -1,6 +1,7 @@
 """K3 (slab resample) and K4 (composite, with K4b as its exact-transfer
 mode): the shear-warp fast renderer's slab stages as hand-written CUDA
-kernels for Hopper.
+kernels for Hopper, and the two fused into one kernel
+(:func:`resample_composite`), the slab stage of the fast and hybrid frames.
 
 The kernels (``vokselis_torch/csrc/shear_resample.cu``) replace the TPU
 kernels ``vokselis_tpu/ops/pallas/shear_resample.py:_resample_kernel`` and
@@ -17,6 +18,13 @@ launch raises; there is no fallback. ``LAUNCHES_RESAMPLE`` and
 The stack between the two stages is a plain (gp, Iv, Iu) bf16 array, slab k
 at index k. The TPU's chunked (C, nrb, 8, 8, I) layout existed for its DMA
 engine and is not kept.
+
+:func:`resample_composite` (``LAUNCHES_RESAMPLE_COMPOSITE``) computes
+``composite(resample_slabs(...))`` bit for bit without the stack; its plain
+version :func:`resample_composite_plain` is that composition, and
+:func:`slab_windows` is its shared-memory window rule in torch. K3 and K4
+stay as the counterparts of the JAX package's ``resample_slabs`` and
+``composite_chunks``; no frame launches them.
 """
 
 from __future__ import annotations
@@ -33,6 +41,13 @@ TRANSFERS = ("lowdeg", "exact")
 
 LAUNCHES_RESAMPLE = 0
 LAUNCHES_COMPOSITE = 0
+LAUNCHES_RESAMPLE_COMPOSITE = 0
+# the fused kernel's tile: TILE_ROWS intermediate rows (one occupancy row
+# block) x TILE_COLS columns; a slab window of up to WINDOW_CAPACITY bf16
+# texels is staged in shared memory (shear_resample.cu RC_ROWS, RC_WIN_CAP)
+TILE_ROWS = 8
+TILE_COLS = 32
+WINDOW_CAPACITY = 2048
 # compiler output of this process's build (ptxas register / spill report)
 BUILD_LOG = ""
 _lib = None
@@ -49,6 +64,9 @@ def build() -> ctypes.CDLL:
     lib.vk_resample_slabs.restype = i
     lib.vk_composite.argtypes = [p, i, i, i, p, p, p, i, i, i, p, i, p]
     lib.vk_composite.restype = i
+    lib.vk_resample_composite.argtypes = [p, i, p, i, i, p, p, i, i, i, p, p, p, p, i, i, i, p,
+                                          p, i, p]
+    lib.vk_resample_composite.restype = i
     _lib = lib
     return lib
 
@@ -165,22 +183,26 @@ def resample_slabs_plain(packs, m, pos_u, pos_v, occ=None):
     return out
 
 
+def _check_gates(dev, g, iv, iu, sgn, irho, occ, transfer):
+    """The composite's arguments beside its (g, iv, iu) samples."""
+    _check("sgn", sgn, dev, torch.int32, shape=(1,))
+    _check("irho", irho, dev, torch.float32, shape=(iv, iu))
+    if occ is not None:
+        _check("occ", occ, dev, torch.bool, ndim=2)
+        if occ.shape[0] != g or occ.shape[1] < 1 or iv % occ.shape[1]:
+            raise ValueError(f"occ must be (G, nrb) with nrb dividing Iv, got "
+                             f"{tuple(occ.shape)} for {g} slabs of {iv} rows")
+    if transfer not in TRANSFERS:
+        raise ValueError(f"transfer must be one of {TRANSFERS}, got {transfer!r}")
+
+
 def _check_composite(stack, sgn, irho, occ, transfer):
     if not isinstance(stack, torch.Tensor):
         raise TypeError(f"stack must be a torch.Tensor, got {type(stack)}")
     dev = stack.device
     _check_device(dev)
     _check("stack", stack, dev, torch.bfloat16, ndim=3)
-    _check("sgn", sgn, dev, torch.int32, shape=(1,))
-    _check("irho", irho, dev, torch.float32, shape=stack.shape[1:])
-    if occ is not None:
-        _check("occ", occ, dev, torch.bool, ndim=2)
-        if occ.shape[0] != stack.shape[0] or occ.shape[1] < 1 or \
-                stack.shape[1] % occ.shape[1]:
-            raise ValueError(f"occ must be (G, nrb) with nrb dividing Iv, got "
-                             f"{tuple(occ.shape)} for a stack {tuple(stack.shape)}")
-    if transfer not in TRANSFERS:
-        raise ValueError(f"transfer must be one of {TRANSFERS}, got {transfer!r}")
+    _check_gates(dev, *stack.shape, sgn, irho, occ, transfer)
 
 
 @torch.no_grad()
@@ -250,3 +272,126 @@ def composite_plain(stack, sgn, irho, occ=None, transfer: str = "lowdeg",
             count += live
     planes = torch.stack([r, gch, b, a])
     return (planes, count) if return_count else planes
+
+
+# -- the fused slab stage: K3 -> K4 in one kernel -----------------------------
+
+_OVER: dict = {}
+
+
+def over_capacity(device) -> torch.Tensor:
+    """The fused kernel's device counter on ``device``: (2,) int32, the tiles
+    that had a slab window over ``WINDOW_CAPACITY`` (read from the pack in
+    device memory instead) and the number of such (tile, slab) windows. It
+    accumulates over every launch and is never zeroed on the frame path, so
+    it means something only between an explicit ``zero_()`` and a read; the
+    frame never reads it on the host."""
+    device = torch.device(device)
+    if device not in _OVER:
+        _OVER[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _OVER[device]
+
+
+def _check_resample_composite(packs, m, pos_u, pos_v, sgn, irho, occ_k, occ_rb, transfer):
+    _check_resample(packs, m, pos_u, pos_v, occ_k)
+    _check_gates(packs.device, pos_u.shape[0], pos_v.shape[1], pos_u.shape[1], sgn, irho,
+                 occ_rb, transfer)
+
+
+def _check_kernel_shapes(packs, pos_u, pos_v, occ_rb):
+    """What the fused kernel takes beyond the plain version: whole 16-byte
+    copies of the pack's rows and of the positions, tiles inside one
+    occupancy row block."""
+    d, iu, iv = packs.shape[2], pos_u.shape[1], pos_v.shape[1]
+    nrb = 1 if occ_rb is None else occ_rb.shape[1]
+    if d % 8 or iv % TILE_ROWS or (iv // nrb) % TILE_ROWS or iu % 4:
+        raise ValueError(f"resample_composite on the card needs D % 8 == 0, Iv % 8 == 0, "
+                         f"Iv/nrb % 8 == 0 and Iu % 4 == 0; got D {d}, Iv {iv}, nrb {nrb}, "
+                         f"Iu {iu}")
+    for name, t in (("packs", packs), ("pos_u", pos_u), ("pos_v", pos_v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+@torch.no_grad()
+def resample_composite(packs, m, pos_u, pos_v, sgn, irho, occ_k=None, occ_rb=None,
+                       transfer: str = "lowdeg"):
+    """K3 -> K4 in one kernel: ``composite(resample_slabs(packs, m, pos_u,
+    pos_v, occ_k), sgn, irho, occ_rb, transfer)`` without the (gp, Iv, Iu)
+    stack between them (the counterpart of the JAX package's
+    ``shear_resample.resample_composite``, vokselis_tpu/ops/pallas/
+    shear_resample.py:402). Arguments as those two functions'; ``occ_rb``
+    is the composite's (gp, nrb) gate. Returns the (4, Iv, Iu) f32 r, g, b,
+    a planes. CUDA tensors launch the kernel; CPU tensors take
+    :func:`resample_composite_plain`."""
+    global LAUNCHES_RESAMPLE_COMPOSITE
+    _check_resample_composite(packs, m, pos_u, pos_v, sgn, irho, occ_k, occ_rb, transfer)
+    if packs.device.type == "cpu":
+        return resample_composite_plain(packs, m, pos_u, pos_v, sgn, irho, occ_k, occ_rb,
+                                        transfer)
+    _check_kernel_shapes(packs, pos_u, pos_v, occ_rb)
+    lib = build()
+    n_packs, g, d, _ = packs.shape
+    gp, iu = pos_u.shape
+    iv = pos_v.shape[1]
+    nrb = 1 if occ_rb is None else occ_rb.shape[1]
+    out = torch.empty((4, iv, iu), dtype=torch.float32, device=packs.device)
+    err = lib.vk_resample_composite(
+        packs.data_ptr(), n_packs, m.data_ptr(), g, d, pos_u.data_ptr(), pos_v.data_ptr(),
+        gp, iv, iu, sgn.data_ptr(), irho.data_ptr(),
+        None if occ_k is None else occ_k.data_ptr(),
+        None if occ_rb is None else occ_rb.data_ptr(), nrb, iv // nrb,
+        int(transfer == "exact"), out.data_ptr(), over_capacity(packs.device).data_ptr(),
+        packs.device.index, torch.cuda.current_stream(packs.device).cuda_stream,
+    )
+    check_launch(lib, err, "resample_composite")
+    LAUNCHES_RESAMPLE_COMPOSITE += 1
+    return out
+
+
+@torch.no_grad()
+def resample_composite_plain(packs, m, pos_u, pos_v, sgn, irho, occ_k=None, occ_rb=None,
+                             transfer: str = "lowdeg", return_count: bool = False):
+    """Plain torch version of the fused kernel: :func:`composite_plain` of
+    :func:`resample_slabs_plain`, nothing more (``return_count`` as
+    composite_plain's)."""
+    _check_resample_composite(packs, m, pos_u, pos_v, sgn, irho, occ_k, occ_rb, transfer)
+    stack = resample_slabs_plain(packs, m, pos_u, pos_v, occ_k)
+    return composite_plain(stack, sgn, irho, occ_rb, transfer, return_count)
+
+
+@torch.no_grad()
+def slab_windows(pos_u, pos_v, d: int):
+    """The fused kernel's window rule in torch: for each slab and tile of
+    ``TILE_ROWS`` x ``TILE_COLS`` texels, the pack rows and columns its taps
+    can reach, as (gp, Iv // 8, cdiv(Iu, TILE_COLS), 4) int64 (first row,
+    last row, first column, last column; inclusive). Positions are affine
+    per slab, so the tile's first and last row and column bound it; each
+    end is floored (+1 for the high tap), clamped into [0, d-1] in float
+    before the int cast (padding rows hold -1e6), and the columns widen to
+    whole 8-texel groups. A window of more than ``WINDOW_CAPACITY`` texels
+    is read from device memory. Tests and chip_smoke.py use this; the
+    kernel computes its own."""
+    gp, iu = pos_u.shape
+    iv = pos_v.shape[1]
+    if iv % TILE_ROWS:
+        raise ValueError(f"Iv must be a multiple of {TILE_ROWS}, got {iv}")
+    hi = float(d - 1)
+    c0 = torch.arange(0, iu, TILE_COLS, device=pos_u.device)
+    c1 = torch.clamp(c0 + TILE_COLS, max=iu) - 1
+    r0 = torch.arange(0, iv, TILE_ROWS, device=pos_v.device)
+
+    def span(a, b):
+        lo = torch.floor(torch.fmin(a, b))
+        top = torch.floor(torch.fmax(a, b)) + 1.0
+        return (torch.fmin(torch.fmax(lo, torch.zeros_like(lo)), torch.full_like(lo, hi)).long(),
+                torch.fmin(torch.fmax(top, torch.zeros_like(top)), torch.full_like(top, hi))
+                .long())
+
+    v0, v1 = span(pos_v[:, r0], pos_v[:, r0 + TILE_ROWS - 1])
+    u0, u1 = span(pos_u[:, c0], pos_u[:, c1])
+    u0, u1 = u0 // 8 * 8, u1 // 8 * 8 + 7
+    nr, nc = r0.numel(), c0.numel()
+    return torch.stack([v0[:, :, None].expand(gp, nr, nc), v1[:, :, None].expand(gp, nr, nc),
+                        u0[:, None, :].expand(gp, nr, nc), u1[:, None, :].expand(gp, nr, nc)],
+                       dim=-1)

@@ -6,7 +6,7 @@ The fast frame's error sits on a small set of high-contrast 32x32 screen
 tiles (silhouettes, volume edges, side-entry sample phase), so per frame:
 
 1. the fast frame in linear color (:func:`vokselis_torch.ops.shear_warp.
-   _render_fast`: K3 -> K4) warped by K5, which also reduces the per-tile
+   _render_fast`: K3 -> K4 fused) warped by K5, which also reduces the per-tile
    score statistics (:mod:`vokselis_torch.ops.cuda.warp2d`);
 2. a score per tile (warped curvature x sRGB slope, a small luminance-edge
    term, and the extent-excluded pixels weighted by the dilated peak

@@ -15,7 +15,10 @@ reference's sampling scheme) into a per-slab homothety and one 2-D warp:
 - the stack is composited front to back with two exact corrections (K4,
   ``composite``): the off-dominant-axis opacity rate (a ray takes
   irho = max|d|/|d_m| >= 1 exact-march steps per slab, and n equal steps of
-  alpha tv telescope to 1-(1-tv)^n) and the per-pixel 0.95 stop;
+  alpha tv telescope to 1-(1-tv)^n) and the per-pixel 0.95 stop; on the
+  frame path both run in one kernel (``resample_composite``), each slab's
+  samples resampled inside the composite loop, so the stack never reaches
+  device memory;
 - one bilinear lookup warps the composited intermediate to the screen (K6,
   :func:`vokselis_torch.ops.cuda.warp2d.warp_bilinear`).
 
@@ -275,7 +278,9 @@ def fast_geometry(pack, camera_uniform, width: int, height: int,
 def _render_fast(pack, camera_uniform, width: int, height: int,
                  intermediate: int, srgb: bool, return_aux=False,
                  plain: bool = False):
-    """One fast frame: geometry, then K3 -> K4 -> K6 (K5 for "stats").
+    """One fast frame: geometry, then the slab stage (K3 -> K4 fused in one
+    kernel, :func:`shear_resample.resample_composite`) and K6 (K5 for
+    "stats").
     Returns the (H, W, 4) f32 image (sRGB-encoded rgb when ``srgb``, alpha
     1), or with ``return_aux``:
 
@@ -300,10 +305,9 @@ def _render_fast(pack, camera_uniform, width: int, height: int,
             "(ROADMAP.md, deliberate removals); use \"stats\"")
     geo = fast_geometry(pack, camera_uniform, width, height, intermediate)
     sr = shear_resample
-    resample = sr.resample_slabs_plain if plain else sr.resample_slabs
-    composite = sr.composite_plain if plain else sr.composite
-    stack = resample(pack[0], geo.m, geo.pos_u, geo.pos_v, geo.occ_k)
-    planes = composite(stack, geo.sgn, geo.irho, geo.occ_rb)
+    slab_stage = sr.resample_composite_plain if plain else sr.resample_composite
+    planes = slab_stage(pack[0], geo.m, geo.pos_u, geo.pos_v, geo.sgn, geo.irho, geo.occ_k,
+                        geo.occ_rb)
     return _warp_to_screen(planes, geo, srgb, plain=plain, return_aux=return_aux)
 
 
