@@ -12,7 +12,9 @@ Phases, each reported on its own lines:
      K4 + K34, their fusion (shear_resample.cu), K6 + K5 (warp2d.cu), K7
      (march_field.cu) and K9 + K8 (genvol.cu); ptxas registers and spills;
      K9 and K8 must have no stack frame and no local-memory access in their
-     SASS (cuobjdump), nor K34's low-degree instantiation;
+     SASS (cuobjdump), nor K34's low-degree instantiation; K6's and K5's
+     global loads in SASS order, grouped by the first use of a loaded value
+     (vokselis_torch/tools/warp_check.load_batches);
   3. K1 (with its empty-space skip over the volume's occupancy table)
      against its plain torch version on the card, at 1024x1024 on the
      256^3 bonsai (bench, eye-inside and diagonal poses) and on a random
@@ -22,14 +24,17 @@ Phases, each reported on its own lines:
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
      directions: K3 within one bf16 ulp of the value and mean <= 1e-6, K4
-     and K4b max <= 1e-4, K6 max <= 1e-6; K34 (K3 -> K4 in one kernel, the
+     and K4b max <= 1e-4, K6 bitwise (max <= 1e-6) at 1024^2, 1920x1080
+     (config 4's frame, partial tiles) and 1001x563 (width and pixel count
+     not multiples of 4), each at I=512 and I=1024 with 3 and 4 channels
+     (warp_check.warp_inputs); K34 (K3 -> K4 in one kernel, the
      frames' slab stage) at I=512 and I=1024, the bench and eye-inside
      poses, and at I=64 (tiles whose windows exceed the shared capacity),
      both directions and transfers: bitwise equal to the K3 -> K4 kernel
      pair and within 1e-4 of its plain version, its device count of windows
      over capacity equal to the window rule's;
-  3c. K5 (the stats warp) against its plain version at the bench pose's
-     fast geometry, I=512 and I=1024: rgb bitwise, STAT_OVF/EXT/PEAK exact,
+  3c. K5 (the stats warp) against its plain version at phase 3b's frames
+     and intermediates: rgb bitwise, STAT_OVF/EXT/PEAK exact,
      STAT_CURV/EDGE within 1e-5 relative; K2 (the tile re-march) and K1b (its
      compact mode) at 1024^2 over single tiles and tile pairs with parked
      ids, both transfer modes: bitwise, and every other pixel unchanged;
@@ -81,7 +86,10 @@ Phases, each reported on its own lines:
      for the grid_sample yardsticks of K3's and K6's functions (and of
      K5's warp alone: K5's statistics have no library counterpart); plain
      versions, the frames' other stages, whole exact, fast and hybrid
-     frames (the hybrid's stages at I=512/budget 128 and I=1024/budget 64),
+     frames (the hybrid's stages at I=512/budget 128 and I=1024/budget 64;
+     K5's device time and bound at both intermediates, and its gather alone:
+     K6 on K5's inputs with 4 and with 3 channels; K5's and K6's bounds read
+     only the intermediate texels that their pixels' taps touch),
      the bounds (K1's and K2's count a skipped step's work, not a sampled
      one's) and the ranking by device ms - bound. K1's and K2's share of
      marched steps skipped (skip_counts) at the bench pose and for a
@@ -129,7 +137,6 @@ II = 512  # FastBonsaiRenderer's default intermediate
 II_HYBRID = 1024  # the hybrid's operating point (OPPOINT.json)
 K4_TOL = 1e-4  # tests/test_pallas.py:394, tests/test_fast.py:165
 K6_TOL = 1e-6
-STATS_RTOL = 1e-5  # K5's sums: another summation order than torch.sum
 HYBRID_CONTRACT = 1e-3  # per-pose mean |hybrid - exact| over rgb (ROADMAP north star)
 BUDGET_OP = 64  # the hybrid's operating point with II_HYBRID (OPPOINT.json)
 # K4's 1e-4 through sRGB's steepest slope (12.92): the fast frame vs plain
@@ -542,6 +549,7 @@ def main() -> int:
     from vokselis_torch.ops.present import present, to_uint8
     from vokselis_torch.parallel import orbit_camera_batch
     from vokselis_torch.tools import hybrid_sweep
+    from vokselis_torch.tools import warp_check
     from vokselis_torch.volume.io import get_bonsai
 
     import numpy as np
@@ -621,6 +629,14 @@ def main() -> int:
           f"instantiation in the SASS: {k34_local}", flush=True)
     check(len(k34_local) == 2, f"K34 instantiations {k34_local}")
     check(k34_local["lowdeg"] == 0, "the frame's K34 instantiation uses local memory")
+    # K6's and K5's global loads in program order, grouped by the first use
+    # of a loaded value: the taps of a thread's pixels should form one group
+    sass = subprocess.run([cuobjdump, "-sass", w2.build()._name], capture_output=True,
+                          text=True, check=True).stdout
+    for name, groups in warp_check.load_batches(sass).items():
+        m = re.search(r"(warp_\w*kernel)I(.*?)EEEv", name)
+        print(f"phase 2 K6+K5 SASS {f'{m.group(1)}<{m.group(2)}>' if m else name}: global "
+              f"loads in groups {groups}", flush=True)
 
     # -- phase 3: K1 against its plain version ----------------------------
     vol_bonsai = mb.volume_tensor(get_bonsai(), dev)
@@ -749,17 +765,6 @@ def main() -> int:
         if ii == II:
             planes = sr.composite(stack, geo.sgn, geo.irho, geo.occ_rb)
             av, bu, ok = shear_warp.warp_coords(geo, ii, ii)
-            for n_ch in (3, 4):
-                w = w2.warp_bilinear(planes[:n_ch], av, bu, ok)
-                w_p = w2.warp_plain(planes[:n_ch], av, bu, ok)
-                d6 = (w - w_p).abs()
-                mx = float(d6.max())
-                same = float((w == w_p).float().mean())
-                print(f"phase 3b K6 vs plain bench I={ii} {n_ch} channels {RES}x{RES}: "
-                      f"max {mx:.3e} (tol {K6_TOL:g}), bitwise-equal {same:.6f}, hit "
-                      f"pixels {float(ok.float().mean()):.4f}", flush=True)
-                check(mx <= K6_TOL, f"K6 disagrees with plain ({n_ch} channels)")
-                worst["K6"] = max(worst["K6"], mx)
             # this run's data-dependent work, for the bounds of phase 5
             geo_b, stack_b, planes_b, ok_b = geo, stack, planes, ok
             _, k4_count = sr.composite_plain(stack, geo.sgn, geo.irho, geo.occ_rb,
@@ -767,6 +772,26 @@ def main() -> int:
             _, k4b_count = sr.composite_plain(stack, geo.sgn, geo.irho, geo.occ_rb, "exact",
                                               return_count=True)
         del stack, stack_p
+    # K6 at the bench pose's fast geometry (the frames' inputs: K34's planes,
+    # warp_coords) for 1024^2, config 4's 1920x1080 (partial 32-pixel tiles)
+    # and 1001x563 (width and pixel count not multiples of 4: the kernel's
+    # scalar path), each at I=512 and I=1024, with 3 and 4 channels
+    for width, height in warp_check.FRAMES:
+        for ii in (II, II_HYBRID):
+            inp = warp_check.warp_inputs(packs, width, height, ii)
+            av, bu, ok = inp["av"], inp["bu"], inp["ok"]
+            for n_ch in (3, 4):
+                chans = inp["planes"][:n_ch]
+                err = warp_check.k6_error(w2.warp_bilinear(chans, av, bu, ok),
+                                          w2.warp_plain(chans, av, bu, ok))
+                print(f"phase 3b K6 vs plain bench I={ii} {n_ch} channels {width}x{height}: "
+                      f"max {err['max']:.3e} (tol {K6_TOL:g}), bitwise-equal "
+                      f"{err['bitwise']:.6f}, hit pixels {float(ok.float().mean()):.4f}",
+                      flush=True)
+                check(err["max"] <= K6_TOL and err["equal"],
+                      f"K6 disagrees with plain ({n_ch} channels, {width}x{height}, I={ii})")
+                worst["K6"] = max(worst["K6"], err["max"])
+            del inp, av, bu, ok
     # the bench pose at the zoom clamp (eye inside the volume, clamped
     # divisor), and an intermediate so coarse that its tiles' windows exceed
     # the shared capacity
@@ -779,38 +804,27 @@ def main() -> int:
     check(win_stats[("bench", 64)][1] > 0, "the over-capacity input has no tile over capacity")
 
     # -- phase 3c: K5 and K2 (with K1b) against their plain versions -------
-    def stats_inputs(ii):
-        """K5's inputs at the bench pose: the composited intermediate's r, g,
-        b and curvature, the warp coordinates, ok and box masks."""
-        geo = shear_warp.fast_geometry(packs, bench_u, RES, RES, ii)
-        planes = sr.composite(sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v,
-                                                geo.occ_k), geo.sgn, geo.irho, geo.occ_rb)
-        av, bu, ok = shear_warp.warp_coords(geo, ii, ii)
-        chans = torch.cat([planes[:3], shear_warp.curvature(planes)[None]])
-        return chans, av, bu, ok, geo.hit
-
+    # K5 at phase 3b's frames and intermediates; the bench frame at I=512
+    # also feeds K2's checks
     ny = nx = RES // 32
-    for ii in (II, II_HYBRID):
-        k5_in = stats_inputs(ii)
-        rgb5, st5 = w2.warp_stats(*k5_in)
-        rgb5_p, st5_p = w2.warp_stats_plain(*k5_in)
-        torch.cuda.synchronize()
-        d_rgb = float((rgb5 - rgb5_p).abs().max())
-        exact_cols = all(torch.equal(st5[:, c], st5_p[:, c])
-                         for c in (w2.STAT_OVF, w2.STAT_EXT, w2.STAT_PEAK))
-        d_st = (st5 - st5_p).abs()
-        rel = float((d_st[:, :2] / st5_p[:, :2].abs().clamp(min=1e-30)).max())
-        n_over = int((d_st[:, :2] > STATS_RTOL * st5_p[:, :2].abs()).sum())
-        print(f"phase 3c K5 vs plain bench I={ii} {RES}x{RES}: rgb max {d_rgb:.3e} "
-              f"(bitwise-equal {float((rgb5 == rgb5_p).float().mean()):.6f}), OVF/EXT/PEAK "
-              f"equal {exact_cols}, CURV/EDGE max rel {rel:.3e} (tol {STATS_RTOL:g}, tiles "
-              f"over {n_over}), EXT total {float(st5[:, w2.STAT_EXT].sum()):.0f}", flush=True)
-        check(d_rgb == 0.0 and exact_cols and n_over == 0,
-              f"K5 disagrees with plain at I={ii}")
-        worst["K5"] = max(worst["K5"], d_rgb, float(d_st.max()))
-        if ii == II:
-            base0, scores0 = rgb5, hy.score_tiles(st5, ny, nx)
-        del k5_in, rgb5, rgb5_p
+    for width, height in warp_check.FRAMES:
+        for ii in (II, II_HYBRID):
+            k5_in = warp_check.k5_args(warp_check.warp_inputs(packs, width, height, ii))
+            rgb5, st5 = w2.warp_stats(*k5_in)
+            rgb5_p, st5_p = w2.warp_stats_plain(*k5_in)
+            torch.cuda.synchronize()
+            err = warp_check.k5_error(rgb5, st5, rgb5_p, st5_p)
+            print(f"phase 3c K5 vs plain bench I={ii} {width}x{height}: rgb max "
+                  f"{err['rgb_max']:.3e} (bitwise-equal {err['rgb_bitwise']:.6f}), OVF/EXT/PEAK "
+                  f"equal {err['ovf_ext_peak_equal']}, CURV/EDGE max rel "
+                  f"{err['curv_edge_rel']:.3e} (tol {warp_check.STATS_RTOL:g}, tiles over "
+                  f"{err['tiles_over']}), EXT total {float(st5[:, w2.STAT_EXT].sum()):.0f}",
+                  flush=True)
+            check(err["ok"], f"K5 disagrees with plain at {width}x{height}, I={ii}")
+            worst["K5"] = max(worst["K5"], err["rgb_max"], float((st5 - st5_p).abs().max()))
+            if (width, height, ii) == (RES, RES, II):
+                base0, scores0 = rgb5, hy.score_tiles(st5, ny, nx)
+            del k5_in, rgb5, rgb5_p
     for tpu in (1, 2):
         pick = hy.select_units(scores0, ny * nx, hy.DEFAULT_BUDGET, hy.DEFAULT_THRESH,
                                pair=tpu == 2)
@@ -1251,9 +1265,12 @@ def main() -> int:
     k4bp_ms = median_ms(lambda: sr.composite_plain(stack_b, geo.sgn, geo.irho, geo.occ_rb,
                                                    "exact"), TIMED_FRAMES, torch)
     k6p_ms = median_ms(lambda: w2.warp_plain(chans, av, bu, ok), n, torch)
-    # yardsticks the port never calls: grid_sample (bilinear, zeros padding,
+    # the intermediate's texels that the hit pixels' taps touch (K6's bound)
+    k6_texels = warp_check.tapped_texels(av, bu, ok, II, II)
+    # yardsticks the port never calls: grid_sample (bilinear,
     # align_corners=True) over the same float32 slabs / channels at the same
-    # coordinates
+    # coordinates; zeros padding for K3 (its taps outside the volume are 0),
+    # border for K6 (its lookup clamps to the edge, as K5's yardstick does)
     gp = geo.pos_u.shape[0]
     slabs = torch.zeros((gp, 1) + tuple(packs[0].shape[2:]), dtype=torch.float32, device=dev)
     slabs[: packs[0].shape[1], 0] = packs[0].index_select(0, geo.m.long())[0].float()
@@ -1265,7 +1282,7 @@ def main() -> int:
     lib3_ms = median_ms(lambda: gs(slabs, grid3, mode="bilinear", padding_mode="zeros",
                                    align_corners=True), n, torch)
     grid6 = torch.stack([bu / (II - 1) * 2 - 1, av / (II - 1) * 2 - 1], dim=-1)[None]
-    lib6_ms = median_ms(lambda: gs(chans[None], grid6, mode="bilinear", padding_mode="zeros",
+    lib6_ms = median_ms(lambda: gs(chans[None], grid6, mode="bilinear", padding_mode="border",
                                    align_corners=True), n, torch)
     dev_ms = {
         "K3": device_ms(lambda: sr.resample_slabs(packs[0], geo.m, geo.pos_u, geo.pos_v,
@@ -1278,8 +1295,9 @@ def main() -> int:
     }
     # K6 against grid_sample: each replay's device time, both from this call
     k6_spread = device_ms(lambda: w2.warp_bilinear(chans, av, bu, ok), torch, spread=True)
-    gs6_spread = device_ms(lambda: gs(chans[None], grid6, mode="bilinear", padding_mode="zeros",
-                                      align_corners=True), torch, spread=True)
+    gs6_spread = device_ms(lambda: gs(chans[None], grid6, mode="bilinear",
+                                      padding_mode="border", align_corners=True), torch,
+                           spread=True)
     dev_ms["K6"], dev_ms["grid_sample K6"] = k6_spread[1], gs6_spread[1]
     del slabs, grid3
 
@@ -1423,6 +1441,8 @@ def main() -> int:
             return torch.cat([planes[:3], shear_warp.curvature(planes)[None]]), av, bu, ok
 
         k5_args = coords_curv() + (geo.hit,)
+        k5_ok[ii] = int(k5_args[3].sum())
+        k5_texels[ii] = warp_check.tapped_texels(k5_args[1], k5_args[2], k5_args[3], ii, ii)
         rgb, stats = w2.warp_stats(*k5_args)
 
         def select():
@@ -1450,6 +1470,11 @@ def main() -> int:
                                                             torch),
         }
         row["K5 device"] = device_ms(lambda: w2.warp_stats(*k5_args), torch)
+        # K5's gather alone: K6 on its inputs over its four channels, and over
+        # r, g, b only (K5 less its statistics, and less the curvature plane)
+        for n_ch in (4, 3):
+            row[f"K6 {n_ch}ch on K5 inputs device"] = device_ms(
+                lambda: w2.warp_bilinear(k5_args[0][:n_ch], *k5_args[1:4]), torch)
         row["K2 device"] = device_ms(lambda: mb._launch_tiles(
             vol_bonsai, rays, ids, RES, RES, tpu, reference.MAX_STEPS_BONSAI, True, base, False),
             torch)
@@ -1460,12 +1485,13 @@ def main() -> int:
               + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()), flush=True)
         return row, k5_args, ids, rays, base, n_sel
 
+    k5_ok, k5_texels = {}, {}
     hyb_rows = {II_HYBRID: hybrid_stages(II_HYBRID, BUDGET_OP)[0]}
     hyb_rows[II], k5_args, ids, rays, base, n_sel = hybrid_stages(II, hy.DEFAULT_BUDGET)
     # K5's and K2's plain versions, the yardstick, and this run's work, at
     # the demo's setting
     k5p_ms = median_ms(lambda: w2.warp_stats_plain(*k5_args), n, torch)
-    hchans, hav, hbu, hok, _ = k5_args
+    hchans, hav, hbu, _, _ = k5_args
     grid5 = torch.stack([hbu / (II - 1) * 2 - 1, hav / (II - 1) * 2 - 1], dim=-1)[None]
     lib5_ms = median_ms(lambda: gs(hchans[None], grid5, mode="bilinear", padding_mode="border",
                                    align_corners=True), n, torch)
@@ -1490,7 +1516,6 @@ def main() -> int:
     k2_steps, k2_skipped = skip_counts(vol_bonsai, rays[0], k2_dirs, k2_steps * listed, torch)
     k2_skip = k2_skipped / k2_steps
     k2_pixels = n_sel * tpu * 32 * 32
-    k5_ok = int(hok.sum())
     del k5_args, hchans, grid5, base, rays, compact, k2_dirs
     hyb_demo = HybridDemo.init(hctx)
 
@@ -1530,30 +1555,47 @@ def main() -> int:
     k4_bound = bound_ms(k4_samples * 2 + II * II * 4 + geo.occ_rb.numel() + 8
                         + 4 * II * II * 4, k4_samples * OPS_K4_SAMPLE)
     n_hit = int(ok_b.sum())
-    k6_bound = bound_ms(3 * II * II * 4 + RES * RES + n_hit * 8 + 3 * RES * RES * 4,
+    # the warps read the intermediate's texels that their pixels' taps touch
+    k6_bound = bound_ms(3 * k6_texels * 4 + RES * RES + n_hit * 8 + 3 * RES * RES * 4,
                         n_hit * (OPS_K6_PIXEL + 3 * OPS_K6_CHANNEL))
     k4b_samples = int(k4b_count.sum())
     k4b_bound = bound_ms(k4b_samples * 2 + II * II * 4 + geo.occ_rb.numel() + 8
                          + 4 * II * II * 4, k4b_samples * OPS_K4B_SAMPLE)
     n_px = RES * RES
-    # av/bu are read only at ok pixels, box only where ok is 0
-    k5_bound = bound_ms(4 * II * II * 4 + n_px * (1 + 12) + (n_px - k5_ok) + k5_ok * 8
-                        + ny * nx * 20,
-                        k5_ok * (OPS_K6_PIXEL + 4 * OPS_K6_CHANNEL) + n_px * OPS_K5_PIXEL)
+    # av/bu are read only at ok pixels, box only where ok is 0; at I=512 (the
+    # demo) and I=1024 (the operating point)
+    k5_bounds = {ii: bound_ms(4 * k5_texels[ii] * 4 + n_px * (1 + 12) + (n_px - n_ok)
+                              + n_ok * 8 + ny * nx * 20,
+                              n_ok * (OPS_K6_PIXEL + 4 * OPS_K6_CHANNEL) + n_px * OPS_K5_PIXEL)
+                 for ii, n_ok in k5_ok.items()}
+    k5_bound = k5_bounds[II]
     k2_sampled = k2_steps - k2_skipped
     k2_bound = bound_ms(vol_bonsai.numel() + k2_pixels * (12 + 12) + 12 + 4 * ids.numel(),
                         k2_sampled * OPS_K2_STEP + k2_skipped * OPS_SKIP_STEP)
     print(f"phase 5 work: K1 {k1_steps} steps marched ({k1_steps / (RES * RES):.1f} per ray), "
           f"{k1_sampled} of them sampled, {k1_skipped} skipped; "
           f"K3 {hot} hot slabs of {gp}; K4 {k4_samples} samples composited "
-          f"({k4_samples / (II * II):.1f} per texel); K6 {n_hit} hit pixels; K5 {k5_ok} ok "
-          f"pixels of {n_px}; K2 {k2_steps} steps over {k2_pixels} pixels, {k2_sampled} sampled, "
+          f"({k4_samples / (II * II):.1f} per texel); K6 {n_hit} hit pixels tapping {k6_texels} "
+          f"texels ({k6_texels / (II * II):.4f} of the plane); K5 {k5_ok[II]} ok pixels of "
+          f"{n_px} tapping {k5_texels[II]} texels ({k5_texels[II] / (II * II):.4f}; I=1024: "
+          f"{k5_ok[II_HYBRID]} ok, {k5_texels[II_HYBRID]} texels, "
+          f"{k5_texels[II_HYBRID] / II_HYBRID ** 2:.4f}); K2 {k2_steps} steps over "
+          f"{k2_pixels} pixels, {k2_sampled} sampled, "
           f"{k2_skipped} skipped")
     print(f"phase 5 bounds (ms, H100 SXM 3.35 TB/s, 67 TFLOP/s f32): K1 {k1_bound[0]:.4f} "
           f"({k1_bound[1]}), K3 {k3_bound[0]:.4f} ({k3_bound[1]}), K4 {k4_bound[0]:.4f} "
           f"({k4_bound[1]}), K4b {k4b_bound[0]:.4f} ({k4b_bound[1]}), K6 {k6_bound[0]:.4f} "
           f"({k6_bound[1]}), K5 {k5_bound[0]:.4f} ({k5_bound[1]}), K2 {k2_bound[0]:.4f} "
           f"({k2_bound[1]})", flush=True)
+    print(f"phase 5 K5 ({card}; bench pose, {RES}x{RES}; device: CUDA graph of "
+          f"{GRAPH_LAUNCHES}): " + ", ".join(
+              f"I={ii} device {hyb_rows[ii]['K5 device']:.4f} ms, one call "
+              f"{hyb_rows[ii]['K5']:.4f} ms, bound {k5_bounds[ii][0]:.4f} ms "
+              f"({k5_bounds[ii][1]}), {hyb_rows[ii]['K5 device'] / k5_bounds[ii][0]:.2f}x its "
+              f"bound; its gather alone (K6 on its inputs) 4 channels "
+              f"{hyb_rows[ii]['K6 4ch on K5 inputs device']:.4f} ms, 3 channels "
+              f"{hyb_rows[ii]['K6 3ch on K5 inputs device']:.4f} ms"
+              for ii in (II, II_HYBRID)), flush=True)
 
     # K7, K9 and K8 alone (rays and time precomputed), their plain versions,
     # this run's work, the xor demo frame and one full config-5 batch
@@ -1757,9 +1799,15 @@ def main() -> int:
               "vokselis_tpu/ops/pallas/march_bonsai.py:1021", hyb_launches["K2"],
               worst["K2"], hyb_rows[II]["K2 device"], hyb_rows[II]["K2"], k2p_ms, k2_bound),
         # grid_sample computes K5's warp but none of its tile statistics: no library time
-        entry("warp_stats", "vokselis_torch/csrc/warp2d.cu",
-              "vokselis_tpu/ops/pallas/warp2d.py:470", hyb_launches["K5"],
-              worst["K5"], hyb_rows[II]["K5 device"], hyb_rows[II]["K5"], k5p_ms, k5_bound),
+        dict(entry("warp_stats", "vokselis_torch/csrc/warp2d.cu",
+                   "vokselis_tpu/ops/pallas/warp2d.py:470", hyb_launches["K5"],
+                   worst["K5"], hyb_rows[II]["K5 device"], hyb_rows[II]["K5"], k5p_ms,
+                   k5_bound),
+             modes={f"I={ii}": {"device_ms": hyb_rows[ii]["K5 device"],
+                                "call_ms": hyb_rows[ii]["K5"], "bound_ms": k5_bounds[ii][0],
+                                "bound_by": k5_bounds[ii][1], "ok_pixels": k5_ok[ii],
+                                "texels_tapped": k5_texels[ii]}
+                    for ii in (II, II_HYBRID)}),
         dict(entry("march_field", "vokselis_torch/csrc/march_field.cu",
                    "vokselis_tpu/ops/pallas/march_field.py:61", xor_runs[XOR_RES][1]["K7"],
                    worst["K7"], k7_dev["xor analytic"], k7_ms["xor analytic"],

@@ -8,10 +8,11 @@ renderer's warp with its per-tile score statistics), and the kernels that
 existed only for their VMEM windows: ``_rewarp_kernel`` and
 ``_rewarp_kernel_stats`` (the overflow re-warps) and
 ``_warp_kernel``/``_warp_kernel_impl`` (the row scan for large
-intermediates). A thread per pixel reads the intermediate directly, so one
-kernel serves every intermediate size and no footprint overflows. The
-library is built with ``nvcc`` at first use on a CUDA device; importing
-builds nothing.
+intermediates). The kernels read the intermediate directly, so one kernel
+serves every intermediate size and no footprint overflows: a block per
+32x32 screen tile, each thread 4 (K6) or 8 (K5) consecutive pixels of a
+tile row, with every tap in flight before any is used. The library is built
+with ``nvcc`` at first use on a CUDA device; importing builds nothing.
 
 :func:`warp_bilinear` and :func:`warp_stats` launch their kernel for CUDA
 tensors and take :func:`warp_plain` and :func:`warp_stats_plain` only for
@@ -55,7 +56,7 @@ def build() -> ctypes.CDLL:
         return _lib
     lib, BUILD_LOG = load_library(SOURCE, NVCC_FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vk_warp_bilinear.argtypes = [p, i, i, i, p, p, p, i, p, i, p]
+    lib.vk_warp_bilinear.argtypes = [p, i, i, i, p, p, p, i, i, p, i, p]
     lib.vk_warp_bilinear.restype = i
     lib.vk_warp_stats.argtypes = [p, i, i, p, p, p, p, i, i, p, p, i, p]
     lib.vk_warp_stats.restype = i
@@ -111,7 +112,7 @@ def warp_bilinear(chans, av, bu, hit=None, with_overflow: bool = False):
                              device=chans.device)
         err = lib.vk_warp_bilinear(
             chans.data_ptr(), n_ch, iv, iu, av.data_ptr(), bu.data_ptr(),
-            None if hit is None else hit.data_ptr(), av.numel(), planes.data_ptr(),
+            None if hit is None else hit.data_ptr(), *av.shape, planes.data_ptr(),
             chans.device.index, torch.cuda.current_stream(chans.device).cuda_stream,
         )
         check_launch(lib, err, "warp_bilinear")
