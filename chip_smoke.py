@@ -10,7 +10,8 @@ Phases, each reported on its own lines:
   2. build: compile every kernel from vokselis_torch/csrc with nvcc, one
      nvcc per source, all started together: K1 + K2 (march_bonsai.cu), K3 +
      K4 + K34, their fusion (shear_resample.cu), K6 + K5 (warp2d.cu), K7
-     (march_field.cu) and K9 + K8 (genvol.cu); ptxas registers and spills;
+     (march_field.cu) and K9 + K8 (genvol.cu), and beside them the native
+     I/O library (g++, native/vokselis_native.cpp); ptxas registers and spills;
      K9 and K8 must have no stack frame and no local-memory access in their
      SASS (cuobjdump), nor K34's low-degree instantiation; K6's and K5's
      global loads in SASS order, grouped by the first use of a loaded value
@@ -78,6 +79,30 @@ Phases, each reported on its own lines:
   4g. config 5 at reduced depth: 2 batches, each K8 at 512^3 (t = 0.3 b)
      and 8 orbit views at 512^2 through K1 with 888 steps (the first builds
      the volume's occupancy table); one view against K1's plain version;
+  (phases 4h-4k run after phase 5, so that phase 5 times the frames in the
+  process state of the earlier phases)
+  4h. multi-device (vokselis_torch.parallel.sharding) over an NCCL process
+     group of world size 1 (one card), the (views 1, tiles 1) mesh:
+     render_views_sharded of 64 orbit views at 512^2 (config 5's views)
+     gathered, render_frame_tiled at 1024^2 (bench pose) and
+     multi_view_step, K1 only; every view and the frame bitwise equal to
+     single-device K1 calls on the same uniforms, overflow 0; the sharded
+     batch's and frame's times beside the single-device ones;
+  4i. hot reload of K7: XorDemo at 512^2 on a copy of march_field.cu and its
+     headers in a temporary directory, Context(watch=True), the watcher
+     driven by poll_once: an edited shading constant rebuilds (nvcc) into a
+     new library and changes the frame; a syntax error returns nvcc's
+     diagnostics and the next frame is bitwise the last good one; the
+     restored source gives the unedited K7 frame bitwise; rebuild seconds;
+  4j. scene state: save after 2 exact frames at 1024^2, orbit 2 more,
+     restore, and the next frame is bitwise the saved one; profiler.trace
+     around one exact frame names K1's kernel; present(filter="quadratic"
+     and "bicubic") on the card against the CPU, upscaled and at the same
+     size, within 1e-5;
+  4k. native I/O: the native PNG of the frame byte-equal to the Python
+     encoder's and decoding to it, a NativeRecorder screenshot, and
+     examples/interactive_torch.py for 3 frames on the card without a tty
+     (exit 0);
   5. timing with CUDA events. Each kernel's device_ms: a CUDA graph of 50
      launches replayed between two events, over 50 (the host's wrapper
      code is not in it); its call_ms (also the JSON line's ms): one wrapper
@@ -120,6 +145,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -201,6 +227,8 @@ XOR_RES = (1280, 720)  # the xor demo's backbuffer (HdrBackBuffer default)
 FIELD_RES = 512  # configs 1 and 2 (bench.py:442-444)
 K7_MAX, K7_MEAN = 5e-3, 1e-5  # test_pallas.py:41-58, K7 vs plain if not bitwise
 VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-371)
+# phase 4h's timing rounds: a 64-view batch takes ~70-95 ms, a 1024^2 frame ~1.5
+MESH_BATCH_ROUNDS, MESH_FRAME_ROUNDS = 25, 60
 
 
 # K7 or K8 (argv[2]) with a hash table that misses most of octave 0's lattice
@@ -258,6 +286,27 @@ def median_ms(fn, n: int, torch, warmup: int = WARMUP) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def interleaved_ms(fns: dict, n: int, torch, warmup: int = 1) -> dict:
+    """Median CUDA-event time of each of ``fns``' calls over ``n`` rounds, the
+    functions called in turn within a round, so that a drift of the host's
+    speed during the loop reaches each alike."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(n):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return {k: sorted(t)[len(t) // 2] for k, t in times.items()}
 
 
 def device_ms(fn, torch, n: int = GRAPH_LAUNCHES, reps: int = 5, spread: bool = False):
@@ -532,9 +581,12 @@ def main() -> int:
     from common import orbit_events
     from vokselis_torch.core import geometry
     from vokselis_torch.core.camera import Camera
+    from vokselis_torch import native
+    from vokselis_torch.engine import profiler
     from vokselis_torch.engine.context import Context
     from vokselis_torch.engine.loop import run
-    from vokselis_torch.media.png import write_png
+    from vokselis_torch.engine.state import load_state, save_state
+    from vokselis_torch.media.png import read_png, write_png
     from vokselis_torch.models.bonsai import BonsaiDemo
     from vokselis_torch.models.trig import TrigDemo
     from vokselis_torch.models.xor import XorDemo
@@ -547,6 +599,7 @@ def main() -> int:
     from vokselis_torch.ops.cuda import shear_resample as sr
     from vokselis_torch.ops.cuda import warp2d as w2
     from vokselis_torch.ops.present import present, to_uint8
+    from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
     from vokselis_torch.parallel import orbit_camera_batch
     from vokselis_torch.tools import hybrid_sweep
     from vokselis_torch.tools import warp_check
@@ -583,9 +636,18 @@ def main() -> int:
     # -- phase 2: build (one nvcc per source, all started together) -------
     modules = {"K1+K2": mb, "K3+K4+K34": sr, "K6+K5": w2, "K7": mf, "K9+K8": genvol}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(modules)) as pool:
+
+    def build_native():
+        """The native I/O library (g++), built beside the kernels so that
+        no later phase's timing pays for it; its seconds for phase 4k."""
+        native.get_lib()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(modules) + 1) as pool:
+        native_fut = pool.submit(build_native)
         for fut in [pool.submit(m.build) for m in modules.values()]:
             fut.result()
+        native_s = native_fut.result()
     build_s = time.perf_counter() - t0
     sources = ", ".join(f"{k} {os.path.relpath(m.SOURCE, ROOT)}" for k, m in modules.items())
     print(f"phase 2 build: {sources} -> {os.path.relpath(kbuild.BUILD_DIR, ROOT)} in "
@@ -1755,6 +1817,282 @@ def main() -> int:
           f"{dev_ms['grid_sample K3']:.4f} ({dev_ms['K3'] / dev_ms['grid_sample K3']:.2f}x)",
           flush=True)
 
+    # -- phases 4h-4k: this slice's paths, run after phase 5 so that phase 5
+    # times the frames in the same process state as before they existed
+    # (an NCCL group, a device trace, more contexts and processes) ---------
+
+    # -- phase 4h: multi-device at full width (NCCL, world size 1) ----------
+    # the machine has one card: a process group of one rank, the (1, 1)
+    # mesh; the code is the one that runs at any world size (gloo on the CPU
+    # in tests/test_torch_parallel.py)
+    import torch.distributed as dist
+
+    from vokselis_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1,
+                                rank=0)
+        try:
+            mesh = sharding.make_mesh(1, 1, device=dev)
+            check(sharding.mesh_device(mesh) == dev, f"mesh device {sharding.mesh_device(mesh)}")
+            render, pack = sharding.build_default_renderer(vol_bonsai, dev)
+            cams = sharding.orbit_camera_batch(VIEWS, device=dev)
+            ray_renderer = sharding.build_ray_renderer(vol_bonsai, dev, with_overflow=True)
+            bench_u = bench.uniform(dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            views_img = sharding.render_views_sharded(mesh, render, pack, cams, VIEW_RES,
+                                                      VIEW_RES, max_steps=MAX_STEPS_BONSAI,
+                                                      gather=True)
+            tiled_img, ovf = sharding.render_frame_tiled(
+                mesh, None, bench_u, RES, RES, max_steps=MAX_STEPS_BONSAI,
+                renderer=ray_renderer, with_overflow=True)
+            step_img = sharding.multi_view_step(mesh, vol_bonsai, VIEWS, VIEW_RES, VIEW_RES,
+                                                max_steps=MAX_STEPS_BONSAI, gather=True)
+            torch.cuda.synchronize()
+            path_s = time.perf_counter() - t0
+            mesh_launches = launches()
+            check(mesh_launches == only(K1=2 * VIEWS + 1),
+                  f"multi-device path launched {mesh_launches}, not K1 x {2 * VIEWS + 1} only")
+            # each view and the frame against a single-device K1 call on the same uniform
+            singles = [render(pack, c, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI) for c in cams]
+            eye, dxyz = geometry.rays_fragment_soa(bench_u, RES, RES)
+            frame_k1 = mb.render_bonsai_rays_cuda(vol_bonsai, eye, dxyz)
+            check(tuple(views_img.shape) == (VIEWS, VIEW_RES, VIEW_RES, 4),
+                  f"gathered views {tuple(views_img.shape)}")
+            views_equal = sum(bool(torch.equal(views_img[i], singles[i])) for i in range(VIEWS))
+            check(views_equal == VIEWS, f"only {views_equal}/{VIEWS} sharded views equal K1's")
+            check(torch.equal(step_img, views_img), "multi_view_step differs from the views")
+            check(torch.equal(tiled_img, frame_k1) and int(ovf) == 0,
+                  f"row-sharded frame differs from K1's (overflow {int(ovf)})")
+            v_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
+                        for im in views_img)
+            check(bool(torch.isfinite(views_img).all()) and v_lit > 0.01,
+                  f"a sharded view is not finite or shows nothing (least lit {v_lit:.4f})")
+            # times, each a median of CUDA-event walls over rounds that call the
+            # compared functions in turn: the sharded batch against the same
+            # views one by one; the row-sharded frame against one K1 frame
+            # with its rays, and its parts (rays, the band's march, the
+            # all-gather, the overflow all-reduce)
+            pair_ms = interleaved_ms({
+                "sharded": lambda: sharding.render_views_sharded(
+                    mesh, render, pack, cams, VIEW_RES, VIEW_RES, max_steps=MAX_STEPS_BONSAI,
+                    gather=True),
+                "single": lambda: [render(pack, c, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI)
+                                   for c in cams],
+            }, MESH_BATCH_ROUNDS, torch)
+            group = mesh.get_group("tiles")
+
+            def all_reduce():
+                ovf_t = torch.full((), 0, dtype=torch.int32, device=dev)
+                dist.all_reduce(ovf_t, group=group)
+
+            frame_ms = interleaved_ms({
+                "tiled": lambda: sharding.render_frame_tiled(
+                    mesh, None, bench_u, RES, RES, max_steps=MAX_STEPS_BONSAI,
+                    renderer=ray_renderer),
+                "single": lambda: mb.render_bonsai_rays_cuda(
+                    vol_bonsai, *geometry.rays_fragment_soa(bench_u, RES, RES)),
+                "rays": lambda: geometry.rays_fragment_soa(bench_u, RES, RES),
+                "march": lambda: ray_renderer[0](ray_renderer[1], eye, dxyz,
+                                                 max_steps=MAX_STEPS_BONSAI),
+                "all_gather": lambda: sharding._all_gather(frame_k1, group),
+                "all_reduce": all_reduce,
+            }, MESH_FRAME_ROUNDS, torch)
+            default_group_ok = None
+        finally:
+            dist.destroy_process_group()
+        # a group made with no backend named (its get_backend() is
+        # "undefined"; it carries NCCL on a machine with a card) gives a mesh
+        # on the card too
+        dist.init_process_group(init_method=f"file://{tmp}/store_default", world_size=1,
+                                rank=0)
+        try:
+            dmesh = sharding.make_mesh(1, 1, device=dev)
+            check(sharding.mesh_device(dmesh) == dev,
+                  f"default-backend mesh on {sharding.mesh_device(dmesh)}")
+            check(torch.equal(sharding.render_frame_tiled(
+                dmesh, None, bench_u, RES, RES, max_steps=MAX_STEPS_BONSAI,
+                renderer=ray_renderer), frame_k1),
+                "the default-backend row-sharded frame differs from K1's")
+            default_group_ok = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    del views_img, step_img, singles
+    shard_ms, single_ms = pair_ms["sharded"], pair_ms["single"]
+    tiled_ms, one_frame_ms = frame_ms["tiled"], frame_ms["single"]
+    parts = {k: frame_ms[k] for k in ("rays", "march", "all_gather", "all_reduce")}
+    mesh_times = {"views_sharded_ms": shard_ms, "views_single_ms": single_ms,
+                  "frame_tiled_ms": tiled_ms, "frame_single_ms": one_frame_ms,
+                  "frame_parts_ms": parts}
+    print(f"phase 4h multi-device ({card}; NCCL world 1, mesh (views 1, tiles 1)): "
+          f"render_views_sharded {VIEWS} orbit views {VIEW_RES}^2 gathered, render_frame_tiled "
+          f"{RES}^2 bench pose, multi_view_step {VIEWS} views in {path_s:.2f} s, launches "
+          f"{mesh_launches}; every view, the frame and the step bitwise equal to single-device "
+          f"K1 calls, overflow {int(ovf)}, least lit view {v_lit:.4f}; a default-backend group "
+          f"(get_backend() {default_group_ok!r}) meshes on {dev} and its frame is K1's; "
+          f"medians of {MESH_BATCH_ROUNDS} interleaved rounds: sharded batch {shard_ms:.3f} ms "
+          f"vs {VIEWS} single-device views {single_ms:.3f} ms ({shard_ms / single_ms:.3f}x); "
+          f"of {MESH_FRAME_ROUNDS}: row-sharded frame {tiled_ms:.4f} ms vs one K1 frame with "
+          f"its rays {one_frame_ms:.4f} ms ({tiled_ms / one_frame_ms:.3f}x); its parts rays "
+          f"{parts['rays']:.4f}, march {parts['march']:.4f}, all_gather {parts['all_gather']:.4f}, "
+          f"all_reduce {parts['all_reduce']:.4f} ms (sum {sum(parts.values()):.4f}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- phase 4i: hot reload of K7 on the card ------------------------------
+    # a copy of march_field.cu and its headers; the repository's csrc is never
+    # edited. The watcher is driven with poll_once (its thread is stopped so
+    # that it cannot take an edit first)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "march_field.cu")
+        shutil.copy(mf.SOURCE, src)
+        for header in kbuild.included_headers(mf.SOURCE):
+            shutil.copy(header, tmp)
+        original = open(src).read()
+
+        def edit(text):
+            with open(src, "w") as f:
+                f.write(text)
+            st = os.stat(src)
+            os.utime(src, (st.st_atime, st.st_mtime + 2))
+
+        rctx = Context(FIELD_RES, FIELD_RES, camera=XorDemo.default_camera(1.0),
+                       backbuffer_resolution=(FIELD_RES, FIELD_RES), watch=True, device="cuda")
+        check(rctx.watcher._thread is not None and rctx.watcher._thread.is_alive(),
+              "Context(watch=True) runs no watcher thread")
+        demo = XorDemo.init(rctx, source=src)
+        rctx.watcher.stop()
+        watched = sorted(os.path.basename(p) for p in rctx.watcher.registry)
+
+        def xor_frame():
+            demo.render(rctx)
+            torch.cuda.synchronize()
+            return rctx.render_backbuffer.texture.clone()
+
+        reset_launches()
+        base, lib0 = xor_frame(), demo.pipeline.lib
+        edited = original.replace("const float v = val * 0.5f;", "const float v = val * 0.75f;")
+        check(edited != original, "the shading constant to edit is not in march_field.cu")
+        # a comment unique to this run: its library is never one an earlier run
+        # built, so the rebuild's seconds are nvcc's
+        edited += f"// hot-reload edit {os.getpid()} {time.time_ns()}\n"
+        edit(edited)
+        (res_edit,) = rctx.watcher.poll_once()
+        check(res_edit.ok and demo.pipeline.lib is res_edit.compiled
+              and res_edit.compiled._name != lib0._name,
+              f"the edit did not load a new library: {res_edit.error[-500:]}")
+        changed = xor_frame()
+        check(not torch.equal(changed, base), "the edited constant did not change the frame")
+        edit(edited + "\nthis is not C++ ][\n")
+        (res_bad,) = rctx.watcher.poll_once()
+        check(not res_bad.ok and "error" in res_bad.error
+              and demo.pipeline.lib is res_edit.compiled,
+              "a syntax error did not return nvcc's diagnostics")
+        kept = xor_frame()
+        check(torch.equal(kept, changed), "after a failed build the frame is not the last good one")
+        edit(original)
+        (res_back,) = rctx.watcher.poll_once()
+        restored = xor_frame()
+        torch.cuda.synchronize()
+        reload_launches = launches()
+        check(res_back.ok and torch.equal(restored, base), "the restored source's frame differs")
+        unedited = mf.render_field(rctx.camera_uniform, demo.gen_time, FIELD_RES, FIELD_RES)
+        check(torch.equal(restored, unedited), "the restored frame is not the unedited K7 frame")
+        check(reload_launches == only(K7=4), f"hot reload path launched {reload_launches}")
+        diag = next((ln.strip() for ln in res_bad.error.splitlines() if "error" in ln), "")
+    print(f"phase 4i hot reload ({card}; XorDemo {FIELD_RES}^2 on a copy of march_field.cu, "
+          f"watching {watched}): edit rebuild {res_edit.seconds:.2f} s -> "
+          f"{os.path.basename(res_edit.compiled._name)}, frame changed; syntax error "
+          f"{res_bad.seconds:.2f} s, diagnostics \"{diag[:160]}\", frame kept bitwise; restore "
+          f"{res_back.seconds:.2f} s (its library built before), frame bitwise the unedited "
+          f"K7 frame; launches {reload_launches}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    reload_s = {"edit": res_edit.seconds, "syntax_error": res_bad.seconds,
+                "restore": res_back.seconds}
+
+    # -- phase 4j: state, trace, present filters ------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sctx = Context(RES, RES, camera=BonsaiDemo.default_camera(1.0),
+                       backbuffer_resolution=(RES, RES), device="cuda")
+        reset_launches()
+        sctx = run(BonsaiDemo, frames=2, events=orbit_events(2, RES, RES), context=sctx,
+                   quiet=True)
+        saved = sctx.display_image.clone()
+        save_state(sctx, os.path.join(tmp, "state.json"))
+        sctx = run(BonsaiDemo, frames=2, events=orbit_events(2, RES, RES), context=sctx,
+                   quiet=True)
+        moved = not torch.equal(sctx.display_image, saved)
+        load_state(sctx, os.path.join(tmp, "state.json"))
+        sctx = run(BonsaiDemo, frames=1, context=sctx, quiet=True)
+        torch.cuda.synchronize()
+        state_launches = launches()
+        check(moved and torch.equal(sctx.display_image, saved),
+              "the restored state does not reproduce the saved frame bitwise")
+        check(state_launches == only(K1=5), f"state path launched {state_launches}")
+        sdemo = BonsaiDemo.init(sctx)
+        with profiler.trace(os.path.join(tmp, "trace")) as prof:
+            sdemo.render(sctx)
+            sctx.render()
+            torch.cuda.synchronize()
+        with open(prof.trace_path) as f:
+            trace_text = f.read()
+        check("march_bonsai_kernel" in trace_text,
+              "the device trace does not name K1's kernel (march_bonsai_kernel)")
+        trace_kib = len(trace_text) / 1024.0
+    hdr = sctx.render_backbuffer.texture
+    hdr_cpu = hdr.cpu()
+    filt_err = {}
+    for filt in ("quadratic", "bicubic"):
+        for oh, ow in ((RES, RES), (1440, 1920)):
+            d = (present(hdr, oh, ow, filter=filt).cpu()
+                 - present(hdr_cpu, oh, ow, filter=filt)).abs().max()
+            filt_err[f"{filt} {oh}x{ow}"] = float(d)
+    check(max(filt_err.values()) <= 1e-5, f"present filters on the card vs the CPU: {filt_err}")
+    print(f"phase 4j state/trace/present ({card}): save after 2 exact frames {RES}^2, 2 more "
+          f"orbit frames, restore: next frame bitwise the saved one (launches "
+          f"{state_launches}); profiler.trace of one exact frame names march_bonsai_kernel "
+          f"({trace_kib:.0f} KiB Chrome trace); present(filter=) on the card vs the CPU, max "
+          f"|d| {filt_err} (limit 1e-5); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- phase 4k: native I/O and the terminal viewer -------------------------
+    t_phase = time.perf_counter()
+    frame_u8 = to_uint8(sctx.display_image).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_png(os.path.join(tmp, "n.png"), frame_u8, backend="native")
+        write_png(os.path.join(tmp, "p.png"), frame_u8, backend="python")
+        with open(os.path.join(tmp, "n.png"), "rb") as f:
+            png_native = f.read()
+        with open(os.path.join(tmp, "p.png"), "rb") as f:
+            png_python = f.read()
+        check(png_native == png_python, "the native PNG's bytes differ from the Python encoder's")
+        check(np.array_equal(read_png(os.path.join(tmp, "n.png")), frame_u8),
+              "the native PNG does not decode to the frame")
+        rec = native.NativeRecorder()
+        rec.screenshot(os.path.join(tmp, "shot.png"), frame_u8)
+        rec.close()
+        check(np.array_equal(read_png(os.path.join(tmp, "shot.png")), frame_u8),
+              "NativeRecorder's screenshot does not decode to the frame")
+        t0 = time.perf_counter()
+        viewer = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "examples", "interactive_torch.py"),
+             "--frames", "3"], cwd=tmp, stdin=subprocess.DEVNULL, capture_output=True,
+            text=True, timeout=300)
+        viewer_s = time.perf_counter() - t0
+    check(viewer.returncode == 0 and "scripted orbit" in viewer.stdout,
+          f"interactive_torch.py exited {viewer.returncode}: {viewer.stderr[-2000:]}")
+    print(f"phase 4k native I/O ({card}): libvokselis_native built (or loaded) in phase 2 in "
+          f"{native_s:.2f} s "
+          f"({os.path.relpath(native.library_path(), ROOT)}); native PNG of the {RES}^2 frame "
+          f"({len(png_native)} bytes) byte-equal to the Python encoder's and decodes to the "
+          f"frame; NativeRecorder screenshot decodes to the frame; interactive_torch.py "
+          f"--frames 3 without a tty on the card: exit 0 in {viewer_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del sctx, saved, hdr, hdr_cpu
+
     def entry(name, source, replaces, n_launches, err, dev, call, plain_ms, bound, lib=None):
         """One kernel's line: ``ms`` and ``call_ms`` are one wrapper call's
         time, ``device_ms`` the kernel's own; ``lib`` the (device, call)
@@ -1770,9 +2108,10 @@ def main() -> int:
                     "bound_ms": k7_bound[k][0], "samples": k7_samples[k],
                     "lane_efficiency": k7_lanes[k]} for k in k7_dev}
     kernels = [
-        entry("march_bonsai", "vokselis_torch/csrc/march_bonsai.cu",
-              "vokselis_tpu/ops/pallas/march_bonsai.py:131", exact_launches["K1"],
-              worst["K1"], k1_dev, k_ms, p_ms, k1_bound),
+        dict(entry("march_bonsai", "vokselis_torch/csrc/march_bonsai.cu",
+                   "vokselis_tpu/ops/pallas/march_bonsai.py:131", exact_launches["K1"],
+                   worst["K1"], k1_dev, k_ms, p_ms, k1_bound),
+             launches_multi_device=mesh_launches["K1"], multi_device=mesh_times),
         entry("resample_slabs", "vokselis_torch/csrc/shear_resample.cu",
               "vokselis_tpu/ops/pallas/shear_resample.py:117", fast_launches["K3"],
               worst["K3"], dev_ms["K3"], k3_ms, k3p_ms, k3_bound,
@@ -1811,7 +2150,8 @@ def main() -> int:
         dict(entry("march_field", "vokselis_torch/csrc/march_field.cu",
                    "vokselis_tpu/ops/pallas/march_field.py:61", xor_runs[XOR_RES][1]["K7"],
                    worst["K7"], k7_dev["xor analytic"], k7_ms["xor analytic"],
-                   k7p_ms["xor analytic"], k7_bound["xor analytic"]), modes=k7_modes),
+                   k7p_ms["xor analytic"], k7_bound["xor analytic"]), modes=k7_modes,
+             launches_hot_reload=reload_launches["K7"], rebuild_s=reload_s),
         entry("genvol", "vokselis_torch/csrc/genvol.cu", "vokselis_tpu/ops/pallas/genvol.py:27",
               tex_launches["K9"], worst["K9"], k9_dev, k9_ms, k9p_ms, k9_bound),
         entry("gendensity", "vokselis_torch/csrc/genvol.cu",

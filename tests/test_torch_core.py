@@ -220,7 +220,10 @@ def test_import_without_jax():
         "vokselis_torch.tools.hybrid_sweep, vokselis_torch.models, "
         "vokselis_torch.ops.cuda.march_field, vokselis_torch.ops.cuda.genvol, "
         "vokselis_torch.ops.raster, vokselis_torch.volume.fields, "
-        "vokselis_torch.parallel\n"
+        "vokselis_torch.parallel, vokselis_torch.parallel.sharding, "
+        "vokselis_torch.engine, vokselis_torch.engine.state, vokselis_torch.engine.reload, "
+        "vokselis_torch.engine.compiler, vokselis_torch.engine.profiler, "
+        "vokselis_torch.native, vokselis_torch.media.recorder, vokselis_torch.volume.io\n"
         "bad = [m for m in sys.modules if m.startswith(('vokselis_tpu', 'jax'))"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -112,13 +112,6 @@ def test_context_needs_a_device():
         run(BonsaiDemo, frames=1)
 
 
-def test_watch_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Context(width=8, height=8, watch=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run(BonsaiDemo, frames=1, watch=True, device="cpu")
-
-
 @pytest.mark.parametrize("renderer,item", [("hybrid", "item 6")])
 def test_other_renderers_not_ported(renderer, item, monkeypatch):
     """The last of the JAX package's bonsai renderers, ported by ROADMAP
@@ -170,3 +163,20 @@ def test_entry_point_cpu(tmp_path):
     img = read_png(str(out))
     assert img.shape == (32, 48, 4)
     assert img[..., :3].max() > 100
+
+
+def test_profiler_trace_writes_a_chrome_trace(tmp_path, capsys):
+    """profiler.trace (the JAX package's device trace) around a frame: a
+    Chrome trace in ``logdir`` that names the frame's operations."""
+    import json
+
+    from vokselis_torch.engine.profiler import trace
+
+    ctx = Context(16, 16, backbuffer_resolution=(16, 16), device="cpu")
+    with trace(str(tmp_path / "tr")) as prof:
+        ctx.render()
+    assert os.path.dirname(prof.trace_path) == str(tmp_path / "tr")
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert f"profiler trace written to {prof.trace_path}" in capsys.readouterr().out

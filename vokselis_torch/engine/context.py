@@ -16,10 +16,11 @@ Rebuilds the reference's Context (src/context.rs:38-359) for PyTorch:
   bytes for both targets (context.rs:251-297);
 - ``capture_frame()`` is the screenshot path: uint8 quantize + host copy
   (src/context/screenshot.rs:37-77 — no 256-byte row padding needed here,
-  but ImageDimensions keeps the even-dimension rule for encoders).
-
-Shader hot reload (the JAX package's ``KernelCompiler`` and ``Watcher``) is
-not ported yet: ``watch=True`` raises.
+  but ImageDimensions keeps the even-dimension rule for encoders);
+- ``shader_compiler`` and ``watcher`` are the shader hot-reload pair (the
+  reference's ShaderCompiler and Watcher, src/watcher.rs): demos register
+  their kernel or field sources with the watcher, whose thread runs only
+  with ``watch=True``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ import torch
 from vokselis_torch.core.camera import Camera, CameraUniform
 from vokselis_torch.core.config import DEFAULT_RESOLUTION, EngineConfig
 from vokselis_torch.core.uniforms import GlobalUniform
+from vokselis_torch.engine.compiler import KernelCompiler
 from vokselis_torch.engine.input import Input
+from vokselis_torch.engine.reload import Watcher
 from vokselis_torch.ops.present import present, to_uint8
 from vokselis_torch.utils.misc import ImageDimensions
 
@@ -87,7 +90,9 @@ class Context:
     """Owns device-facing state and the per-frame update/present cycle.
 
     ``device`` (required) is where every frame tensor lives: "cuda" runs the
-    hand-written kernels, "cpu" their plain versions."""
+    hand-written kernels, "cpu" their plain versions. ``watch=True`` starts
+    the source watcher's thread: edits to registered kernel sources rebuild
+    and swap them mid-run."""
 
     def __init__(
         self,
@@ -100,11 +105,6 @@ class Context:
         *,
         device,
     ):
-        if watch:
-            raise NotImplementedError(
-                "watch=True: shader hot reload is not ported to vokselis_torch "
-                "yet (ROADMAP.md queue 1, item 9)"
-            )
         self.device = torch.device(device)
         self.config = config or EngineConfig()
         self.width, self.height = width, height
@@ -116,6 +116,8 @@ class Context:
             self.device, backbuffer_resolution or HdrBackBuffer.DEFAULT_RESOLUTION
         )
         self.display_image = None  # last presented frame (window-sized)
+        self.shader_compiler = KernelCompiler()
+        self.watcher = Watcher(autostart=watch, compiler=self.shader_compiler)
         self.input = Input()
         self.dims = ImageDimensions.new(width, height)
         self._start_time = _time.perf_counter()

@@ -60,12 +60,16 @@ def run(
 ):
     """Run a demo headlessly. Returns the final Context (its
     ``display_image`` is the last presented frame). Without ``context``, one
-    is made on ``device``; ``watch=True`` (the reference's shader reload
-    loop) is not ported yet and makes that Context raise."""
+    is made on ``device``. ``watch=True`` starts the Context's source
+    watcher: edits to registered kernel and field sources rebuild and swap
+    mid-run (the reference's shader reload loop). The watcher stops when
+    the run ends."""
     if context is None and device is None:
         raise ValueError("run() needs a context or a device")
     ctx = context or Context(width=width, height=height, camera=camera,
                              watch=watch, device=device)
+    if watch:
+        ctx.watcher.start()
     recorder = Recorder()
     frame_counter = FrameCounter(ctx.config.report_every)
     if not quiet:
@@ -133,4 +137,5 @@ def run(
         frame_idx += 1
 
     recorder.close()
+    ctx.watcher.stop()
     return ctx

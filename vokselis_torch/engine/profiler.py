@@ -9,12 +9,17 @@
   so timing adds no host sync to a frame; on the CPU it takes the wall clock.
   It prints 'Time on raycast shader'-style reports plus a derived Mrays/s.
   (The JAX package calibrated a host dispatch floor instead; events time the
-  device itself.) The JAX package's device ``trace`` is not ported yet.
+  device itself.)
+- :func:`trace` captures a device trace around a block (the JAX package's
+  ``jax.profiler.trace``): ``torch.profiler`` with CPU and, where there is
+  a card, CUDA activities, written as a Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import time
 
 import torch
@@ -98,3 +103,21 @@ class PassTimer:
         self._accum = 0.0
         self._events = []
         self.rays = 0
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None = None):
+    """Capture a ``torch.profiler`` trace around a block and write it to
+    ``logdir`` (default ``vokselis-trace`` in the temporary directory) as a
+    Chrome trace, ``trace_<pid>_<ns>.json``; yields the profiler, whose
+    ``trace_path`` names the file once the block ends."""
+    logdir = logdir or os.path.join(tempfile.gettempdir(), "vokselis-trace")
+    os.makedirs(logdir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.trace_path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(prof.trace_path)
+    print(f"profiler trace written to {prof.trace_path}")

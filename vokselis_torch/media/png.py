@@ -1,7 +1,10 @@
 """Minimal dependency-free PNG encoder (replaces the reference's ``png`` crate,
 src/utils/recorder.rs:189-217).
 
-Stdlib-only (zlib + struct); encodes 8-bit RGB/RGBA/greyscale.
+:func:`write_png` prefers the native C++ encoder
+(:mod:`vokselis_torch.native`) when it builds; the encoder here is
+stdlib-only (zlib + struct) and writes the same bytes: 8-bit
+RGB/RGBA/greyscale, filter 0, one zlib IDAT.
 """
 
 from __future__ import annotations
@@ -10,6 +13,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from vokselis_torch import native
 
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> PNG color type
 
@@ -47,7 +52,14 @@ def encode_png(img: np.ndarray, compress_level: int = 1) -> bytes:
     )
 
 
-def write_png(path: str, img: np.ndarray, compress_level: int = 1) -> None:
+def write_png(path: str, img: np.ndarray, compress_level: int = 1,
+              backend: str = "auto") -> None:
+    """Write ``img`` as a PNG. ``backend``: "native" (the C++ encoder; raises
+    if its library cannot be built), "python" (:func:`encode_png`), or
+    "auto" (native when the library builds, python otherwise)."""
+    if native.use_native(backend):
+        native.write_png_native(path, img, compress_level)
+        return
     with open(path, "wb") as f:
         f.write(encode_png(img, compress_level))
 

@@ -7,8 +7,11 @@ probed at startup and video support degrades gracefully when absent
 (``-framerate 60 -pix_fmt rgba -f rawvideo -i pipe:`` -> x264 crf 15 yuv420p,
 recorder.rs:79-127); screenshots are timestamped PNGs (recorder.rs:189-217).
 
-Frames arrive as host numpy arrays (``Context.capture_frame``). The JAX
-package's native C++ recorder backend is not bound here yet.
+Frames arrive as host numpy arrays (``Context.capture_frame``). The
+``backend`` argument picks the frame sink as the JAX package's recorder
+does: the native C++ worker (:class:`vokselis_torch.native.NativeRecorder`)
+or this module's thread; screenshots are written by this module's thread
+with :func:`write_png` either way.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from vokselis_torch import native
 from vokselis_torch.core.config import SCREENSHOTS_FOLDER, VIDEO_FOLDER
 from vokselis_torch.media.png import write_png
 from vokselis_torch.utils.misc import ImageDimensions, create_folder, green_blink
@@ -44,17 +48,25 @@ def _timestamp() -> str:
 class Recorder:
     """Host-side frame sink (Recorder, recorder.rs:25-72)."""
 
-    def __init__(self):
+    def __init__(self, backend: str = "auto"):
+        """``backend``: "native" (the C++ worker-thread recorder; raises if
+        its library cannot be built), "python" (this module's thread), or
+        "auto" (native when the library builds, python otherwise)."""
         self._queue: "queue.Queue[RecordEvent | None]" = queue.Queue()
         self.ffmpeg_installed = shutil.which("ffmpeg") is not None
         if not self.ffmpeg_installed:
             # recorder.rs:62-71 — degrade to screenshots-only
             print("ffmpeg not found: video recording disabled, screenshots only")
+        self._native = native.NativeRecorder() if native.use_native(backend) else None
         self._thread = threading.Thread(
             target=self._worker, name="recorder", daemon=True
         )
         self._thread.start()
         self.is_recording = False
+
+    @property
+    def backend(self) -> str:
+        return "native" if self._native is not None else "python"
 
     # --- producer API (called from the frame loop) ----------------------
     def screenshot(self, frame: np.ndarray, dims: ImageDimensions | None = None):
@@ -63,22 +75,41 @@ class Recorder:
     def start(self, dims: ImageDimensions):
         if not self.ffmpeg_installed:
             return
+        if self._native is not None:
+            create_folder(VIDEO_FOLDER)
+            out = os.path.join(VIDEO_FOLDER, f"{_timestamp()}.mp4")
+            if self._native.start_video(out, dims.width, dims.height, 60):
+                print(f"recording video to {out}")
+                self.is_recording = True
+            return
         self.is_recording = True
         self._queue.put(RecordEvent("start", None, dims))
 
     def record(self, frame: np.ndarray):
         if not self.is_recording:
             return
+        if self._native is not None:
+            self._native.push_frame(np.asarray(frame))
+            return
         self._queue.put(RecordEvent("record", np.asarray(frame)))
 
     def finish(self):
+        was_recording = self.is_recording
         self.is_recording = False
+        if self._native is not None:
+            if was_recording:
+                self._native.finish_video()
+                print("video saved")
+            return
         self._queue.put(RecordEvent("finish"))
 
     def close(self):
         self.finish()
         self._queue.put(None)
         self._thread.join(timeout=5)
+        if self._native is not None:
+            self._native.close()
+            self._native = None
 
     # --- worker (record_thread, recorder.rs:129-187) ---------------------
     def _worker(self):

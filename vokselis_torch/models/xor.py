@@ -16,50 +16,96 @@ Reference structure rebuilt:
 
 On a CUDA context the march is the hand-written kernel K7
 (:mod:`vokselis_torch.ops.cuda.march_field`); on a CPU context its plain
-version. Shader hot reload of the field source (the JAX package's
-``FieldPipeline.reload`` through the context watcher) is not ported: the
-port's Context has no watcher yet (ROADMAP.md queue 1, item 9).
+version. The pipeline registers its source with the context watcher, as
+the reference's pipelines do (examples/bonsai/raycast.rs:137-141): on CUDA
+the kernel source ``csrc/march_field.cu`` (and ``fields.cuh``), whose edit
+rebuilds K7 with nvcc and rebinds the new library; on the CPU the plain
+version's field module ``volume/fields_soa.py``, whose edit re-imports it.
+A failed edit keeps the last good kernel.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
+
+import torch
 
 from vokselis_torch.core.camera import Camera
 from vokselis_torch.engine.demo import Demo
 from vokselis_torch.engine.profiler import PassTimer
 from vokselis_torch.ops.cuda import march_field
+from vokselis_torch.ops.cuda.build import load_library
+from vokselis_torch.volume import fields_soa
 
 # block rows of the march kernel in each dispatch mode
 MODE_TILE_H = {"SinglePass": 8, "Tile": 16}
 
 
 class FieldPipeline:
-    """The xor demo's compute-march pipeline: the fused noise field with xor
-    shading through :func:`march_field.render_field` (K7 on a CUDA device,
-    its plain version on the CPU). ``grad`` is the normal source, by default
-    ``VOK_XOR_GRAD`` ("analytic" or "fd")."""
+    """The xor demo's compute-march pipeline (ReloadablePipeline protocol):
+    the fused noise field with xor shading through
+    :func:`march_field.render_field` (K7 on a CUDA device, its plain version
+    on the CPU). ``grad`` is the normal source, by default ``VOK_XOR_GRAD``
+    ("analytic" or "fd").
 
-    def __init__(self, grad: str | None = None):
+    ``source`` is K7's CUDA source, by default ``csrc/march_field.cu``; another
+    one (an edited copy with its headers beside it) is built here, and a
+    failed first build raises. ``lib`` is the K7 library the pipeline
+    launches (None: the module's own) and ``fields`` the plain version's
+    field module; :meth:`reload` rebinds the one of the device's route."""
+
+    def __init__(self, device, grad: str | None = None, source=None):
+        self.device = torch.device(device)
         self.grad = march_field.default_grad() if grad is None else grad
+        self.source = march_field.SOURCE if source is None else Path(source)
+        self.fields = fields_soa
+        self.lib = None
+        if self.device.type == "cuda" and source is not None:
+            self.lib = march_field.bind(load_library(self.source)[0])
+
+    def register(self, watcher):
+        """Watch this pipeline's source: the kernel's on CUDA, the field
+        module on the CPU."""
+        if self.device.type == "cuda":
+            return watcher.register_kernel(self.source, self)
+        return watcher.register(self.fields, self)
+
+    def reload(self, module):
+        """``module``: a rebuilt K7 library (CUDA) or a re-imported field
+        module (CPU)."""
+        if self.device.type == "cuda":
+            self.lib = march_field.bind(module)
+        else:
+            self.fields = module
 
     def render(self, camera_uniform, time, width: int, height: int,
                tile_h: int = march_field.DEFAULT_TILE_H):
+        cuda = self.device.type == "cuda"
         return march_field.render_field(camera_uniform, time, width, height, field="noise",
-                                        shading="xor", tile_h=tile_h, grad=self.grad)
+                                        shading="xor", tile_h=tile_h, grad=self.grad,
+                                        lib=self.lib if cuda else None,
+                                        fields=None if cuda else self.fields)
 
 
 class XorDemo(Demo):
     MODES = tuple(MODE_TILE_H)
 
-    def __init__(self, device, gen_time, grad: str | None = None):
+    def __init__(self, device, gen_time, grad: str | None = None, source=None):
         self.mode = "SinglePass"
         self.gen_time = gen_time  # 0-d f32 tensor on the device (main.rs:135-146)
         self.timer = PassTimer("raycast shader", device=device)
-        self.pipeline = FieldPipeline(grad)
+        self.pipeline = FieldPipeline(device, grad, source)
         print("Change rendering mode on F1")
 
     @classmethod
-    def init(cls, ctx, grad: str | None = None):
-        return cls(ctx.device, ctx.global_uniform.time.clone(), grad)
+    def init(cls, ctx, grad: str | None = None, source=None):
+        """``source``: K7's CUDA source to build and watch (default
+        ``csrc/march_field.cu``)."""
+        demo = cls(ctx.device, ctx.global_uniform.time.clone(), grad, source)
+        # register with the context watcher at construction, like the
+        # reference's pipelines (examples/bonsai/raycast.rs:137-141)
+        demo.pipeline.register(ctx.watcher)
+        return demo
 
     @staticmethod
     def default_camera(aspect: float) -> Camera:

@@ -4,10 +4,13 @@ library and load it with ``ctypes``.
 Every kernel module calls :func:`load_library` with its source at first use
 on a CUDA device (never at import). ``nvcc`` compiles for ``sm_90a`` into
 ``build/vokselis_torch/`` under the checkout, once per source and flag set:
-the library's file name carries a hash of both (and of the headers in
-``csrc/``, which sources share), so an edited source, header or flag
-rebuilds and an unchanged one is reused. Separate sources may be built
-concurrently (one ``nvcc`` each, e.g. from threads).
+the library's file name carries a hash of both (and of the ``*.cuh``
+headers beside the source, which sources share and include), so an edited
+source, header or flag rebuilds and an unchanged one is reused. A source
+may lie outside ``csrc/`` (the hot-reload loop builds edited copies): its
+own directory's headers are hashed and included, never ``csrc/``'s.
+Separate sources may be built concurrently (one ``nvcc`` each, e.g. from
+threads or processes: each writes a temporary file and renames it).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,7 +51,8 @@ def load_library(source: Path, flags=NVCC_FLAGS) -> tuple[ctypes.CDLL, str]:
     ``ptxas`` register and spill report); the output is empty when the
     library was already built. A failed build raises with the compiler's
     output."""
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    source = Path(source)
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     tag = hashlib.sha256(source.read_bytes() + headers
                          + " ".join(flags).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{source.stem}_{tag}.so"
@@ -66,6 +71,14 @@ def load_library(source: Path, flags=NVCC_FLAGS) -> tuple[ctypes.CDLL, str]:
     lib.vk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vk_cuda_error_string.restype = ctypes.c_char_p
     return lib, log
+
+
+def included_headers(source: Path) -> list[Path]:
+    """The local headers ``source`` includes (``#include "name"``), resolved
+    beside it: with the source, the files whose edit rebuilds it."""
+    source = Path(source)
+    names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', source.read_text(), re.M)
+    return [source.parent / n for n in names if (source.parent / n).is_file()]
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

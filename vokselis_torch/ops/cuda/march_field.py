@@ -73,17 +73,25 @@ _MASK_DIR_N = tuple(c / math.sqrt(3.0) for c in (1.0, 1.0, -1.0))
 # quantized coordinate (g - D/2)/D ~ p/2, trig at p itself)
 _RADIUS = {"noise": 1.0, "xor": 1.4, "trig": 0.9}
 
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launch function's C signature on a loaded K7 library
+    (this module's own, or one the hot-reload loop rebuilt from an edited
+    source); returns ``lib``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.vk_march_field.argtypes = [p] * 10 + [i] * 7 + [f, i, i, p] + [i] * 9 + [p, i, p]
+    lib.vk_march_field.restype = i
+    return lib
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source and flag set) and load the kernel library."""
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
     lib, BUILD_LOG = load_library(SOURCE, NVCC_FLAGS)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vk_march_field.argtypes = [p] * 10 + [i] * 7 + [f, i, i, p] + [i] * 9 + [p, i, p]
-    lib.vk_march_field.restype = i
-    _lib = lib
-    return lib
+    _lib = bind(lib)
+    return _lib
 
 
 def default_grad() -> str:
@@ -168,10 +176,12 @@ def _xor_shade(val, nx, ny, nz, px, py, pz):
 
 
 def _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad,
-                 return_steps=False):
+                 return_steps=False, fields=fields_soa):
     """K7's plain version: the kernel's march of every ray, its arithmetic
     operation for operation. Each step evaluates only the rays still active
-    (a ray never becomes active again), which changes no value."""
+    (a ray never becomes active again), which changes no value. ``fields``
+    is the module of field functions (:mod:`fields_soa`, or an edited copy
+    that the hot-reload loop loaded)."""
     ex, ey, ez, dx, dy, dz, t0, t1, dt = (x.reshape(-1) for x in rays)
     t_raw, sin_t = tvec[0], tvec[1]
     field_time = t_raw if field == "trig" else sin_t
@@ -185,8 +195,8 @@ def _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad,
     t = t0.clone()
     steps = torch.zeros(t0.shape, dtype=torch.int32, device=t0.device)
     half = dims / 2.0
-    grad_fn = (fields_soa.noise_volume_grad_analytic if grad == "analytic"
-               else fields_soa.noise_volume_grad)
+    grad_fn = (fields.noise_volume_grad_analytic if grad == "analytic"
+               else fields.noise_volume_grad)
 
     def quant(q):
         # textureLoad at ivec3((p+1)*dims/2) -> the voxel-centre coordinate
@@ -206,10 +216,10 @@ def _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad,
             val, valpha, nx, ny, nz = grad_fn(cx, cy, cz, sin_t)
             cr, cg, cb = _xor_shade(val, nx, ny, nz, px, py, pz)
         else:
-            val, valpha = fields_soa.FIELDS[field](cx, cy, cz, field_time)
+            val, valpha = fields.FIELDS[field](cx, cy, cz, field_time)
             if shading == "xor":
                 # the normal is the noise field's, whatever the field
-                nx, ny, nz = fields_soa.gradient(cx, cy, cz, sin_t)
+                nx, ny, nz = fields.gradient(cx, cy, cz, sin_t)
                 cr, cg, cb = _xor_shade(val, nx, ny, nz, px, py, pz)
             else:  # emission
                 cr = cg = cb = val
@@ -259,15 +269,18 @@ def _prepare(camera_uniform, time, width, height, field, shading, dims, quantize
     return grad, rays, time_vector(time, device)
 
 
-def launch(tvec, rays, field, shading, dims, quantize, max_steps, grad, tile_h, table=None):
+def launch(tvec, rays, field, shading, dims, quantize, max_steps, grad, tile_h, table=None,
+           lib=None):
     """Launch K7 on precomputed rays (:func:`field_rays`) and the time
     vector (:func:`time_vector`), all f32 on one CUDA device; returns the
     (H, W, 4) f32 image. The kernel reads the device's :func:`hash_table`;
     a lattice argument outside it makes the kernel trap, which the stream's
     next synchronization raises. ``table`` is a test hook: another table
-    (one cut short, to show the trap) in place of the device's."""
+    (one cut short, to show the trap) in place of the device's. ``lib`` is
+    a K7 library already bound by :func:`bind` (one the hot-reload loop
+    rebuilt) in place of this module's :func:`build`."""
     global LAUNCHES_FIELD
-    lib = build()
+    lib = build() if lib is None else lib
     dev = tvec.device
     table = hash_table(dev) if table is None else table
     for x in (tvec, table.values) + tuple(rays):
@@ -294,7 +307,7 @@ def render_field(camera_uniform, time=0.0, width: int = 1280, height: int = 720,
                  field: str = "noise", shading: str = "xor", dims: int = 256,
                  quantize: bool = True, max_steps: int = MAX_STEPS_COMPUTE,
                  tile_h: int = DEFAULT_TILE_H, sphere_clip: bool = True,
-                 grad: str | None = None):
+                 grad: str | None = None, lib=None, fields=None):
     """Render the compute path with the field evaluated inline by K7 — the
     counterpart of ``render_field_pallas``. Returns (height, width, 4) f32
     on the camera uniform's device, matching
@@ -303,13 +316,20 @@ def render_field(camera_uniform, time=0.0, width: int = 1280, height: int = 720,
     ``quantize=False``). ``time`` is a Python float or a 0-d tensor on that
     device (then nothing is uploaded). ``tile_h`` sets the kernel block's
     rows and never changes a pixel. ``grad`` defaults to
-    :func:`default_grad`. A CUDA uniform launches the kernel; a CPU uniform
-    takes :func:`render_field_plain`."""
+    :func:`default_grad`. A CUDA uniform launches the kernel (``lib``: a
+    rebuilt library in place of this module's, see :func:`launch`); a CPU
+    uniform takes :func:`render_field_plain` (``fields``: a field module in
+    place of :mod:`fields_soa`, see :func:`_march_plain`)."""
     grad, rays, tvec = _prepare(camera_uniform, time, width, height, field, shading, dims,
                                 quantize, max_steps, tile_h, sphere_clip, grad)
     if tvec.device.type == "cpu":
-        return _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad)
-    return launch(tvec, rays, field, shading, dims, quantize, max_steps, grad, tile_h)
+        return _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad,
+                            fields=fields_soa if fields is None else fields)
+    if fields is not None:
+        raise ValueError("a Python field module drives only the plain version (CPU); "
+                         "the kernel's fields are csrc/fields.cuh")
+    return launch(tvec, rays, field, shading, dims, quantize, max_steps, grad, tile_h,
+                  lib=lib)
 
 
 @torch.no_grad()

@@ -12,8 +12,9 @@ Array convention: volumes are ``(D, H, W)`` = indexed ``[z, y, x]`` with x the
 fastest-varying axis, matching the texture's linear layout; world position
 ``p = (x, y, z)`` samples axis order (W, H, D).
 
-Loading uses numpy.fromfile; the JAX package's native C++ loader is not
-bound here yet.
+:func:`load_raw` reads through the native C++ loader
+(:mod:`vokselis_torch.native`) when its library builds, and with
+numpy.fromfile otherwise.
 """
 
 from __future__ import annotations
@@ -22,11 +23,16 @@ import os
 
 import numpy as np
 
+from vokselis_torch import native
+
 DEFAULT_DIMS = (256, 256, 256)
 
 
-def load_raw(path: str, dims=DEFAULT_DIMS, dtype=np.uint8) -> np.ndarray:
-    """Load a raw little-endian volume; returns (D, H, W) ndarray."""
+def load_raw(path: str, dims=DEFAULT_DIMS, dtype=np.uint8,
+             backend: str = "auto") -> np.ndarray:
+    """Load a raw little-endian volume; returns (D, H, W) ndarray.
+    ``backend``: "native" (raises if the library cannot be built),
+    "python" (numpy.fromfile) or "auto" (native when it builds)."""
     d, h, w = dims
     expected = d * h * w * np.dtype(dtype).itemsize
     size = os.path.getsize(path)
@@ -34,6 +40,8 @@ def load_raw(path: str, dims=DEFAULT_DIMS, dtype=np.uint8) -> np.ndarray:
         raise ValueError(
             f"{path}: size {size} != expected {expected} for dims {dims} {np.dtype(dtype)}"
         )
+    if native.use_native(backend):
+        return native.load_raw_native(path, expected).view(dtype).reshape(dims)
     return np.fromfile(path, dtype=dtype).reshape(dims)
 
 
