@@ -20,7 +20,10 @@ Phases, each reported on its own lines:
      against its plain torch version on the card, at 1024x1024 on the
      256^3 bonsai (bench, eye-inside and diagonal poses) and on a random
      256^3 volume with full borders: finite, max |d| < 1e-3 and
-     mean |d| < 1e-5 on rgb (expected bitwise);
+     mean |d| < 1e-5 on rgb (expected bitwise); the dense-stress frame
+     (bench.py:433-440: config 3 on volume.io.dense_stress, ~50 % of the
+     voxels above 0) through the exact entry point BonsaiRenderer, one K1
+     launch, bitwise;
   3b. K3, K4 (low-degree transfer), K4b (K4's exact-transfer mode) and K6
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
@@ -37,8 +40,11 @@ Phases, each reported on its own lines:
   3c. K5 (the stats warp) against its plain version at phase 3b's frames
      and intermediates: rgb bitwise, STAT_OVF/EXT/PEAK exact,
      STAT_CURV/EDGE within 1e-5 relative; K2 (the tile re-march) and K1b (its
-     compact mode) at 1024^2 over single tiles and tile pairs with parked
-     ids, both transfer modes: bitwise, and every other pixel unchanged;
+     compact mode) at 1024^2 and at config 4's 1920x1080 (a partial last
+     tile row) over single tiles and tile pairs with parked ids and the last
+     tile row's first and last units, both transfer modes: bitwise, every
+     other pixel unchanged, and the guard bands around the frame's planes
+     unwritten;
   3d. K7 (the field march) against its plain version at 512^2, Camera.xor:
      the xor demo's fbm field with analytic and fd normals, the trig field
      with emission and the bitwise xor field, at t = 0 and 1.7, sphere clip
@@ -68,6 +74,17 @@ Phases, each reported on its own lines:
      against the port's K1 frame: the bench pose and the 72-pose sweep
      (vokselis_torch/tools/hybrid_sweep.py), every pose's mean |d| over rgb
      <= 1e-3, the hybrid's contract;
+  4l. config 4 (run after 4e): vokselis_torch/models/orbit.BonsaiOrbit, the
+     8-pose orbit at 1920x1080 (bench.py:229-309), exact (K1) and hybrid
+     (I=1024, budget 2 x 64) at every pose: K34, K5 and K2 once per
+     hybrid-routed pose, K1 once per pose (a pose the shear-warp
+     factorization breaks at routes to K1, and its exact frame is its hybrid
+     frame), every pose's mean |hybrid - exact| over rgb <= 1e-3 with the
+     worst pose printed; K1's frames at pose 0 and at the first degenerate
+     pose bitwise its plain version; the degenerate poses forced through the
+     hybrid frame, printed, not held; each hybrid pose's units in the
+     partial last tile row, printed; the worst hybrid pose against the plain
+     hybrid path (phase 4d's check);
   4f. the xor main path: run(XorDemo) for 8 frames at 1280x720 (the demo's
      backbuffer) and at 512^2, which must launch K7 once per frame and no
      other kernel and end in a finite, lit frame equal to the plain version;
@@ -76,9 +93,13 @@ Phases, each reported on its own lines:
      contract), the trig field against render_field; the texture path
      (K9's volumes through render_compute_tex) against the inline oracle;
      run(TrigDemo), which launches no kernel;
-  4g. config 5 at reduced depth: 2 batches, each K8 at 512^3 (t = 0.3 b)
-     and 8 orbit views at 512^2 through K1 with 888 steps (the first builds
-     the volume's occupancy table); one view against K1's plain version;
+  4g. config 5 at reduced depth through vokselis_torch/models/views.
+     ViewsBatch: 2 batches, each K8 at 512^3 (t = 0.3 b) and 8 orbit views
+     at 512^2 through K1 with 888 steps (the first builds the volume's
+     occupancy table); one view against K1's plain version;
+  4m. one full config-5 batch (ViewsBatch(): K8 at 512^3 and 64 views at
+     512^2): K8 once, K1 64 times; the volume equal to K8's plain version,
+     the last view bitwise K1's plain version;
   (phases 4h-4k run after phase 5, so that phase 5 times the frames in the
   process state of the earlier phases)
   4h. multi-device (vokselis_torch.parallel.sharding) over an NCCL process
@@ -130,8 +151,11 @@ Phases, each reported on its own lines:
      K8 at 512^3 (each octave's table window per brick, and the device
      times of other bricks, each equal to the default's), the whole xor
      demo frame at 1280x720 with its host syncs, idle share and lane
-     efficiency, the trig demo frame and the trig field frame, and one full
-     config-5 batch of 64 views.
+     efficiency, the trig demo frame and the trig field frame, one full
+     config-5 batch of 64 views (ViewsBatch) with one view's K1 device time;
+     the dense-stress frame's K1 device time, entry-point frame, skip share
+     and bound; config 4's exact and hybrid frames at 1920x1080, the poses
+     in turn, and K1's device time there.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and ``{"ok": true, "device": {...}}``. Any failed check or
@@ -141,6 +165,7 @@ exception exits nonzero before those lines. Needs no JAX and no network.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -587,8 +612,10 @@ def main() -> int:
     from vokselis_torch.engine.loop import run
     from vokselis_torch.engine.state import load_state, save_state
     from vokselis_torch.media.png import read_png, write_png
+    from vokselis_torch.models import orbit as orbit_model
     from vokselis_torch.models.bonsai import BonsaiDemo
     from vokselis_torch.models.trig import TrigDemo
+    from vokselis_torch.models.views import ViewsBatch
     from vokselis_torch.models.xor import XorDemo
     from vokselis_torch.ops import hybrid as hy
     from vokselis_torch.ops import reference, shear_warp
@@ -600,10 +627,10 @@ def main() -> int:
     from vokselis_torch.ops.cuda import warp2d as w2
     from vokselis_torch.ops.present import present, to_uint8
     from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
-    from vokselis_torch.parallel import orbit_camera_batch
     from vokselis_torch.tools import hybrid_sweep
     from vokselis_torch.tools import warp_check
-    from vokselis_torch.volume.io import get_bonsai
+    from vokselis_torch.utils.grid import cdiv
+    from vokselis_torch.volume.io import dense_stress, get_bonsai
 
     import numpy as np
 
@@ -733,6 +760,29 @@ def main() -> int:
               f"pixels {same:.6f}", flush=True)
         check(mx < MAX_TOL and mean < MEAN_TOL, f"{name}: K1 disagrees with plain")
         worst["K1"] = max(worst["K1"], mx)
+
+    # the dense-stress frame (bench.py:433-440): config 3 through the exact
+    # entry point on the ~50 %-occupied fog volume, whose rays march deep
+    dense_r = mb.BonsaiRenderer(dense_stress(), dev)
+    bench_u = bench.uniform(dev)
+    reset_launches()
+    img_k = dense_r(bench_u, RES, RES)
+    torch.cuda.synchronize()
+    dense_launches = launches()
+    check(dense_launches == only(K1=1), f"the dense frame launched {dense_launches}")
+    eye, dxyz = geometry.rays_fragment_soa(bench_u, RES, RES)
+    img_p = reference.render_bonsai_rays(dense_r.vol, eye, torch.stack(dxyz, dim=-1))
+    mx, mean = rgb_err(img_k, img_p)
+    dense_equal = torch.equal(img_k, img_p)
+    dense_lit = float((img_k[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
+    print(f"phase 3 K1 vs plain dense_stress256/bench {RES}x{RES} ({card}; BonsaiRenderer; voxels "
+          f"above 0 {float((dense_r.vol > 0).float().mean()):.4f}): bitwise equal {dense_equal}, "
+          f"max {mx:.3e} mean {mean:.3e}, lit pixels {dense_lit:.4f}, launches {dense_launches}",
+          flush=True)
+    check(dense_equal and bool(torch.isfinite(img_k).all()) and dense_lit > 0.01,
+          "the dense frame disagrees with K1's plain version or shows nothing")
+    worst["K1"] = max(worst["K1"], mx)
+    del img_k, img_p
 
     # -- phase 3b: K3, K4, K4b, K34, K6 against their plain versions -------
     fast_r = shear_warp.FastBonsaiRenderer(vol_bonsai, dev, intermediate=II)
@@ -866,9 +916,10 @@ def main() -> int:
     check(win_stats[("bench", 64)][1] > 0, "the over-capacity input has no tile over capacity")
 
     # -- phase 3c: K5 and K2 (with K1b) against their plain versions -------
-    # K5 at phase 3b's frames and intermediates; the bench frame at I=512
-    # also feeds K2's checks
+    # K5 at phase 3b's frames and intermediates; the bench frame at I=512 and
+    # config 4's frame at I=1024 also feed K2's checks
     ny = nx = RES // 32
+    k2_inputs = {}
     for width, height in warp_check.FRAMES:
         for ii in (II, II_HYBRID):
             k5_in = warp_check.k5_args(warp_check.warp_inputs(packs, width, height, ii))
@@ -884,45 +935,72 @@ def main() -> int:
                   flush=True)
             check(err["ok"], f"K5 disagrees with plain at {width}x{height}, I={ii}")
             worst["K5"] = max(worst["K5"], err["rgb_max"], float((st5 - st5_p).abs().max()))
-            if (width, height, ii) == (RES, RES, II):
-                base0, scores0 = rgb5, hy.score_tiles(st5, ny, nx)
+            if (width, height, ii) in ((RES, RES, II), (orbit_model.WIDTH, orbit_model.HEIGHT,
+                                                        II_HYBRID)):
+                k2_inputs[(width, height)] = (rgb5, st5)
             del k5_in, rgb5, rgb5_p
-    for tpu in (1, 2):
-        pick = hy.select_units(scores0, ny * nx, hy.DEFAULT_BUDGET, hy.DEFAULT_THRESH,
-                               pair=tpu == 2)
-        n_units = ny * nx // tpu
-        parked = torch.full((4,), n_units, dtype=torch.int32, device=dev)
-        ids = torch.cat([pick[:8], parked, pick[8:]])
-        listed = sorted(set(ids.tolist()) - {n_units})
-        mask = torch.zeros((ny, nx), dtype=torch.bool, device=dev)
-        for unit in listed:
-            for t in range(tpu):
-                mask.view(-1)[unit * tpu + t] = True
-        mask = mask.repeat_interleave(32, 0).repeat_interleave(32, 1)
-        for fast in (False, True):
-            base_k, base_p = base0.clone(), base0.clone()
-            mb.render_bonsai_tiles_into(vol_bonsai, base_k, bench_u, ids, RES, RES, tpu, fast)
-            mb.render_bonsai_tiles_into_plain(vol_bonsai, base_p, bench_u, ids, RES, RES,
-                                              tpu, fast)
-            torch.cuda.synchronize()
-            d2 = float((base_k - base_p).abs().max())
-            kept = torch.equal(base_k[:, ~mask], base0[:, ~mask])
-            changed = float((base_k != base0).any(dim=0).float().sum())
-            line = (f"phase 3c K2 vs plain bench {RES}x{RES} {'pairs' if tpu == 2 else 'tiles'}"
-                    f" ({len(listed)} units + {int((ids == n_units).sum())} parked), "
-                    f"{'polynomial' if fast else 'cosine'} palette: max {d2:.3e}, other "
-                    f"pixels unchanged {kept}, pixels changed {changed:.0f}")
-            if fast:
-                comp = mb.render_bonsai_tiles(vol_bonsai, bench_u, ids, RES, RES, tpu, fast)
-                comp_p = mb.render_bonsai_tiles_plain(vol_bonsai, bench_u, ids, RES, RES,
-                                                      tpu, fast)
-                d1b = float((comp - comp_p).abs().max())
-                line += f"; K1b compact max {d1b:.3e}"
-                check(d1b == 0.0, f"K1b disagrees with plain (tpu {tpu})")
-            print(line, flush=True)
-            check(d2 == 0.0 and kept, f"K2 disagrees with plain (tpu {tpu}, fast {fast})")
-            worst["K2"] = max(worst["K2"], d2)
-    del base_k, base_p
+
+    def k2_checks(width, height):
+        """K2 (both palettes) and K1b (the polynomial one) against their
+        plain versions over the units picked from the frame's K5 scores, four
+        parked ids and the last tile row's first and last units, single
+        tiles and pairs: bitwise, every other pixel unchanged, and nothing
+        written outside the frame (the frame's planes lie between two guard
+        bands of the same buffer)."""
+        base, stats = k2_inputs[(width, height)]
+        uni_f = Camera.bonsai(width / height).uniform(dev)
+        ty, tx = cdiv(height, 32), cdiv(width, 32)
+        scores = hy.score_tiles(stats, ty, tx)
+        n_px, guard, fill = 3 * height * width, 32 * width, -7.0
+        for tpu in (1, 2):
+            pick = hy.select_units(scores, ty * tx, hy.DEFAULT_BUDGET, hy.DEFAULT_THRESH,
+                                   pair=tpu == 2)
+            n_units = ty * tx // tpu
+            edge = torch.tensor([n_units - tx // tpu, n_units - 1], dtype=torch.int32,
+                                device=dev)
+            parked = torch.full((4,), n_units, dtype=torch.int32, device=dev)
+            ids = torch.cat([pick[:8], parked, pick[8:], edge])
+            listed = sorted(set(ids.tolist()) - {n_units})
+            mask = hy.unit_pixel_mask(ids, tpu, width, height)
+            for fast in (False, True):
+                buf = torch.full((n_px + 2 * guard,), fill, dtype=torch.float32, device=dev)
+                base_k = buf[guard:guard + n_px].view(3, height, width)
+                base_k.copy_(base)
+                base_p = base.clone()
+                mb.render_bonsai_tiles_into(vol_bonsai, base_k, uni_f, ids, width, height, tpu,
+                                            fast)
+                mb.render_bonsai_tiles_into_plain(vol_bonsai, base_p, uni_f, ids, width,
+                                                  height, tpu, fast)
+                torch.cuda.synchronize()
+                d2 = float((base_k - base_p).abs().max())
+                kept = torch.equal(base_k[:, ~mask], base[:, ~mask])
+                guarded = bool((buf[:guard] == fill).all() and (buf[guard + n_px:] == fill).all())
+                changed = float((base_k != base).any(dim=0).float().sum())
+                line = (f"phase 3c K2 vs plain bench {width}x{height} ({card}) "
+                        f"{'pairs' if tpu == 2 else 'tiles'} ({len(listed)} units + "
+                        f"{int((ids == n_units).sum())} parked, last tile row's units "
+                        f"{edge.tolist()}), {'polynomial' if fast else 'cosine'} palette: max "
+                        f"{d2:.3e}, other pixels unchanged {kept}, guard bands unwritten "
+                        f"{guarded}, pixels changed {changed:.0f}")
+                if fast:
+                    comp = mb.render_bonsai_tiles(vol_bonsai, uni_f, ids, width, height, tpu,
+                                                  fast)
+                    comp_p = mb.render_bonsai_tiles_plain(vol_bonsai, uni_f, ids, width,
+                                                          height, tpu, fast)
+                    d1b = float((comp - comp_p).abs().max())
+                    line += f"; K1b compact max {d1b:.3e}"
+                    check(d1b == 0.0, f"K1b disagrees with plain (tpu {tpu}, {width}x{height})")
+                print(line, flush=True)
+                check(d2 == 0.0 and kept and guarded,
+                      f"K2 disagrees with plain (tpu {tpu}, fast {fast}, {width}x{height})")
+                worst["K2"] = max(worst["K2"], d2)
+
+    k2_frames = [(RES, RES), (orbit_model.WIDTH, orbit_model.HEIGHT)]
+    check(sorted(k2_inputs) == sorted(k2_frames),
+          f"K2's checks expected K5's outputs at {k2_frames}, have {sorted(k2_inputs)}")
+    for width, height in k2_frames:
+        k2_checks(width, height)
+    del k2_inputs
 
     # -- phase 3d: K7, K9 and K8 against their plain versions --------------
     xor_u = Camera.xor(1.0).uniform(dev)
@@ -1115,10 +1193,8 @@ def main() -> int:
     tpu = 2 if pair else 1
     sentinel = ny * nx // tpu
     sel_k, sel_p = set(ids_k.tolist()) - {sentinel}, set(ids_p.tolist()) - {sentinel}
-    both = torch.zeros(ny * nx, dtype=torch.bool, device=dev)
-    for unit in sel_k & sel_p:
-        both[unit * tpu:(unit + 1) * tpu] = True
-    both = both.reshape(ny, nx).repeat_interleave(32, 0).repeat_interleave(32, 1)
+    both = hy.unit_pixel_mask(torch.tensor(sorted(sel_k & sel_p), dtype=torch.int32,
+                                           device=dev), tpu, RES, RES)
     dh = (img_k - img_p)[..., :3].abs()
     both_max = float(dh[both].max()) if bool(both.any()) else 0.0
     same_as_demo = torch.equal(hctx.render_backbuffer.texture, img_k)
@@ -1148,6 +1224,108 @@ def main() -> int:
           f"{sweep['routes']}, {time.perf_counter() - t0:.1f} s", flush=True)
     check(sweep["over"] == 0, f"{sweep['over']} sweep poses beyond the hybrid's contract: "
           f"{[r['pose'] for r in sweep_recs if r['mean'] > HYBRID_CONTRACT]}")
+
+    # -- phase 4l: config 4, the 1080p orbit (models/orbit.py) --------------
+    # exact and hybrid (I=1024, budget 2 x 64) at every pose of bench.py's
+    # orbit; a pose the shear-warp factorization breaks at renders with K1
+    ow, oh, n_orbit = orbit_model.WIDTH, orbit_model.HEIGHT, orbit_model.N_POSES
+    t_phase = time.perf_counter()
+    orb = orbit_model.BonsaiOrbit(vol_bonsai, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    orbit_frames = orb()
+    torch.cuda.synchronize()
+    orbit_s = time.perf_counter() - t0
+    orbit_launches = launches()
+    orbit_routes = orbit_frames.routes
+    hyb_idx = [i for i, r in enumerate(orbit_routes) if r[0] == "hybrid"]
+    n_hyb = len(hyb_idx)
+    check(n_hyb > 0, f"no orbit pose renders hybrid: {orbit_routes}")
+    check(orbit_launches == only(K1=n_orbit, K34=n_hyb, K5=n_hyb, K2=n_hyb),
+          f"config 4 launched {orbit_launches} for {n_hyb} hybrid poses of {n_orbit}")
+    for frame in orbit_frames.exact + orbit_frames.hybrid:
+        check(tuple(frame.shape) == (oh, ow, 4) and bool(torch.isfinite(frame).all()),
+              "a config-4 frame is not finite or has the wrong shape")
+    orbit_errs = orbit_frames.errors.tolist()
+    orbit_lit = min(float((f[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
+                    for f in orbit_frames.exact)
+    check(orbit_lit > 0.01, f"a config-4 exact frame shows nothing ({orbit_lit:.4f} lit)")
+    for i, (route, err) in enumerate(zip(orbit_routes, orbit_errs)):
+        dmax = float((orbit_frames.hybrid[i] - orbit_frames.exact[i])[..., :3].abs().max())
+        print(f"phase 4l config 4 pose {i}/{n_orbit} {ow}x{oh} ({card}): route {route}, hybrid "
+              f"vs exact K1 mean {err:.4e} (contract {HYBRID_CONTRACT:g}) max {dmax:.4f}",
+              flush=True)
+    worst_pose = max(range(n_orbit), key=lambda i: orbit_errs[i])
+    worst_hyb = max(hyb_idx, key=lambda i: orbit_errs[i])
+    # K1 at config 4's frame against its plain version: pose 0's exact frame
+    # and the first degenerate pose's, which is also that pose's hybrid frame
+    for i in [0] + orbit_frames.degenerate[:1]:
+        eye, dxyz = geometry.rays_fragment_soa(orb.poses[i], ow, oh)
+        img_p = reference.render_bonsai_rays(orb.exact.vol, eye, torch.stack(dxyz, dim=-1))
+        img_k = orbit_frames.exact[i]
+        same = torch.equal(img_k, img_p)
+        mx, mean = rgb_err(img_k, img_p)
+        print(f"phase 4l K1 vs plain config 4 pose {i} (route {orbit_routes[i][0]}) {ow}x{oh} "
+              f"({card}): bitwise equal {same}, max {mx:.3e} mean {mean:.3e}; the pose's "
+              f"hybrid frame is this frame {orbit_frames.hybrid[i] is img_k}", flush=True)
+        check(same, f"K1 disagrees with its plain version at config 4's pose {i}")
+        worst["K1"] = max(worst["K1"], mx)
+    del img_p, img_k, eye, dxyz
+    # the poses that route to K1, forced through the hybrid frame anyway
+    # (HybridBonsaiRenderer.functional: no routing); outside the contract,
+    # printed, not held
+    frender, fpack = orb.hybrid.functional()
+    forced = {}
+    for i in orbit_frames.degenerate:
+        img_f, _, deg = frender(fpack, orb.poses[i], ow, oh)
+        forced[i] = (float((img_f - orbit_frames.exact[i])[..., :3].abs().mean()), bool(deg))
+    # every hybrid pose's units in the partial last tile row, and the worst
+    # hybrid pose's frame against the plain hybrid path, as phase 4d
+    pair4 = hy._pair_mode(orb.hybrid.dims, ow, oh)
+    tpu4 = 2 if pair4 else 1
+    ty4, tx4 = cdiv(oh, 32), cdiv(ow, 32)
+    sentinel4 = ty4 * tx4 // tpu4
+
+    def hybrid_path(i, plain=False):
+        return hy._render_hybrid(orb.hybrid.packs, orb.hybrid.vol, orb.poses[i],
+                                 orb.hybrid.thresh, ow, oh, orbit_model.INTERMEDIATE,
+                                 orbit_model.BUDGET, True, pair=pair4, plain=plain)
+
+    last_row = {}
+    for i in hyb_idx:
+        img_i, _, ids_i = hybrid_path(i)
+        sel = set(ids_i.tolist()) - {sentinel4}
+        last_row[i] = sum(u * tpu4 // tx4 == ty4 - 1 for u in sel)
+        if i == worst_hyb:
+            img_k, sel_k = img_i, sel
+    del img_i
+    img_p, _, ids_p = hybrid_path(worst_hyb, plain=True)
+    sel_p = set(ids_p.tolist()) - {sentinel4}
+    both = hy.unit_pixel_mask(torch.tensor(sorted(sel_k & sel_p), dtype=torch.int32,
+                                           device=dev), tpu4, ow, oh)
+    dh = (img_k - img_p)[..., :3].abs()
+    both_max = float(dh[both].max()) if bool(both.any()) else 0.0
+    same_as_entry = torch.equal(orbit_frames.hybrid[worst_hyb], img_k)
+    print(f"phase 4l config 4 ({card}; BonsaiOrbit, {n_orbit} poses {ow}x{oh}, I="
+          f"{orbit_model.INTERMEDIATE}, budget {orbit_model.BUDGET}, "
+          f"{'pairs' if pair4 else 'tiles'}): {n_hyb} poses hybrid, degenerate "
+          f"{orbit_frames.degenerate} (K1), exact + hybrid in {orbit_s:.2f} s, launches "
+          f"{orbit_launches}; worst pose {worst_pose} mean {orbit_errs[worst_pose]:.4e}, worst "
+          f"hybrid-routed pose {worst_hyb} mean {orbit_errs[worst_hyb]:.4e} (contract "
+          f"{HYBRID_CONTRACT:g}); bench.py's gate (no degenerate pose) "
+          f"{orbit_frames.bench_gate}; degenerate poses forced through the hybrid frame, "
+          f"mean vs exact (degraded flag): "
+          + ", ".join(f"{i}: {e:.4e} ({d})" for i, (e, d) in forced.items())
+          + f"; units in the last tile row (of {ty4}) per hybrid pose {last_row}; pose "
+          f"{worst_hyb} vs the plain hybrid path: {len(sel_k)} units selected, ids that differ "
+          f"{len(sel_k ^ sel_p)}, max on units both selected {both_max:.3e}, whole-frame max "
+          f"{float(dh.max()):.3e}, entry point's frame equals the kernel path {same_as_entry}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(max(orbit_errs) <= HYBRID_CONTRACT,
+          f"config-4 poses beyond the hybrid's contract: {orbit_errs}")
+    check(both_max == 0.0 and same_as_entry,
+          "the 1080p hybrid frame disagrees with the plain hybrid path")
+    del orbit_frames, img_k, img_p, dh, both
 
     # -- phase 4f: the xor main path, the field oracles, the trig demo ------
     clear = torch.tensor([0.023, 0.02, 0.02], device=dev)
@@ -1223,44 +1401,62 @@ def main() -> int:
     check(tl == only() and 0.0 < tri < 1.0 and bool(torch.isfinite(tctx.display_image).all()),
           "the trig demo launched a kernel or drew no triangle")
 
-    # -- phase 4g: config 5 at reduced depth --------------------------------
-    max_steps5 = int(math.ceil(math.sqrt(3.0) * VOL5)) + 1  # 888: the full diagonal
-    views5 = orbit_camera_batch(VIEWS, device=dev)
-
-    def config5_batch(b, views):
-        """One batch: the time-varying volume (K8), then every view (K1,
-        whose first launch builds the volume's occupancy table)."""
-        vol = genvol.generate_density_u8(0.3 * b, VOL5, dev)
-        imgs = []
-        for u in views:
-            eye, dxyz = geometry.rays_fragment_soa(u, VIEW_RES, VIEW_RES)
-            imgs.append(mb.render_bonsai_rays_cuda(vol, eye, dxyz, max_steps=max_steps5))
-        return vol, imgs
-
-    smoke_views = views5[:: VIEWS // VIEWS_SMOKE]
+    # -- phase 4g: config 5 at reduced depth (models/views.py) ---------------
+    # the orbit of VIEWS_SMOKE views is every (VIEWS // VIEWS_SMOKE)-th view of
+    # config 5's orbit of VIEWS
+    batch8 = ViewsBatch(n_views=VIEWS_SMOKE, view_res=VIEW_RES, dims=VOL5, device=dev)
+    max_steps5 = batch8.max_steps  # 888: the full diagonal
     reset_launches()
     t0 = time.perf_counter()
     for b in range(2):
-        vol5, imgs5 = config5_batch(b, smoke_views)
+        vol5, imgs5 = batch8(b)
     torch.cuda.synchronize()
     c5_s = time.perf_counter() - t0
     c5_launches = launches()
     check(c5_launches == only(K8=2, K1=2 * VIEWS_SMOKE),
           f"config 5 launched {c5_launches}, not K8 x 2 and K1 x {2 * VIEWS_SMOKE}")
     c5_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean()) for im in imgs5)
-    check(all(bool(torch.isfinite(im).all()) for im in imgs5) and c5_lit > 0.01,
+    check(bool(torch.isfinite(imgs5).all()) and c5_lit > 0.01,
           f"a config-5 view is not finite or shows nothing (least lit {c5_lit:.4f})")
-    eye, dxyz = geometry.rays_fragment_soa(smoke_views[1], VIEW_RES, VIEW_RES)
+    eye, dxyz = geometry.rays_fragment_soa(batch8.cams[1], VIEW_RES, VIEW_RES)
     img5_p = reference.render_bonsai_rays(vol5, eye, torch.stack(dxyz, dim=-1),
                                           max_steps=max_steps5)
     mx, mean = rgb_err(imgs5[1], img5_p)
-    print(f"phase 4g config 5 (2 batches: K8 {VOL5}^3 at t = 0.3 b, {VIEWS_SMOKE} of {VIEWS} "
-          f"orbit views {VIEW_RES}^2 through K1, {max_steps5} steps) in {c5_s:.2f} s, "
-          f"launches {c5_launches}, least lit view {c5_lit:.4f}; view 1 vs K1 plain max "
-          f"{mx:.3e} mean {mean:.3e} (tol {MAX_TOL:g} / {MEAN_TOL:g}), bitwise-equal pixels "
-          f"{float((imgs5[1] == img5_p).all(dim=-1).float().mean()):.6f}", flush=True)
+    print(f"phase 4g config 5 ({card}; ViewsBatch, 2 batches: K8 {VOL5}^3 at t = 0.3 b, "
+          f"{VIEWS_SMOKE} of {VIEWS} orbit views {VIEW_RES}^2 through K1, {max_steps5} steps) "
+          f"in {c5_s:.2f} s, launches {c5_launches}, least lit view {c5_lit:.4f}; view 1 vs K1 "
+          f"plain max {mx:.3e} mean {mean:.3e} (tol {MAX_TOL:g} / {MEAN_TOL:g}), bitwise-equal "
+          f"pixels {float((imgs5[1] == img5_p).all(dim=-1).float().mean()):.6f}", flush=True)
     check(mx < MAX_TOL and mean < MEAN_TOL, "config-5 view disagrees with K1's plain version")
-    del imgs5, img5_p
+    del imgs5, img5_p, batch8
+
+    # -- phase 4m: one full config-5 batch (K8 512^3 + 64 views 512^2) --------
+    batch64 = ViewsBatch(n_views=VIEWS, view_res=VIEW_RES, dims=VOL5, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    vol5f, imgs5 = batch64(0)
+    torch.cuda.synchronize()
+    c5f_s = time.perf_counter() - t0
+    c5f_launches = launches()
+    check(c5f_launches == only(K8=1, K1=VIEWS),
+          f"the full config-5 batch launched {c5f_launches}, not K8 once and K1 x {VIEWS}")
+    check(tuple(imgs5.shape) == (VIEWS, VIEW_RES, VIEW_RES, 4), f"views {tuple(imgs5.shape)}")
+    c5f_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean()) for im in imgs5)
+    check(bool(torch.isfinite(imgs5).all()) and c5f_lit > 0.01,
+          f"a full-batch view is not finite or shows nothing (least lit {c5f_lit:.4f})")
+    check(torch.equal(vol5f, genvol.generate_density_u8_plain(0.0, VOL5, dev)),
+          "the full batch's volume differs from K8's plain version")
+    eye, dxyz = geometry.rays_fragment_soa(batch64.cams[VIEWS - 1], VIEW_RES, VIEW_RES)
+    img5_p = reference.render_bonsai_rays(vol5f, eye, torch.stack(dxyz, dim=-1),
+                                          max_steps=max_steps5)
+    equal5 = torch.equal(imgs5[VIEWS - 1], img5_p)
+    print(f"phase 4m config 5 full batch ({card}; ViewsBatch(): K8 {VOL5}^3 at t = 0, {VIEWS} "
+          f"orbit views {VIEW_RES}^2 through K1, {max_steps5} steps) in {c5f_s:.2f} s (first "
+          f"call), launches {c5f_launches}, least lit view {c5f_lit:.4f}; volume equal to K8's "
+          f"plain version; view {VIEWS - 1} bitwise equal to K1's plain version {equal5}",
+          flush=True)
+    check(equal5, "a full-batch view disagrees with K1's plain version")
+    del vol5f, imgs5, img5_p
 
     # -- phase 5: timing --------------------------------------------------
     uni = bench.uniform(dev)
@@ -1305,6 +1501,23 @@ def main() -> int:
           f"present {present_ms:.4f} ms")
     print(f"phase 5 whole frame (Context.update + BonsaiDemo.render + present): "
           f"{frame_ms:.4f} ms/frame ({mrays / frame_ms * 1e3:.1f} Mrays/s)", flush=True)
+
+    # the dense-stress frame (phase 3's): K1 alone, the entry point's frame
+    # (rays + K1), the share of K1's steps skipped and its bound
+    n_dense = 5 * TIMED_FRAMES
+    dense_dev = device_ms(lambda: mb.render_bonsai_rays_cuda(dense_r.vol, eye, dxyz), torch)
+    dense_ms = median_ms(lambda: dense_r(uni, RES, RES), n_dense, torch)
+    _, dense_px = reference.render_bonsai_rays(dense_r.vol, eye, dirs, return_steps=True)
+    dense_steps, dense_skipped = skip_counts(dense_r.vol, eye, dirs, dense_px, torch)
+    dense_bound = bound_ms(dense_r.vol.numel() + 3 * RES * RES * 4 + 12 + RES * RES * 16,
+                           (dense_steps - dense_skipped) * OPS_K1_STEP
+                           + dense_skipped * OPS_SKIP_STEP)
+    print(f"phase 5 dense frame ({card}; dense_stress 256^3, bench pose, {RES}x{RES}): K1 "
+          f"device {dense_dev:.4f} ms (the bonsai's {k1_dev:.4f}), one frame (BonsaiRenderer: "
+          f"rays + K1, median of {n_dense}) {dense_ms:.4f} ms; marched steps skipped "
+          f"{dense_skipped / dense_steps:.4f} of {dense_steps} ({dense_steps / (RES * RES):.1f} "
+          f"per ray; the bonsai's {k1_skip:.4f}); bound {dense_bound[0]:.4f} ms "
+          f"({dense_bound[1]}), {dense_dev / dense_bound[0]:.1f}x its bound", flush=True)
 
     # the fast path's stages at the bench pose, I=512 (phase 3b's geometry)
     geo = geo_b
@@ -1777,7 +1990,7 @@ def main() -> int:
           f"rasterize + present) {trig_ms:.4f} ms, host syncs per frame {trig_syncs}; trig "
           f"field frame {FIELD_RES}^2 (render_field: rays + clip + K7) {trig_field_ms:.4f} ms",
           flush=True)
-    eye5, dxyz5 = geometry.rays_fragment_soa(views5[0], VIEW_RES, VIEW_RES)
+    eye5, dxyz5 = geometry.rays_fragment_soa(batch64.cams[0], VIEW_RES, VIEW_RES)
     occ5_ms = (device_ms(lambda: mb.occupancy_table(vol5), torch),
                median_ms(lambda: mb.occupancy_table(vol5), n, torch))
     dirs5 = torch.stack(dxyz5, dim=-1)
@@ -1788,9 +2001,9 @@ def main() -> int:
                                                               max_steps=max_steps5), n, torch)
     c5_view_dev = device_ms(lambda: mb.render_bonsai_rays_cuda(vol5, eye5, dxyz5,
                                                                max_steps=max_steps5), torch)
-    c5_rays_ms = median_ms(lambda: geometry.rays_fragment_soa(views5[0], VIEW_RES, VIEW_RES), n,
-                           torch)
-    c5_ms = median_ms(lambda: config5_batch(0, views5), 3, torch, warmup=1)
+    c5_rays_ms = median_ms(lambda: geometry.rays_fragment_soa(batch64.cams[0], VIEW_RES,
+                                                              VIEW_RES), n, torch)
+    c5_ms = median_ms(lambda: batch64(0), 3, torch, warmup=1)
     print(f"phase 5 config 5 ({card}): one batch (K8 {VOL5}^3 + {VIEWS} views {VIEW_RES}^2, "
           f"{max_steps5} steps) {c5_ms:.2f} ms ({VIEWS * VIEW_RES ** 2 / c5_ms / 1e3:.1f} "
           f"Mrays/s); K1 one view: device {c5_view_dev:.4f} ms, one call {c5_view_ms:.4f} ms; "
@@ -1798,6 +2011,30 @@ def main() -> int:
           f"{c5_skipped / c5_marched:.4f} of {c5_marched}; occupancy table ({VOL5}^3) device "
           f"{occ5_ms[0]:.4f} ms, one call {occ5_ms[1]:.4f} ms; K8 device {k8_dev:.4f} ms",
           flush=True)
+
+    # config 4 at 1080p (phase 4l's renderers): the exact and the hybrid
+    # frame, the poses in turn; K1 alone at pose 0
+    def cycled(render, poses):
+        it = itertools.cycle(poses)
+        return lambda: render(next(it), ow, oh)
+
+    hyb_poses = [orb.poses[i] for i in hyb_idx]
+    orbit_ms = {
+        "exact": median_ms(cycled(orb.exact, orb.poses), 5 * n_orbit, torch),
+        "hybrid (hybrid-routed poses)": median_ms(cycled(orb.hybrid, hyb_poses),
+                                                  5 * len(hyb_poses), torch),
+        "hybrid renderer (every pose)": median_ms(cycled(orb.hybrid, orb.poses), 5 * n_orbit,
+                                                  torch),
+    }
+    eye4, dxyz4 = geometry.rays_fragment_soa(orb.poses[0], ow, oh)
+    orbit_k1_dev = device_ms(lambda: mb.render_bonsai_rays_cuda(orb.exact.vol, eye4, dxyz4),
+                             torch)
+    print(f"phase 5 config 4 ({card}; {ow}x{oh}, {n_orbit} orbit poses in turn, medians of 5 "
+          f"rounds, one call each): " + ", ".join(f"{k} frame {v:.4f} ms"
+                                                  for k, v in orbit_ms.items())
+          + f"; K1 at pose 0 device {orbit_k1_dev:.4f} ms "
+          f"({ow * oh / orbit_k1_dev / 1e3:.1f} Mrays/s)", flush=True)
+    del eye4, dxyz4
 
     # PERF.md's ranking on device times: slower than a same-function library
     # call first, then launches per frame (one each here) x (device - bound);
@@ -2111,7 +2348,15 @@ def main() -> int:
         dict(entry("march_bonsai", "vokselis_torch/csrc/march_bonsai.cu",
                    "vokselis_tpu/ops/pallas/march_bonsai.py:131", exact_launches["K1"],
                    worst["K1"], k1_dev, k_ms, p_ms, k1_bound),
-             launches_multi_device=mesh_launches["K1"], multi_device=mesh_times),
+             launches_multi_device=mesh_launches["K1"], multi_device=mesh_times,
+             launches_config4=orbit_launches["K1"], config4_ms=orbit_ms,
+             config4_device_ms=orbit_k1_dev, launches_config5=c5f_launches["K1"],
+             config5={"batch_ms": c5_ms, "view_device_ms": c5_view_dev,
+                      "view_call_ms": c5_view_ms},
+             launches_dense=dense_launches["K1"],
+             dense={"device_ms": dense_dev, "frame_ms": dense_ms,
+                    "skip_share": dense_skipped / dense_steps, "bound_ms": dense_bound[0],
+                    "bound_by": dense_bound[1]}),
         entry("resample_slabs", "vokselis_torch/csrc/shear_resample.cu",
               "vokselis_tpu/ops/pallas/shear_resample.py:117", fast_launches["K3"],
               worst["K3"], dev_ms["K3"], k3_ms, k3p_ms, k3_bound,
@@ -2123,6 +2368,7 @@ def main() -> int:
                    "vokselis_tpu/ops/pallas/shear_resample.py:402", fast_launches["K34"],
                    worst["K34"], k34_main["device"], k34_main["call"], k34p_ms,
                    k34_main["bound"]),
+             launches_config4=orbit_launches["K34"],
              modes={f"I={ii} {t}": {"device_ms": r["device"], "call_ms": r["call"],
                                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                                     "texels": r["texels"], "samples": r["samples"],
@@ -2134,14 +2380,16 @@ def main() -> int:
               "vokselis_tpu/ops/pallas/warp2d.py:218", fast_launches["K6"],
               worst["K6"], dev_ms["K6"], k6_ms, k6p_ms, k6_bound,
               (dev_ms["grid_sample K6"], lib6_ms)),
-        entry("march_tiles", "vokselis_torch/csrc/march_bonsai.cu",
-              "vokselis_tpu/ops/pallas/march_bonsai.py:1021", hyb_launches["K2"],
-              worst["K2"], hyb_rows[II]["K2 device"], hyb_rows[II]["K2"], k2p_ms, k2_bound),
+        dict(entry("march_tiles", "vokselis_torch/csrc/march_bonsai.cu",
+                   "vokselis_tpu/ops/pallas/march_bonsai.py:1021", hyb_launches["K2"],
+                   worst["K2"], hyb_rows[II]["K2 device"], hyb_rows[II]["K2"], k2p_ms,
+                   k2_bound), launches_config4=orbit_launches["K2"]),
         # grid_sample computes K5's warp but none of its tile statistics: no library time
         dict(entry("warp_stats", "vokselis_torch/csrc/warp2d.cu",
                    "vokselis_tpu/ops/pallas/warp2d.py:470", hyb_launches["K5"],
                    worst["K5"], hyb_rows[II]["K5 device"], hyb_rows[II]["K5"], k5p_ms,
                    k5_bound),
+             launches_config4=orbit_launches["K5"],
              modes={f"I={ii}": {"device_ms": hyb_rows[ii]["K5 device"],
                                 "call_ms": hyb_rows[ii]["K5"], "bound_ms": k5_bounds[ii][0],
                                 "bound_by": k5_bounds[ii][1], "ok_pixels": k5_ok[ii],
@@ -2154,9 +2402,9 @@ def main() -> int:
              launches_hot_reload=reload_launches["K7"], rebuild_s=reload_s),
         entry("genvol", "vokselis_torch/csrc/genvol.cu", "vokselis_tpu/ops/pallas/genvol.py:27",
               tex_launches["K9"], worst["K9"], k9_dev, k9_ms, k9p_ms, k9_bound),
-        entry("gendensity", "vokselis_torch/csrc/genvol.cu",
-              "vokselis_tpu/ops/pallas/genvol.py:86", c5_launches["K8"], worst["K8"], k8_dev,
-              k8_ms, k8p_ms, k8_bound),
+        dict(entry("gendensity", "vokselis_torch/csrc/genvol.cu",
+                   "vokselis_tpu/ops/pallas/genvol.py:86", c5_launches["K8"], worst["K8"],
+                   k8_dev, k8_ms, k8p_ms, k8_bound), launches_config5=c5f_launches["K8"]),
     ]
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())

@@ -439,6 +439,84 @@ def test_tiles_partial_frame_match_exact_frame():
     assert float(compact[:, 96:].abs().max()) == 0.0  # the parked id
 
 
+def _edge_units_case(device, size, tpu, fast=False, plain=False):
+    """K2 (the wrapper on ``device``, or with ``plain`` its plain version)
+    over the units of the last tile row and the last tile column of a frame
+    whose sides are not multiples of 32, plus a parked id, writing into
+    planes that lie between two guard bands of one buffer. Returns what the tests hold: the written planes, the exact frame
+    (linear rgb), the listed units' pixel mask, the guard bands, the compact
+    rays' pixel coordinates and K1b's compact planes."""
+    w, h = size
+    vol = mb.volume_tensor(get_bonsai(32), device)
+    u = Camera(aspect=w / h, **POSES["tilt"]).uniform(device)
+    exact = mb.BonsaiRenderer(vol, device)(u, w, h, max_steps=64, srgb=False)
+    ty, tx = -(-h // 32), -(-w // 32)
+    n_units, row_units = ty * tx // tpu, tx // tpu
+    listed = sorted(set(range(n_units - row_units, n_units))
+                    | {r * row_units + row_units - 1 for r in range(ty)})
+    ids = torch.tensor(listed + [n_units], dtype=torch.int32, device=device)
+    guard, n_px = 4 * w, 3 * h * w
+    buf = torch.full((n_px + 2 * guard,), -7.0, device=device)
+    base = buf[guard:guard + n_px].view(3, h, w)
+    base.zero_()
+    into = mb.render_bonsai_tiles_into_plain if plain else mb.render_bonsai_tiles_into
+    into(vol, base, u, ids, w, h, tpu, fast, max_steps=64)
+    mask = hy.unit_pixel_mask(ids, tpu, w, h)
+    _, _, (iy, ix) = mb.tile_rays_compact(u, ids, w, h, tpu)
+    compact = (mb.render_bonsai_tiles_plain if plain else mb.render_bonsai_tiles)(
+        vol, u, ids, w, h, tpu, fast, max_steps=64)
+    return {"base": base, "exact": exact[..., :3].permute(2, 0, 1), "mask": mask,
+            "guards": (buf[:guard], buf[guard + n_px:]), "iy": iy, "ix": ix,
+            "compact": compact, "n_listed": len(listed), "tpu": tpu}
+
+
+EDGE_CASES = [((200, 113), 1), ((160, 90), 1), ((250, 113), 2)]
+
+
+@pytest.mark.parametrize("size,tpu", [((200, 113), 1), ((250, 113), 2), ((64, 64), 2)],
+                         ids=["200x113", "250x113-pairs", "64x64-pairs"])
+def test_unit_pixel_mask_covers_listed_tiles(size, tpu):
+    """unit_pixel_mask marks exactly the 32x32 tiles of the listed units,
+    cut at the frame's edge; a parked id marks nothing."""
+    w, h = size
+    ty, tx = -(-h // 32), -(-w // 32)
+    n_units = ty * tx // tpu
+    listed = [0, n_units // 2, n_units - 1]
+    mask = hy.unit_pixel_mask(torch.tensor(listed + [n_units], dtype=torch.int32), tpu, w, h)
+    want = np.zeros((ty * 32, tx * 32), dtype=bool)
+    for unit in listed:
+        for tile in range(unit * tpu, (unit + 1) * tpu):
+            r, c = divmod(tile, tx)
+            want[r * 32:(r + 1) * 32, c * 32:(c + 1) * 32] = True
+    np.testing.assert_array_equal(mask.numpy(), want[:h, :w])
+
+
+@pytest.mark.parametrize("size,tpu", EDGE_CASES, ids=["200x113", "160x90", "250x113-pairs"])
+def test_tiles_last_row_and_column_stay_inside_frame(size, tpu):
+    """K2's plain version over the last tile row and column of frames whose
+    width and height are not multiples of 32 (config 4's 1080 rows leave a
+    partial last tile row): the listed units' pixels inside the frame equal
+    the port's exact frame bitwise (the compact rays repeat
+    rays_fragment_soa op for op), every other pixel keeps its value and
+    nothing lands in the guard bands; the compact rays of pixels past the
+    frame edge lie outside the frame, and K1b leaves them at 0."""
+    w, h = size
+    c = _edge_units_case("cpu", size, tpu)
+    torch.testing.assert_close(c["base"][:, c["mask"]], c["exact"][:, c["mask"]], rtol=0,
+                               atol=0)
+    assert float(c["base"][:, ~c["mask"]].abs().max()) == 0.0
+    assert all(bool((g == -7.0).all()) for g in c["guards"])
+    outside = (c["iy"] >= h) | (c["ix"] >= w)
+    assert bool(outside.any()) and bool((c["iy"][~outside] < h).all())
+    parked = torch.zeros_like(outside)
+    parked[c["n_listed"] * tpu * 32:] = True
+    assert float(c["compact"][:, outside | parked].abs().max()) == 0.0
+    inside = ~outside & ~parked
+    np.testing.assert_array_equal(
+        c["compact"][:, inside].numpy(),
+        c["exact"][:, c["iy"][inside], c["ix"][inside]].numpy())
+
+
 # -- the hybrid frame ----------------------------------------------------------
 
 def test_hybrid_full_budget_matches_exact():
@@ -744,6 +822,22 @@ def test_hybrid_kernels_match_plain_on_gpu(cuda_device, pose):
     torch.cuda.synchronize()
     after = (warp2d.LAUNCHES_STATS, mb.LAUNCHES_TILES, mb.LAUNCHES_TILES_COMPACT)
     assert after == (before[0] + 2, before[1] + 4, before[2] + 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,tpu", EDGE_CASES, ids=["200x113", "160x90", "250x113-pairs"])
+def test_tiles_last_row_and_column_stay_inside_frame_on_gpu(cuda_device, size, tpu):
+    """K2 and K1b on the card over the last tile row and column of frames
+    of partial tiles, both palettes: bitwise their plain versions on the
+    card, every other pixel and both guard bands untouched."""
+    for fast in (False, True):
+        c = _edge_units_case(cuda_device, size, tpu, fast)
+        p = _edge_units_case(cuda_device, size, tpu, fast, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(c["base"], p["base"]), (size, fast)
+        assert torch.equal(c["compact"], p["compact"]), (size, fast)
+        assert float(c["base"][:, ~c["mask"]].abs().max()) == 0.0
+        assert all(bool((g == -7.0).all()) for g in c["guards"])
 
 
 @pytest.mark.gpu

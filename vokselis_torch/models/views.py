@@ -1,0 +1,65 @@
+"""Config 5: a time-varying 512^3 volume rendered from 64 views at 512^2 per
+batch (the counterpart of ``bench.py:312-371``, ``bench_views_512``).
+
+Each batch step regenerates the u8 density on the device at t = 0.3 b (K8,
+:func:`vokselis_torch.ops.cuda.genvol.generate_density_u8`, the reference's
+per-update compute fill) and renders ``n_views`` orbit views of it with the
+exact march (K1, whose first launch on the new volume builds its occupancy
+table), each ray allowed the full diagonal of steps. With a ``mesh``
+(:func:`vokselis_torch.parallel.make_mesh`) the views are sharded over its
+'views' dimension (:func:`vokselis_torch.parallel.render_views_sharded`), as
+``bench.py`` shards them over the JAX mesh. The TPU's slab-layout repack has
+no counterpart: K1 reads the volume as it is. This module renders and
+returns frames; it times nothing.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from vokselis_torch.ops.cuda.genvol import generate_density_u8
+from vokselis_torch.parallel.sharding import (
+    build_default_renderer,
+    mesh_device,
+    orbit_camera_batch,
+    render_views_sharded,
+)
+
+N_VIEWS = 64
+VIEW_RES = 512
+DIMS = 512
+
+
+def full_diagonal(dims: int) -> int:
+    """Steps for a ray across the whole box diagonal (bench.py:340)."""
+    return int(math.ceil(math.sqrt(3.0) * dims)) + 1
+
+
+class ViewsBatch:
+    """Config 5's batch step over ``n_views`` orbit views (aspect 1) at
+    ``view_res``^2 of a ``dims``^3 volume, on ``device``, or on ``mesh``'s
+    device with the views sharded over its 'views' dimension (each rank then
+    returns its block of views)."""
+
+    def __init__(self, n_views: int = N_VIEWS, view_res: int = VIEW_RES, dims: int = DIMS,
+                 device="cuda", mesh=None):
+        self.device = mesh_device(mesh) if mesh is not None else torch.device(device)
+        self.n_views, self.view_res, self.dims = n_views, view_res, dims
+        self.mesh = mesh
+        self.max_steps = full_diagonal(dims)
+        self.cams = orbit_camera_batch(n_views, device=self.device)
+
+    @torch.no_grad()
+    def __call__(self, b=0):
+        """Batch step ``b``: ``(volume, views)``, the (D, D, D) uint8 volume
+        and the (n, view_res, view_res, 4) float32 frames (with a mesh, this
+        rank's block of them)."""
+        vol = generate_density_u8(0.3 * b, self.dims, self.device)  # bench.py:348-350
+        render, pack = build_default_renderer(vol, self.device)
+        res, steps = self.view_res, self.max_steps
+        if self.mesh is not None:
+            return vol, render_views_sharded(self.mesh, render, pack, self.cams, res, res,
+                                             max_steps=steps)
+        return vol, torch.stack([render(pack, c, res, res, steps) for c in self.cams])

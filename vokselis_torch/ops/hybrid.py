@@ -113,6 +113,20 @@ def select_units(scores, n_tiles: int, budget: int, thresh: float, pair: bool):
     return torch.where(vals > thresh, ids, n_tiles).to(torch.int32)
 
 
+def unit_pixel_mask(ids, tpu: int, width: int, height: int):
+    """The (height, width) bool mask of the pixels that the re-march units
+    ``ids`` ((k,) int tensor, units of ``tpu`` raster-consecutive tiles)
+    cover, on the ids' device; parked ids cover nothing."""
+    ny, nx = cdiv(height, TILE), cdiv(width, TILE)
+    ids = ids.long()
+    ids = ids[ids < ny * nx // tpu]
+    tiles = (ids[:, None] * tpu + torch.arange(tpu, device=ids.device)).reshape(-1)
+    mask = torch.zeros(ny * nx, dtype=torch.bool, device=ids.device)
+    mask[tiles] = True
+    mask = mask.reshape(ny, nx).repeat_interleave(TILE, 0).repeat_interleave(TILE, 1)
+    return mask[:height, :width]
+
+
 def _dilate3(t):
     """3x3 max filter over the (ny, nx) tile grid, zero-padded
     (hybrid.py:137-145)."""
@@ -207,9 +221,11 @@ class HybridBonsaiRenderer:
 
     def _call_traced(self, camera_uniform, width: int = 1280, height: int = 720,
                      max_steps: int = MAX_STEPS_BONSAI, srgb: bool = True,
-                     budget: int | None = None, hint=None):
-        """``(img, ovf)`` of one frame along :meth:`route`."""
-        mode, ii, b = self.route(camera_uniform, width, height, budget, hint)
+                     budget: int | None = None, hint=None, route=None):
+        """``(img, ovf)`` of one frame along :meth:`route`, or along
+        ``route`` when the caller has classified the pose already."""
+        mode, ii, b = (self.route(camera_uniform, width, height, budget, hint)
+                       if route is None else route)
         if mode in ("dense", "exact"):
             return self.exact(camera_uniform, width, height, max_steps, srgb), 0
         pair = _pair_mode(self.dims, width, height)
@@ -258,9 +274,11 @@ class HybridBonsaiRenderer:
 
     def __call__(self, camera_uniform, width: int = 1280, height: int = 720,
                  max_steps: int = MAX_STEPS_BONSAI, srgb: bool = True,
-                 budget: int | None = None):
+                 budget: int | None = None, route=None):
+        """One frame; ``route``: this pose's :meth:`route` at this frame,
+        if the caller has it (the pose is then not classified again)."""
         img, ovf = self._call_traced(camera_uniform, width, height, max_steps, srgb,
-                                     budget)
+                                     budget, route=route)
         self.last_overflow = ovf
         return img
 
