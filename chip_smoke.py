@@ -23,7 +23,11 @@ Phases, each reported on its own lines:
      mean |d| < 1e-5 on rgb (expected bitwise); the dense-stress frame
      (bench.py:433-440: config 3 on volume.io.dense_stress, ~50 % of the
      voxels above 0) through the exact entry point BonsaiRenderer, one K1
-     launch, bitwise;
+     launch, bitwise; a batch of views through K1 in one launch (the
+     view on the grid's z): 8 orbit views at 512^2 and 3 at 1001x563
+     (partial 16x8 blocks on both axes) of the 256^3 bonsai, each view
+     bitwise equal to a single-view launch on its uniform and to the
+     plain version;
   3b. K3, K4 (low-degree transfer), K4b (K4's exact-transfer mode) and K6
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
@@ -62,9 +66,9 @@ Phases, each reported on its own lines:
      at 1024x1024, which must launch K34 and K6 once per frame (and not
      K1, K3 or K4) and end in a finite, non-background frame that agrees with the
      plain fast path on the card;
-  4c. the fast frame (I=512) against the port's exact K1 frame at four
-     poses: mean |d| over rgba within 1.25x of the JAX package's measured
-     fast-mode error (PARITY_REPORT.md:60-63);
+  4c. the fast frame (I=256 and I=512) against the port's exact K1 frame
+     at four poses: mean |d| over rgba within 1.25x of the JAX package's
+     measured fast-mode error at that intermediate (PARITY_REPORT.md:56-63);
   4d. the hybrid main path: run(BonsaiDemo with renderer="hybrid", I=512,
      budget 128) for 8 frames at 1024x1024 at the bench pose, which the pose
      classification renders hybrid: K34, K5 and K2 once per frame, K3, K4,
@@ -95,20 +99,23 @@ Phases, each reported on its own lines:
      run(TrigDemo), which launches no kernel;
   4g. config 5 at reduced depth through vokselis_torch/models/views.
      ViewsBatch: 2 batches, each K8 at 512^3 (t = 0.3 b) and 8 orbit views
-     at 512^2 through K1 with 888 steps (the first builds the volume's
-     occupancy table); one view against K1's plain version;
+     at 512^2 through one K1 launch with 888 steps (the first builds the
+     volume's occupancy table); one view against K1's plain version;
   4m. one full config-5 batch (ViewsBatch(): K8 at 512^3 and 64 views at
-     512^2): K8 once, K1 64 times; the volume equal to K8's plain version,
-     the last view bitwise K1's plain version;
+     512^2): K8 once, K1 once (one ray pass over the batched uniform); the
+     volume equal to K8's plain version, all 64 views bitwise equal to 64
+     single-view K1 launches, the last view bitwise K1's plain version;
   (phases 4h-4k run after phase 5, so that phase 5 times the frames in the
   process state of the earlier phases)
   4h. multi-device (vokselis_torch.parallel.sharding) over an NCCL process
      group of world size 1 (one card), the (views 1, tiles 1) mesh:
      render_views_sharded of 64 orbit views at 512^2 (config 5's views)
      gathered, render_frame_tiled at 1024^2 (bench pose) and
-     multi_view_step, K1 only; every view and the frame bitwise equal to
-     single-device K1 calls on the same uniforms, overflow 0; the sharded
-     batch's and frame's times beside the single-device ones;
+     multi_view_step, K1 once each; every view bitwise equal to the
+     single-device batched render and to single-view K1 calls on the same
+     uniforms, the frame to a K1 call, overflow 0; the sharded batch's and
+     frame's times beside the single-device ones (the batch also beside
+     the views one by one);
   4i. hot reload of K7: XorDemo at 512^2 on a copy of march_field.cu and its
      headers in a temporary directory, Context(watch=True), the watcher
      driven by poll_once: an edited shading constant rebuilds (nvcc) into a
@@ -152,7 +159,11 @@ Phases, each reported on its own lines:
      times of other bricks, each equal to the default's), the whole xor
      demo frame at 1280x720 with its host syncs, idle share and lane
      efficiency, the trig demo frame and the trig field frame, one full
-     config-5 batch of 64 views (ViewsBatch) with one view's K1 device time;
+     config-5 batch of 64 views (ViewsBatch), in interleaved rounds with
+     the per-view loop it replaced (the yardstick, kept only here), its
+     device time from a CUDA graph of the batch step (which must capture,
+     so the step makes no host sync), its host syncs, its batched ray pass and
+     batched K1 alone, its peak device memory, and one view's K1 device time;
      the dense-stress frame's K1 device time, entry-point frame, skip share
      and bound; config 4's exact and hybrid frames at 1920x1080, the poses
      in turn, and K1's device time there.
@@ -192,10 +203,14 @@ HYBRID_CONTRACT = 1e-3  # per-pose mean |hybrid - exact| over rgb (ROADMAP north
 BUDGET_OP = 64  # the hybrid's operating point with II_HYBRID (OPPOINT.json)
 # K4's 1e-4 through sRGB's steepest slope (12.92): the fast frame vs plain
 FAST_FRAME_TOL = 2e-3
-# PARITY_REPORT.md:60-63, I=512 fast frame vs the exact kernel at 1024^2
-# (mean, p99 over rgba), held here within 1.25x on the mean
-FAST_ERR = {"default": (0.00211, 0.0535), "tilt": (0.00152, 0.0472),
-            "low": (0.00164, 0.0407), "orbit135": (0.00288, 0.0749)}
+# PARITY_REPORT.md:56-63, the fast frame at I=256 and I=512 vs the exact
+# kernel at 1024^2 (mean, p99 over rgba), held here within 1.25x on the mean
+FAST_ERR = {
+    256: {"default": (0.00344, 0.0918), "tilt": (0.00200, 0.0587),
+          "low": (0.00261, 0.0660), "orbit135": (0.00466, 0.1374)},
+    512: {"default": (0.00211, 0.0535), "tilt": (0.00152, 0.0472),
+          "low": (0.00164, 0.0407), "orbit135": (0.00288, 0.0749)},
+}
 FAST_ERR_SLACK = 1.25
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): bytes/s and float32 flop/s
@@ -252,8 +267,12 @@ XOR_RES = (1280, 720)  # the xor demo's backbuffer (HdrBackBuffer default)
 FIELD_RES = 512  # configs 1 and 2 (bench.py:442-444)
 K7_MAX, K7_MEAN = 5e-3, 1e-5  # test_pallas.py:41-58, K7 vs plain if not bitwise
 VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-371)
-# phase 4h's timing rounds: a 64-view batch takes ~70-95 ms, a 1024^2 frame ~1.5
+# phase 4h's timing rounds: a 64-view batch takes ~20-30 ms batched and
+# ~70-125 ms view by view, a 1024^2 frame ~1.5
 MESH_BATCH_ROUNDS, MESH_FRAME_ROUNDS = 25, 60
+# phase 5's config-5 rounds (the batch against the per-view loop) and the
+# batch steps in its CUDA graph
+C5_ROUNDS, C5_GRAPH_STEPS = 9, 5
 
 
 # K7 or K8 (argv[2]) with a hash table that misses most of octave 0's lattice
@@ -627,6 +646,7 @@ def main() -> int:
     from vokselis_torch.ops.cuda import warp2d as w2
     from vokselis_torch.ops.present import present, to_uint8
     from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
+    from vokselis_torch.parallel import sharding
     from vokselis_torch.tools import hybrid_sweep
     from vokselis_torch.tools import warp_check
     from vokselis_torch.utils.grid import cdiv
@@ -783,6 +803,31 @@ def main() -> int:
           "the dense frame disagrees with K1's plain version or shows nothing")
     worst["K1"] = max(worst["K1"], mx)
     del img_k, img_p
+
+    # a batch of views in one K1 launch (the view on the grid's z): each view
+    # bitwise a single-view launch on its own uniform and the plain version;
+    # 1001x563 leaves partial 16x8 blocks on both axes
+    for n_b, (bw, bh) in ((VIEWS_SMOKE, (VIEW_RES, VIEW_RES)), (3, (1001, 563))):
+        ub = sharding.orbit_camera_batch(n_b, aspect=bw / bh, device=dev)
+        eye_b, dxyz_b = geometry.rays_fragment_soa(ub, bw, bh)
+        before = mb.LAUNCHES
+        img_b = mb.render_bonsai_rays_cuda(vol_bonsai, eye_b, dxyz_b)
+        torch.cuda.synchronize()
+        batch_launches = mb.LAUNCHES - before
+        singles_equal = sum(bool(torch.equal(img_b[v], mb.render_bonsai_rays_cuda(
+            vol_bonsai, *geometry.rays_fragment_soa(ub[v], bw, bh)))) for v in range(n_b))
+        plain_b = mb.render_bonsai_rays_plain(vol_bonsai, eye_b, dxyz_b)
+        mx, mean = rgb_err(img_b, plain_b)
+        plain_equal = torch.equal(img_b, plain_b)
+        print(f"phase 3 K1 batched {n_b} orbit views {bw}x{bh} of bonsai256 ({card}): "
+              f"{tuple(img_b.shape)} in {batch_launches} launch(es); views bitwise equal to a "
+              f"single-view launch {singles_equal}/{n_b}; bitwise equal to the plain version "
+              f"{plain_equal} (max {mx:.3e} mean {mean:.3e})", flush=True)
+        check(batch_launches == 1 and singles_equal == n_b and plain_equal,
+              f"batched K1 ({n_b} views {bw}x{bh}) is not one launch equal to its single views "
+              "and the plain version")
+        worst["K1"] = max(worst["K1"], mx)
+    del ub, eye_b, dxyz_b, img_b, plain_b
 
     # -- phase 3b: K3, K4, K4b, K34, K6 against their plain versions -------
     fast_r = shear_warp.FastBonsaiRenderer(vol_bonsai, dev, intermediate=II)
@@ -1143,17 +1188,19 @@ def main() -> int:
     }
     exact_r = mb.BonsaiRenderer(vol_bonsai, dev)
     misses = []
-    for name, cam in poses.items():
-        u = cam.uniform(dev)
-        err = (fast_r(u, RES, RES) - exact_r(u, RES, RES)).abs()
-        mean = float(err.mean())
-        p99 = float(torch.quantile(err.reshape(-1), 0.99))
-        want_mean, want_p99 = FAST_ERR[name]
-        print(f"phase 4c fast I={II} vs exact K1 {name} {RES}x{RES}: mean {mean:.5f} "
-              f"(table {want_mean:.5f}, limit {FAST_ERR_SLACK * want_mean:.5f}), p99 "
-              f"{p99:.4f} (table {want_p99:.4f}), max {float(err.max()):.3f}", flush=True)
-        if mean > FAST_ERR_SLACK * want_mean:
-            misses.append(name)
+    for ii, fast_ii in ((256, shear_warp.FastBonsaiRenderer(vol_bonsai, dev, intermediate=256)),
+                        (II, fast_r)):
+        for name, cam in poses.items():
+            u = cam.uniform(dev)
+            err = (fast_ii(u, RES, RES) - exact_r(u, RES, RES)).abs()
+            mean = float(err.mean())
+            p99 = float(torch.quantile(err.reshape(-1), 0.99))
+            want_mean, want_p99 = FAST_ERR[ii][name]
+            print(f"phase 4c fast I={ii} vs exact K1 {name} {RES}x{RES}: mean {mean:.5f} "
+                  f"(table {want_mean:.5f}, limit {FAST_ERR_SLACK * want_mean:.5f}), p99 "
+                  f"{p99:.4f} (table {want_p99:.4f}), max {float(err.max()):.3f}", flush=True)
+            if mean > FAST_ERR_SLACK * want_mean:
+                misses.append(f"I={ii} {name}")
     check(not misses, f"fast frame beyond 1.25x the table's mean error at {misses}")
 
     # -- phase 4d: the hybrid main path -----------------------------------
@@ -1413,8 +1460,8 @@ def main() -> int:
     torch.cuda.synchronize()
     c5_s = time.perf_counter() - t0
     c5_launches = launches()
-    check(c5_launches == only(K8=2, K1=2 * VIEWS_SMOKE),
-          f"config 5 launched {c5_launches}, not K8 x 2 and K1 x {2 * VIEWS_SMOKE}")
+    check(c5_launches == only(K8=2, K1=2),
+          f"config 5 launched {c5_launches}, not K8 x 2 and K1 x 2 (one a batch)")
     c5_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean()) for im in imgs5)
     check(bool(torch.isfinite(imgs5).all()) and c5_lit > 0.01,
           f"a config-5 view is not finite or shows nothing (least lit {c5_lit:.4f})")
@@ -1423,7 +1470,8 @@ def main() -> int:
                                           max_steps=max_steps5)
     mx, mean = rgb_err(imgs5[1], img5_p)
     print(f"phase 4g config 5 ({card}; ViewsBatch, 2 batches: K8 {VOL5}^3 at t = 0.3 b, "
-          f"{VIEWS_SMOKE} of {VIEWS} orbit views {VIEW_RES}^2 through K1, {max_steps5} steps) "
+          f"{VIEWS_SMOKE} of {VIEWS} orbit views {VIEW_RES}^2 through one K1 launch, "
+          f"{max_steps5} steps) "
           f"in {c5_s:.2f} s, launches {c5_launches}, least lit view {c5_lit:.4f}; view 1 vs K1 "
           f"plain max {mx:.3e} mean {mean:.3e} (tol {MAX_TOL:g} / {MEAN_TOL:g}), bitwise-equal "
           f"pixels {float((imgs5[1] == img5_p).all(dim=-1).float().mean()):.6f}", flush=True)
@@ -1438,24 +1486,31 @@ def main() -> int:
     torch.cuda.synchronize()
     c5f_s = time.perf_counter() - t0
     c5f_launches = launches()
-    check(c5f_launches == only(K8=1, K1=VIEWS),
-          f"the full config-5 batch launched {c5f_launches}, not K8 once and K1 x {VIEWS}")
+    check(c5f_launches == only(K8=1, K1=1),
+          f"the full config-5 batch launched {c5f_launches}, not K8 once and K1 once")
     check(tuple(imgs5.shape) == (VIEWS, VIEW_RES, VIEW_RES, 4), f"views {tuple(imgs5.shape)}")
     c5f_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean()) for im in imgs5)
     check(bool(torch.isfinite(imgs5).all()) and c5f_lit > 0.01,
           f"a full-batch view is not finite or shows nothing (least lit {c5f_lit:.4f})")
     check(torch.equal(vol5f, genvol.generate_density_u8_plain(0.0, VOL5, dev)),
           "the full batch's volume differs from K8's plain version")
-    eye, dxyz = geometry.rays_fragment_soa(batch64.cams[VIEWS - 1], VIEW_RES, VIEW_RES)
+    # every view against a single-view K1 launch on its own uniform
+    singles5 = 0
+    for v in range(VIEWS):
+        eye, dxyz = geometry.rays_fragment_soa(batch64.cams[v], VIEW_RES, VIEW_RES)
+        singles5 += bool(torch.equal(imgs5[v], mb.render_bonsai_rays_cuda(
+            vol5f, eye, dxyz, max_steps=max_steps5)))
     img5_p = reference.render_bonsai_rays(vol5f, eye, torch.stack(dxyz, dim=-1),
                                           max_steps=max_steps5)
     equal5 = torch.equal(imgs5[VIEWS - 1], img5_p)
     print(f"phase 4m config 5 full batch ({card}; ViewsBatch(): K8 {VOL5}^3 at t = 0, {VIEWS} "
-          f"orbit views {VIEW_RES}^2 through K1, {max_steps5} steps) in {c5f_s:.2f} s (first "
-          f"call), launches {c5f_launches}, least lit view {c5f_lit:.4f}; volume equal to K8's "
-          f"plain version; view {VIEWS - 1} bitwise equal to K1's plain version {equal5}",
+          f"orbit views {VIEW_RES}^2 through one K1 launch, {max_steps5} steps) in {c5f_s:.2f} s "
+          f"(first call), launches {c5f_launches}, least lit view {c5f_lit:.4f}; volume equal "
+          f"to K8's plain version; views bitwise equal to single-view K1 launches "
+          f"{singles5}/{VIEWS}; view {VIEWS - 1} bitwise equal to K1's plain version {equal5}",
           flush=True)
-    check(equal5, "a full-batch view disagrees with K1's plain version")
+    check(singles5 == VIEWS and equal5,
+          "a full-batch view disagrees with its single-view K1 launch or K1's plain version")
     del vol5f, imgs5, img5_p
 
     # -- phase 5: timing --------------------------------------------------
@@ -2003,11 +2058,52 @@ def main() -> int:
                                                                max_steps=max_steps5), torch)
     c5_rays_ms = median_ms(lambda: geometry.rays_fragment_soa(batch64.cams[0], VIEW_RES,
                                                               VIEW_RES), n, torch)
-    c5_ms = median_ms(lambda: batch64(0), 3, torch, warmup=1)
+
+    def c5_per_view_loop():
+        """The batch step as the port ran it before views were batched, kept
+        here only as the yardstick: K8's volume, then each view's rays and
+        its own K1 launch in turn."""
+        vol = genvol.generate_density_u8(0.0, VOL5, dev)
+        render, pack = sharding.build_default_renderer(vol, dev)
+        return vol, torch.stack([render(pack, c, VIEW_RES, VIEW_RES, max_steps5)
+                                 for c in batch64.cams])
+
+    c5_pair = interleaved_ms({"batch": lambda: batch64(0), "per-view loop": c5_per_view_loop},
+                             C5_ROUNDS, torch)
+    c5_ms = c5_pair["batch"]
+    # the batch step captured in a CUDA graph (K8, the occupancy table, the
+    # batched rays and K1): the capture fails if the step syncs with the host
+    c5_dev = device_ms(lambda: batch64(0), torch, n=C5_GRAPH_STEPS, reps=3)
+    c5_syncs = host_syncs(lambda: batch64(0), torch)
+    eye64, dxyz64 = geometry.rays_fragment_soa(batch64.cams, VIEW_RES, VIEW_RES)
+    c5_batch_rays = (device_ms(lambda: geometry.rays_fragment_soa(batch64.cams, VIEW_RES,
+                                                                  VIEW_RES), torch, n=10, reps=3),
+                     median_ms(lambda: geometry.rays_fragment_soa(batch64.cams, VIEW_RES,
+                                                                  VIEW_RES), n, torch))
+    c5_batch_k1 = device_ms(lambda: mb.render_bonsai_rays_cuda(vol5, eye64, dxyz64,
+                                                               max_steps=max_steps5),
+                            torch, n=10, reps=3)
+    del eye64, dxyz64
+    c5_peak = {}
+    for name, step in (("batch", lambda: batch64(0)), ("per-view loop", c5_per_view_loop)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out5 = step()
+        torch.cuda.synchronize()
+        c5_peak[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del out5
     print(f"phase 5 config 5 ({card}): one batch (K8 {VOL5}^3 + {VIEWS} views {VIEW_RES}^2, "
-          f"{max_steps5} steps) {c5_ms:.2f} ms ({VIEWS * VIEW_RES ** 2 / c5_ms / 1e3:.1f} "
-          f"Mrays/s); K1 one view: device {c5_view_dev:.4f} ms, one call {c5_view_ms:.4f} ms; "
-          f"its rays {c5_rays_ms:.4f} ms; its marched steps skipped "
+          f"{max_steps5} steps; ViewsBatch()(0): one ray pass, one K1 launch), medians of "
+          f"{C5_ROUNDS} interleaved rounds: batch {c5_ms:.4f} ms "
+          f"({VIEWS * VIEW_RES ** 2 / c5_ms / 1e3:.1f} Mrays/s) vs the per-view loop "
+          f"{c5_pair['per-view loop']:.4f} ms ({c5_pair['per-view loop'] / c5_ms:.3f}x); the "
+          f"batch step on the device (a CUDA graph of {C5_GRAPH_STEPS} steps) {c5_dev:.4f} ms, "
+          f"host syncs {c5_syncs}; batched rays device {c5_batch_rays[0]:.4f} ms, one call "
+          f"{c5_batch_rays[1]:.4f} ms; batched K1 device {c5_batch_k1:.4f} ms; peak device "
+          f"memory above the resident tensors: batch {c5_peak['batch']:.1f} MiB, per-view loop "
+          f"{c5_peak['per-view loop']:.1f} MiB; K1 one view: device {c5_view_dev:.4f} ms, one "
+          f"call {c5_view_ms:.4f} ms; its rays {c5_rays_ms:.4f} ms; its marched steps skipped "
           f"{c5_skipped / c5_marched:.4f} of {c5_marched}; occupancy table ({VOL5}^3) device "
           f"{occ5_ms[0]:.4f} ms, one call {occ5_ms[1]:.4f} ms; K8 device {k8_dev:.4f} ms",
           flush=True)
@@ -2064,8 +2160,6 @@ def main() -> int:
     # in tests/test_torch_parallel.py)
     import torch.distributed as dist
 
-    from vokselis_torch.parallel import sharding
-
     t_phase = time.perf_counter()
     torch.cuda.set_device(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2091,14 +2185,18 @@ def main() -> int:
             torch.cuda.synchronize()
             path_s = time.perf_counter() - t0
             mesh_launches = launches()
-            check(mesh_launches == only(K1=2 * VIEWS + 1),
-                  f"multi-device path launched {mesh_launches}, not K1 x {2 * VIEWS + 1} only")
-            # each view and the frame against a single-device K1 call on the same uniform
+            check(mesh_launches == only(K1=3),
+                  f"multi-device path launched {mesh_launches}, not K1 x 3 (views, frame, step)")
+            # the views against the single-device batched render and single-view
+            # K1 calls on the same uniforms; the frame against a K1 call
+            batched = render(pack, cams, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI)
             singles = [render(pack, c, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI) for c in cams]
             eye, dxyz = geometry.rays_fragment_soa(bench_u, RES, RES)
             frame_k1 = mb.render_bonsai_rays_cuda(vol_bonsai, eye, dxyz)
             check(tuple(views_img.shape) == (VIEWS, VIEW_RES, VIEW_RES, 4),
                   f"gathered views {tuple(views_img.shape)}")
+            check(torch.equal(views_img, batched),
+                  "the sharded views differ from the single-device batched render")
             views_equal = sum(bool(torch.equal(views_img[i], singles[i])) for i in range(VIEWS))
             check(views_equal == VIEWS, f"only {views_equal}/{VIEWS} sharded views equal K1's")
             check(torch.equal(step_img, views_img), "multi_view_step differs from the views")
@@ -2109,16 +2207,18 @@ def main() -> int:
             check(bool(torch.isfinite(views_img).all()) and v_lit > 0.01,
                   f"a sharded view is not finite or shows nothing (least lit {v_lit:.4f})")
             # times, each a median of CUDA-event walls over rounds that call the
-            # compared functions in turn: the sharded batch against the same
-            # views one by one; the row-sharded frame against one K1 frame
-            # with its rays, and its parts (rays, the band's march, the
-            # all-gather, the overflow all-reduce)
+            # compared functions in turn: the sharded batch against the
+            # single-device batch and the same views one by one; the
+            # row-sharded frame against one K1 frame with its rays, and its
+            # parts (rays, the band's march, the all-gather, the overflow
+            # all-reduce)
             pair_ms = interleaved_ms({
                 "sharded": lambda: sharding.render_views_sharded(
                     mesh, render, pack, cams, VIEW_RES, VIEW_RES, max_steps=MAX_STEPS_BONSAI,
                     gather=True),
-                "single": lambda: [render(pack, c, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI)
-                                   for c in cams],
+                "single": lambda: render(pack, cams, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI),
+                "loop": lambda: [render(pack, c, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI)
+                                 for c in cams],
             }, MESH_BATCH_ROUNDS, torch)
             group = mesh.get_group("tiles")
 
@@ -2157,21 +2257,24 @@ def main() -> int:
             default_group_ok = dist.get_backend()
         finally:
             dist.destroy_process_group()
-    del views_img, step_img, singles
-    shard_ms, single_ms = pair_ms["sharded"], pair_ms["single"]
+    del views_img, step_img, singles, batched
+    shard_ms, single_ms, loop_ms = pair_ms["sharded"], pair_ms["single"], pair_ms["loop"]
     tiled_ms, one_frame_ms = frame_ms["tiled"], frame_ms["single"]
     parts = {k: frame_ms[k] for k in ("rays", "march", "all_gather", "all_reduce")}
     mesh_times = {"views_sharded_ms": shard_ms, "views_single_ms": single_ms,
+                  "views_loop_ms": loop_ms,
                   "frame_tiled_ms": tiled_ms, "frame_single_ms": one_frame_ms,
                   "frame_parts_ms": parts}
     print(f"phase 4h multi-device ({card}; NCCL world 1, mesh (views 1, tiles 1)): "
           f"render_views_sharded {VIEWS} orbit views {VIEW_RES}^2 gathered, render_frame_tiled "
           f"{RES}^2 bench pose, multi_view_step {VIEWS} views in {path_s:.2f} s, launches "
-          f"{mesh_launches}; every view, the frame and the step bitwise equal to single-device "
-          f"K1 calls, overflow {int(ovf)}, least lit view {v_lit:.4f}; a default-backend group "
+          f"{mesh_launches}; the views bitwise equal to the single-device batched render and "
+          f"to single-view K1 calls, the step to the views, the frame to a K1 call, overflow "
+          f"{int(ovf)}, least lit view {v_lit:.4f}; a default-backend group "
           f"(get_backend() {default_group_ok!r}) meshes on {dev} and its frame is K1's; "
           f"medians of {MESH_BATCH_ROUNDS} interleaved rounds: sharded batch {shard_ms:.3f} ms "
-          f"vs {VIEWS} single-device views {single_ms:.3f} ms ({shard_ms / single_ms:.3f}x); "
+          f"vs the single-device batch {single_ms:.3f} ms ({shard_ms / single_ms:.3f}x) and "
+          f"{VIEWS} views one by one {loop_ms:.3f} ms; "
           f"of {MESH_FRAME_ROUNDS}: row-sharded frame {tiled_ms:.4f} ms vs one K1 frame with "
           f"its rays {one_frame_ms:.4f} ms ({tiled_ms / one_frame_ms:.3f}x); its parts rays "
           f"{parts['rays']:.4f}, march {parts['march']:.4f}, all_gather {parts['all_gather']:.4f}, "
@@ -2351,7 +2454,11 @@ def main() -> int:
              launches_multi_device=mesh_launches["K1"], multi_device=mesh_times,
              launches_config4=orbit_launches["K1"], config4_ms=orbit_ms,
              config4_device_ms=orbit_k1_dev, launches_config5=c5f_launches["K1"],
-             config5={"batch_ms": c5_ms, "view_device_ms": c5_view_dev,
+             config5={"batch_ms": c5_ms, "per_view_loop_ms": c5_pair["per-view loop"],
+                      "batch_device_ms": c5_dev, "batch_host_syncs": c5_syncs,
+                      "batch_rays_device_ms": c5_batch_rays[0],
+                      "batch_rays_call_ms": c5_batch_rays[1], "batch_k1_device_ms": c5_batch_k1,
+                      "peak_mib": c5_peak, "view_device_ms": c5_view_dev,
                       "view_call_ms": c5_view_ms},
              launches_dense=dense_launches["K1"],
              dense={"device_ms": dense_dev, "frame_ms": dense_ms,

@@ -208,13 +208,14 @@ def test_pass_timer_reports_on_cpu(capsys):
 
 
 def test_orbit_camera_batch_matches_jax():
-    """One uniform per view, equal to the JAX package's stacked batch."""
+    """One batched uniform, as the JAX package's stacked batch; each view
+    equal to that batch's."""
     pytest.importorskip("jax")
     from vokselis_tpu.parallel.sharding import orbit_camera_batch as jax_batch
 
     views = orbit_camera_batch(6, device="cpu")
     ref = jax_batch(6)
-    assert len(views) == 6
+    assert views.batched and len(views) == 6
     for i, u in enumerate(views):
         for name in ("view_position", "proj_view", "inv_proj"):
             np.testing.assert_allclose(getattr(u, name).numpy(),

@@ -80,21 +80,55 @@ def perspective_rh(fovy: float, aspect: float, znear: float, zfar: float):
 @dataclass
 class CameraUniform:
     """Device-side camera payload (mirrors CameraUniform, src/camera.rs:7-21):
-    three float32 tensors on one device."""
+    three float32 tensors on one device.
 
-    view_position: torch.Tensor  # (4,)  eye.xyz, 1
-    proj_view: torch.Tensor  # (4, 4) row-major
+    A batch of views carries a leading (V,) axis on each tensor, as the JAX
+    package's stacked pytree does (``vokselis_tpu/parallel/sharding.py``
+    ``orbit_camera_batch``): :meth:`stack` builds one, ``len`` counts its
+    views, an int index gives one view's unbatched uniform and a slice a
+    batch of a block of views."""
+
+    view_position: torch.Tensor  # (4,) eye.xyz, 1; (V, 4) batched
+    proj_view: torch.Tensor  # (4, 4) row-major; (V, 4, 4) batched
     inv_proj: torch.Tensor  # (4, 4) inverse of proj_view (name kept from reference)
 
     @classmethod
     def from_numpy(cls, view_position, proj_view, inv_proj, device):
-        """Upload host arrays (e.g. another renderer's camera state) as the
-        float32 payload on ``device``."""
+        """Upload host arrays (e.g. another renderer's camera state, one view
+        or a stacked batch) as the float32 payload on ``device``."""
 
         def up(x):
             return torch.tensor(np.asarray(x, np.float32), device=device)
 
         return cls(up(view_position), up(proj_view), up(inv_proj))
+
+    @classmethod
+    def stack(cls, uniforms):
+        """One batched uniform of the unbatched ``uniforms``, in order."""
+        uniforms = list(uniforms)
+        if not uniforms or any(u.batched for u in uniforms):
+            raise ValueError("stack takes one or more unbatched uniforms")
+        return cls(*(torch.stack([getattr(u, name) for u in uniforms])
+                     for name in ("view_position", "proj_view", "inv_proj")))
+
+    @property
+    def batched(self) -> bool:
+        """Whether the tensors carry a leading view axis."""
+        return self.view_position.ndim == 2
+
+    def __len__(self) -> int:
+        if not self.batched:
+            raise TypeError("an unbatched CameraUniform has no len()")
+        return self.view_position.shape[0]
+
+    def __getitem__(self, index):
+        if not self.batched:
+            raise TypeError("an unbatched CameraUniform cannot be indexed")
+        return CameraUniform(self.view_position[index], self.proj_view[index],
+                             self.inv_proj[index])
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
 
     @classmethod
     def identity(cls, device):

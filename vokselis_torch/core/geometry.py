@@ -52,8 +52,13 @@ def mat4_apply(m, x, y, z, w=1.0):
     arithmetic, never a matmul: a reduced-precision product (TF32 on the
     card) destroys the tiny clip-space w of far-plane points.
 
-    Returns four tensors (X, Y, Z, W) broadcast over the inputs.
+    ``m`` (4, 4), or (V, 4, 4) for a batch of views, whose entries then
+    broadcast as (V, 1, 1) against (H, W) planes: each view's values are
+    bitwise those of its own (4, 4) matrix. Returns four tensors (X, Y, Z,
+    W) broadcast over the inputs.
     """
+    if m.ndim == 3:
+        m = m.permute(1, 2, 0)[..., None, None]
     return [m[i, 0] * x + m[i, 1] * y + m[i, 2] * z + m[i, 3] * w
             for i in range(4)]
 
@@ -98,19 +103,22 @@ def rays_fragment(camera_uniform, width: int, height: int):
 
 def rays_fragment_soa(camera_uniform, width: int, height: int):
     """SoA variant of :func:`rays_fragment` — the form the march kernel
-    reads: returns (eye (3,), (dx, dy, dz) each (H, W))."""
+    reads: returns (eye (3,), (dx, dy, dz) each (H, W)); for a batched
+    uniform (the JAX package's ``vmap`` of this function) eye (V, 3) and
+    each plane (V, H, W), every view bitwise its own uniform's rays. The
+    depths are Python floats, so no scalar is uploaded to the device."""
     inv = camera_uniform.inv_proj
     ndc_x, ndc_y = _ndc(width, height, inv.device)
-    zero = torch.tensor(0.0, dtype=torch.float32, device=inv.device)
-    one = torch.tensor(1.0, dtype=torch.float32, device=inv.device)
-    nx, ny, nz, nw = mat4_apply(inv, ndc_x, ndc_y, zero)
-    fx, fy, fz, fw = mat4_apply(inv, ndc_x, ndc_y, one)
+    nx, ny, nz, nw = mat4_apply(inv, ndc_x, ndc_y, 0.0)
+    fx, fy, fz, fw = mat4_apply(inv, ndc_x, ndc_y, 1.0)
     dx = fx / fw - nx / nw
     dy = fy / fw - ny / nw
     dz = fz / fw - nz / nw
     inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
-    return camera_uniform.view_position[:3], (dx * inv_len, dy * inv_len,
-                                              dz * inv_len)
+    # a batch's (V, 4) view positions sliced to (V, 3) are strided: the
+    # kernel reads eye v at 3 v
+    eye = camera_uniform.view_position[..., :3].contiguous()
+    return eye, (dx * inv_len, dy * inv_len, dz * inv_len)
 
 
 def intersect_box_soa(ex, ey, ez, dx, dy, dz, box_min: float, box_max: float):

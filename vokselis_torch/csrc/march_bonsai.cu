@@ -2,7 +2,9 @@
 // thread per pixel, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel vokselis_tpu/ops/pallas/march_bonsai.py:_march_kernel
-// (launched by render_bonsai_rays_pallas). It computes what that kernel and
+// (launched by render_bonsai_rays_pallas; the JAX package's view batches vmap
+// it, which puts a view axis on its grid: here the grid's z, so that a batch
+// of views is one launch). It computes what that kernel and
 // the oracle vokselis_torch/ops/reference.py:render_bonsai_rays compute, for
 // each pixel (shaders/raycast_naive.wgsl fs_main, :84-125):
 //   1. clip the ray to the [0,1]^3 box (slab test);
@@ -266,8 +268,11 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
   const int ix = blockIdx.x * BLOCK_X + threadIdx.x;
   const int iy = blockIdx.y * BLOCK_Y + threadIdx.y;
   if (ix >= width || iy >= height) return;
-  const size_t pix = (size_t)iy * width + ix;
-  float3 c = march_ray<false>(vol, occ, dims, __ldg(eye), __ldg(eye + 1), __ldg(eye + 2),
+  // view blockIdx.z of the batch: its eye, ray planes and output frame
+  const size_t v = blockIdx.z;
+  const float* e = eye + 3 * v;
+  const size_t pix = v * height * width + (size_t)iy * width + ix;
+  float3 c = march_ray<false>(vol, occ, dims, __ldg(e), __ldg(e + 1), __ldg(e + 2),
                               dxs[pix], dys[pix], dzs[pix], max_steps);
   if (srgb) {
     c.x = linear_to_srgb(c.x);
@@ -335,19 +340,23 @@ const char* vk_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches the march on `stream` and returns the cudaError_t of the launch
-// (0 on success). All pointers are device pointers: vol (dims^3 uint8,
-// [z][y][x]), occ (cells^3 uint8, cells = ceil(dims / 8), [z][y][x]: the
-// occupancy table), dx/dy/dz (height*width float32 each), eye (3 float32),
-// out (height*width*4 float32, 16-byte aligned).
+// Launches the march of n_views views on `stream` and returns the
+// cudaError_t of the launch (0 on success). All pointers are device
+// pointers: vol (dims^3 uint8, [z][y][x]), occ (cells^3 uint8, cells =
+// ceil(dims / 8), [z][y][x]: the occupancy table, one for every view),
+// dx/dy/dz (n_views*height*width float32 each, view-major), eye (n_views*3
+// float32), out (n_views*height*width*4 float32, 16-byte aligned). The view
+// is the grid's z (at most 65535), so each view's blocks and pixels are a
+// single-view launch's, bit for bit.
 int vk_march_bonsai(const void* vol, const void* occ, int dims, const void* dx, const void* dy,
-                    const void* dz, const void* eye, int height, int width,
+                    const void* dz, const void* eye, int n_views, int height, int width,
                     int max_steps, int srgb, void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (height <= 0 || width <= 0) return (int)cudaSuccess;
+  if (n_views <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
+  if (n_views > 65535) return (int)cudaErrorInvalidValue;
   const dim3 block(BLOCK_X, BLOCK_Y);
-  const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
+  const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y, n_views);
   march_bonsai_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)vol, (const uint8_t*)occ, dims, (const float*)dx, (const float*)dy,
       (const float*)dz, (const float*)eye, height, width, max_steps, srgb, (float*)out);

@@ -37,7 +37,8 @@ CONTRACT = 1e-3  # the hybrid's per-pose mean |hybrid - exact| over rgb
 
 def orbit_poses(n_poses: int = N_POSES, width: int = WIDTH, height: int = HEIGHT, *,
                 device="cuda"):
-    """``bench_bonsai_orbit``'s camera path: one uniform per pose on ``device``."""
+    """``bench_bonsai_orbit``'s camera path: the poses' batched uniform on
+    ``device`` (index it for one pose's)."""
     return orbit_camera_batch(n_poses, aspect=width / height, device=device)
 
 
@@ -59,7 +60,10 @@ class OrbitFrames:
 
     @property
     def degenerate(self) -> list:
-        """The poses that the hybrid did not render as a hybrid frame."""
+        """The poses whose route is not "hybrid": those K1 rendered ("exact",
+        "dense") and those whose hybrid frame escalated to a larger
+        intermediate ("escalated", still a hybrid frame). At config 4's
+        I=1024 nothing escalates, so these are the poses K1 rendered."""
         return [i for i, r in enumerate(self.routes) if r[0] != "hybrid"]
 
     @property
@@ -72,8 +76,9 @@ class OrbitFrames:
 class BonsaiOrbit:
     """Config 4's renderers over one volume: ``exact`` (K1) and ``hybrid``
     (K34, K5 and K2; K1 at degenerate poses), both on ``device``, and the
-    orbit's ``poses`` (the caller's uniforms, by default :func:`orbit_poses`
-    at this frame). ``vol``: a (D, D, D) uint8 volume, by default the 256^3
+    orbit's ``poses``, a list of one uniform per pose (the caller's uniforms
+    or batch, by default :func:`orbit_poses` at this frame): each pose
+    routes on its own. ``vol``: a (D, D, D) uint8 volume, by default the 256^3
     bonsai."""
 
     def __init__(self, vol=None, device="cuda", width: int = WIDTH, height: int = HEIGHT,
@@ -83,8 +88,8 @@ class BonsaiOrbit:
         self.hybrid = HybridBonsaiRenderer(get_bonsai() if vol is None else vol, self.device,
                                            intermediate=intermediate, budget=budget)
         self.exact = self.hybrid.exact
-        self.poses = (orbit_poses(N_POSES, width, height, device=self.device)
-                      if poses is None else list(poses))
+        self.poses = list(orbit_poses(N_POSES, width, height, device=self.device)
+                          if poses is None else poses)
 
     @torch.no_grad()
     def __call__(self) -> OrbitFrames:

@@ -4,8 +4,11 @@ batch (the counterpart of ``bench.py:312-371``, ``bench_views_512``).
 Each batch step regenerates the u8 density on the device at t = 0.3 b (K8,
 :func:`vokselis_torch.ops.cuda.genvol.generate_density_u8`, the reference's
 per-update compute fill) and renders ``n_views`` orbit views of it with the
-exact march (K1, whose first launch on the new volume builds its occupancy
-table), each ray allowed the full diagonal of steps. With a ``mesh``
+exact march, each ray allowed the full diagonal of steps: one ray pass over
+the batched uniform of the views and one K1 launch for all of them (whose
+occupancy table of the new volume is built first), the counterpart of the
+JAX package's ``vmap`` of its render. The step uploads nothing from the host
+(t is filled on the device), so it can be captured in a CUDA graph. With a ``mesh``
 (:func:`vokselis_torch.parallel.make_mesh`) the views are sharded over its
 'views' dimension (:func:`vokselis_torch.parallel.render_views_sharded`), as
 ``bench.py`` shards them over the JAX mesh. The TPU's slab-layout repack has
@@ -41,7 +44,7 @@ class ViewsBatch:
     """Config 5's batch step over ``n_views`` orbit views (aspect 1) at
     ``view_res``^2 of a ``dims``^3 volume, on ``device``, or on ``mesh``'s
     device with the views sharded over its 'views' dimension (each rank then
-    returns its block of views)."""
+    returns its block of views). ``cams`` is the views' batched uniform."""
 
     def __init__(self, n_views: int = N_VIEWS, view_res: int = VIEW_RES, dims: int = DIMS,
                  device="cuda", mesh=None):
@@ -56,10 +59,11 @@ class ViewsBatch:
         """Batch step ``b``: ``(volume, views)``, the (D, D, D) uint8 volume
         and the (n, view_res, view_res, 4) float32 frames (with a mesh, this
         rank's block of them)."""
-        vol = generate_density_u8(0.3 * b, self.dims, self.device)  # bench.py:348-350
+        t = torch.full((), 0.3 * b, dtype=torch.float32, device=self.device)
+        vol = generate_density_u8(t, self.dims)  # bench.py:348-350
         render, pack = build_default_renderer(vol, self.device)
         res, steps = self.view_res, self.max_steps
         if self.mesh is not None:
             return vol, render_views_sharded(self.mesh, render, pack, self.cams, res, res,
                                              max_steps=steps)
-        return vol, torch.stack([render(pack, c, res, res, steps) for c in self.cams])
+        return vol, render(pack, self.cams, res, res, steps)

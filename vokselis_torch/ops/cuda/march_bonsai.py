@@ -50,6 +50,9 @@ SOURCE = CSRC / "march_bonsai.cu"
 OCC_CELL = 8
 OCC_CUT = 25
 
+# K1's views a launch: the grid's z extent
+MAX_VIEWS = 65535
+
 LAUNCHES = 0
 LAUNCHES_TILES = 0
 LAUNCHES_TILES_COMPACT = 0
@@ -66,7 +69,7 @@ def build() -> ctypes.CDLL:
         return _lib
     lib, BUILD_LOG = load_library(SOURCE, NVCC_FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vk_march_bonsai.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, i, p]
+    lib.vk_march_bonsai.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, p, i, p]
     lib.vk_march_bonsai.restype = i
     lib.vk_march_tiles.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, p]
     lib.vk_march_tiles.restype = i
@@ -146,13 +149,18 @@ def _check_inputs(vol, eye, dx, dy, dz, max_steps):
         raise TypeError(f"vol must be uint8, got {vol.dtype}")
     if vol.ndim != 3 or len(set(vol.shape)) != 1:
         raise ValueError(f"vol must be a cubic (D, D, D) volume, got {tuple(vol.shape)}")
-    if eye.dtype != torch.float32 or tuple(eye.shape) != (3,):
-        raise TypeError(f"eye must be a (3,) float32 tensor, got {eye.dtype} {tuple(eye.shape)}")
+    if eye.dtype != torch.float32 or eye.ndim not in (1, 2) or eye.shape[-1] != 3:
+        raise TypeError("eye must be a (3,) or (V, 3) float32 tensor, got "
+                        f"{eye.dtype} {tuple(eye.shape)}")
+    views = tuple(eye.shape[:-1])
+    if views and not 1 <= views[0] <= MAX_VIEWS:
+        raise ValueError(f"a batch holds 1 to {MAX_VIEWS} views, got {views[0]}")
     for name, t in (("dx", dx), ("dy", dy), ("dz", dz)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.ndim != 2 or t.shape != dx.shape:
-            raise ValueError(f"{name} must be (H, W) like dx, got {tuple(t.shape)}")
+        if t.shape != dx.shape or tuple(t.shape[:-2]) != views or t.ndim != len(views) + 2:
+            raise ValueError(f"{name} must be (H, W) for a (3,) eye, (V, H, W) for a (V, 3) "
+                             f"one, like dx, got {tuple(t.shape)} for eye {tuple(eye.shape)}")
     if not isinstance(max_steps, int) or max_steps < 0:
         raise ValueError(f"max_steps must be a non-negative int, got {max_steps!r}")
 
@@ -161,35 +169,49 @@ def _check_inputs(vol, eye, dx, dy, dz, max_steps):
 def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
                             srgb: bool = True):
     """March SoA rays through a uint8 volume — the counterpart of
-    ``render_bonsai_rays_pallas``.
+    ``render_bonsai_rays_pallas``, and of its ``vmap`` over a batch of views.
 
     ``vol``: (D, D, D) uint8 [z, y, x]; ``eye``: (3,) float32; ``dxyz``:
-    (dx, dy, dz), each (H, W) float32 and normalized; all contiguous and on
-    one device. Returns the (H, W, 4) float32 image (sRGB-encoded rgb when
-    ``srgb``, alpha 1). CUDA tensors launch the kernel, which skips empty
-    space over :func:`volume_occupancy`; CPU tensors take the plain version.
+    (dx, dy, dz), each (H, W) float32 and normalized; or a batch of V views,
+    ``eye`` (V, 3) and each plane (V, H, W); all contiguous and on one
+    device. Returns the (H, W, 4), or (V, H, W, 4), float32 image (sRGB-encoded
+    rgb when ``srgb``, alpha 1). CUDA tensors launch the kernel once for all
+    views, skipping empty space over :func:`volume_occupancy`; CPU tensors
+    take :func:`render_bonsai_rays_plain`.
     """
     global LAUNCHES
     dx, dy, dz = dxyz
     _check_inputs(vol, eye, dx, dy, dz, max_steps)
     if vol.device.type == "cpu":
-        return reference.render_bonsai_rays(
-            vol, eye, torch.stack([dx, dy, dz], dim=-1),
-            max_steps=max_steps, srgb=srgb,
-        )
+        return render_bonsai_rays_plain(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
     occ = volume_occupancy(vol)
     lib = build()
-    height, width = dx.shape
-    out = torch.empty((height, width, 4), dtype=torch.float32, device=vol.device)
+    n_views = eye.shape[0] if eye.ndim == 2 else 1
+    out = torch.empty(tuple(dx.shape) + (4,), dtype=torch.float32, device=vol.device)
     err = lib.vk_march_bonsai(
         vol.data_ptr(), occ.data_ptr(), vol.shape[0], dx.data_ptr(), dy.data_ptr(),
-        dz.data_ptr(), eye.data_ptr(), height, width, max_steps, int(srgb),
-        out.data_ptr(), vol.device.index,
+        dz.data_ptr(), eye.data_ptr(), n_views, dx.shape[-2], dx.shape[-1], max_steps,
+        int(srgb), out.data_ptr(), vol.device.index,
         torch.cuda.current_stream(vol.device).cuda_stream,
     )
     check_launch(lib, err, "march_bonsai")
     LAUNCHES += 1
     return out
+
+
+@torch.no_grad()
+def render_bonsai_rays_plain(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
+                             srgb: bool = True):
+    """Plain torch version of K1, for the inputs of
+    :func:`render_bonsai_rays_cuda`: :func:`reference.render_bonsai_rays`,
+    of each view in turn for a batch."""
+    dx, dy, dz = dxyz
+    _check_inputs(vol, eye, dx, dy, dz, max_steps)
+    dirs = torch.stack([dx, dy, dz], dim=-1)
+    if eye.ndim == 1:
+        return reference.render_bonsai_rays(vol, eye, dirs, max_steps=max_steps, srgb=srgb)
+    return torch.stack([reference.render_bonsai_rays(vol, e, d, max_steps=max_steps, srgb=srgb)
+                        for e, d in zip(eye, dirs)])
 
 
 def tile_rays_compact(camera_uniform, unit_ids, width: int, height: int,
@@ -408,7 +430,8 @@ class BonsaiRenderer:
         srgb: bool = True,
         strict: bool = False,
     ):
-        """Render one frame. ``strict`` is accepted for API parity and does
+        """Render one frame, or (V, H, W, 4) frames of a batched uniform's
+        views in one launch. ``strict`` is accepted for API parity and does
         nothing: every pixel of this kernel is exact, there is no window
         overflow to re-render."""
         eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
@@ -419,7 +442,10 @@ class BonsaiRenderer:
 def build_renderer(vol_u8, device, with_overflow: bool = False):
     """Functional API: returns (render_fn, pack) where
     ``render_fn(pack, camera_uniform, width, height, max_steps=, srgb=)``
-    renders a frame and ``pack`` is the volume tensor on ``device``.
+    renders a frame and ``pack`` is the volume tensor on ``device``. A
+    batched ``camera_uniform`` renders its V views as (V, H, W, 4) with one
+    ray pass and one K1 launch: the counterpart of the JAX package's
+    ``vmap`` of its render over a view batch.
     ``with_overflow=True`` makes render_fn return ``(img, 0)``: the kernel
     has no window that could overflow."""
     pack = volume_tensor(vol_u8, device)

@@ -9,9 +9,11 @@ cards, gloo on the CPU) and :func:`make_mesh` lays a
 with the same two dimension names, over its ranks:
 
 - BASELINE.json config 5 (batched 64-view rendering) -> data parallelism
-  over 'views': each rank renders its contiguous block of the views with
-  the unchanged single-device renderer (``P("views")``); ``gather=True``
-  all-gathers the frames over the 'views' group, so every rank holds all;
+  over 'views': each rank renders its contiguous block of a batched camera
+  uniform with one call of the unchanged single-device renderer, one ray
+  pass and one K1 launch for the block (the JAX package's ``vmap`` under
+  ``P("views")``); ``gather=True`` all-gathers the frames over the 'views'
+  group, so every rank holds all;
 - image-space tile sharding -> each 'tiles' rank marches its band of frame
   ROWS (rays are independent: no halo exchange); an all-gather over the
   'tiles' group assembles the frame, an all-reduce the overflow count.
@@ -84,21 +86,22 @@ def mesh_device(mesh) -> torch.device:
 
 
 def orbit_camera_batch(n_views: int, target=(0.5, 0.5, 0.5), zoom=1.0, pitch=0.5,
-                       aspect=1.0, *, device) -> list[CameraUniform]:
+                       aspect=1.0, *, device) -> CameraUniform:
     """N cameras orbiting the target in yaw — BASELINE config 5's batched
-    views (and config 4's orbiting camera, sampled at n frames): the
-    uniform of view i at yaw 2 pi i / n, on ``device``. (The JAX package
-    stacks them into one pytree with a batch axis; the port keeps one
-    :class:`CameraUniform` per view.)"""
-    return [Camera(zoom=zoom, pitch=pitch, yaw=2.0 * math.pi * i / n_views, target=target,
-                   aspect=aspect).uniform(device)
-            for i in range(n_views)]
+    views (and config 4's orbiting camera, sampled at n frames): one
+    :class:`CameraUniform` on ``device`` with a leading (n_views,) batch
+    axis, view i at yaw 2 pi i / n, as the JAX package's pytree."""
+    return CameraUniform.stack(
+        Camera(zoom=zoom, pitch=pitch, yaw=2.0 * math.pi * i / n_views, target=target,
+               aspect=aspect).uniform(device)
+        for i in range(n_views))
 
 
 def build_default_renderer(vol_u8, device):
     """``(render, pack)`` with ``render(pack, camera_uniform, width, height,
     max_steps)``: :func:`march_bonsai.build_renderer`, K1 on a CUDA
-    ``device`` and its plain version on the CPU."""
+    ``device`` and its plain version on the CPU; a batched uniform renders
+    all its views in one call."""
     return march_bonsai.build_renderer(vol_u8, device)
 
 
@@ -114,18 +117,19 @@ def render_views_sharded(mesh, render, pack, cams, width: int, height: int,
                          max_steps: int = 64, gather: bool = False):
     """Render a batch of views, sharded over the mesh's 'views' dimension.
 
-    ``(render, pack)``: a renderer pair (:func:`build_default_renderer`);
-    ``cams``: one uniform per view, their number a multiple of the 'views'
-    size. Each rank renders its contiguous block (ranks along 'tiles' render
-    the same block) and returns it as (block, H, W, 4); with ``gather=True``
-    every rank returns all views, (n_views, H, W, 4)."""
+    ``(render, pack)``: a renderer pair (:func:`build_default_renderer`)
+    whose render takes a batched uniform; ``cams``: a batched
+    :class:`CameraUniform` (:func:`orbit_camera_batch`), its number of views
+    a multiple of the 'views' size. Each rank renders its contiguous block
+    in one call (ranks along 'tiles' render the same block) and returns it
+    as (block, H, W, 4); with ``gather=True`` every rank returns all views,
+    (n_views, H, W, 4)."""
     n_ranks = _dim_size(mesh, "views")
     if len(cams) % n_ranks:
         raise ValueError(f"{len(cams)} views do not split over {n_ranks} ranks")
     per = len(cams) // n_ranks
     rank = mesh.get_local_rank("views")
-    imgs = torch.stack([render(pack, c, width, height, max_steps)
-                        for c in cams[rank * per:(rank + 1) * per]])
+    imgs = render(pack, cams[rank * per:(rank + 1) * per], width, height, max_steps)
     if gather:
         imgs = _all_gather(imgs, mesh.get_group("views"))
     return imgs
@@ -181,8 +185,8 @@ def render_frame_tiled(mesh, vol, cam: CameraUniform, width: int, height: int,
 
 def multi_view_step(mesh, vol, n_views: int, width: int, height: int, max_steps: int = 32,
                     gather: bool = True, renderer=None):
-    """The full multi-device 'step': orbit cameras -> view-sharded render ->
-    gathered frames. ``renderer``: optional ``(render, pack)``; by default
+    """The full multi-device 'step': a batched orbit uniform -> view-sharded
+    render (one K1 launch a rank) -> gathered frames. ``renderer``: optional ``(render, pack)``; by default
     :func:`build_default_renderer` of ``vol`` on this rank's device."""
     device = mesh_device(mesh)
     render, pack = renderer if renderer is not None else build_default_renderer(vol, device)
