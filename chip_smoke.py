@@ -58,6 +58,14 @@ Phases, each reported on its own lines:
      volumes) at 256^3, t = 0 and 1.25, and K8 (the u8 density) at 512^3
      and 100^3, t = 0, 1.25 and +-pi/2 (sin t = +-1), equal (test_pallas.py's
      K9 tolerances printed beside);
+  (the renderers, present and the demos' frames replay CUDA graphs, one per
+  static key (vokselis_torch/engine/compiled.py): a replay calls no kernel
+  wrapper, so phases 3-4m require each path kernel's wrapper, and no other,
+  to have counted launches (the graph's warm-up and capture), and phase 4n
+  runs each of those paths again under a torch.profiler trace, which counts
+  the kernels by their __global__ names, once per frame as before; 4i and
+  4j count theirs in traces too. No profiler runs before phase 5's timings:
+  the host's launches run slower after a profiler session)
   4. the exact main path: engine.loop.run(BonsaiDemo) for 8 frames at
      1024x1024 on "cuda", which must launch K1 once per frame (and no fast
      kernel) and end in a finite, non-background frame that agrees with the
@@ -105,8 +113,23 @@ Phases, each reported on its own lines:
      512^2): K8 once, K1 once (one ray pass over the batched uniform); the
      volume equal to K8's plain version, all 64 views bitwise equal to 64
      single-view K1 launches, the last view bitwise K1's plain version;
-  (phases 4h-4k run after phase 5, so that phase 5 times the frames in the
-  process state of the earlier phases)
+  4n. compiled frames: the main paths of phases 3-4m again under a device
+     trace, each kernel once per frame; the exact frame at 1024^2 and
+     1920x1080, the fast frame at I=256 and I=512, the hybrid at I=512 / budget 128 (and its
+     escalated route at I=768), at I=1024 / budget 64 (and its functional
+     builder's degraded flag), the xor frame at 1280x720 (3 poses x 2
+     times), the trig raster at 512^2 (with Context.update), present with
+     its three filters, config 4's orbit (a second pass) and config-5
+     batches 1 and 2: one capture per static key; every replay, at 3 poses
+     of which the fast frame's dominant axis and marching sign change,
+     bitwise equal to the eager frame on the same uniform and time; 0 host
+     syncs per replay, per route and per Context.update; the replays'
+     kernels from the device trace (K1 once in an exact frame, K34 + K6 in
+     a fast one, K34 + K5 + K2 in a hybrid one, K7 in xor, K8 + K1 in a
+     config-5 batch); each renderer's graph pool (MiB);
+  (phases 4h-4k and 4n run after phase 5, in the order 4h, 4n, 4i, 4j, 4k,
+  so that phase 5 times the frames in the process state of the earlier
+  phases)
   4h. multi-device (vokselis_torch.parallel.sharding) over an NCCL process
      group of world size 1 (one card), the (views 1, tiles 1) mesh:
      render_views_sharded of 64 orbit views at 512^2 (config 5's views)
@@ -119,11 +142,12 @@ Phases, each reported on its own lines:
   4i. hot reload of K7: XorDemo at 512^2 on a copy of march_field.cu and its
      headers in a temporary directory, Context(watch=True), the watcher
      driven by poll_once: an edited shading constant rebuilds (nvcc) into a
-     new library and changes the frame; a syntax error returns nvcc's
-     diagnostics and the next frame is bitwise the last good one; the
-     restored source gives the unedited K7 frame bitwise; rebuild seconds;
+     new library, drops the frame's graph and changes the replayed frame; a
+     syntax error returns nvcc's diagnostics and the next frame is bitwise
+     the last good one; the restored source gives the unedited K7 frame
+     bitwise; rebuild seconds;
   4j. scene state: save after 2 exact frames at 1024^2, orbit 2 more,
-     restore, and the next frame is bitwise the saved one; profiler.trace
+     restore, and the next frame (a replay) is bitwise the saved one; profiler.trace
      around one exact frame names K1's kernel; present(filter="quadratic"
      and "bicubic") on the card against the CPU, upscaled and at the same
      size, within 1e-5;
@@ -149,7 +173,10 @@ Phases, each reported on its own lines:
      config-5 view, and the occupancy tables' build times; K34 at I=512
      and I=1024, both transfers, beside the K3 -> K4 pair on the same
      inputs, with its bound (the pack texels its composited samples tap)
-     and mean window; K6's and its
+     and mean window; each demo frame (exact, fast, hybrid, xor, trig),
+     config 4's exact and hybrid frames and the config-5 batch eager and
+     replayed in the same interleaved rounds, with the replayed frames'
+     host syncs (and the eager ones'), device busy ms and idle share; K6's and its
      grid_sample's replays (min / median / max); the peak device memory of
      a fast frame (I=512) and a hybrid call (I=1024), with K34 and with the
      pair in its place;
@@ -264,6 +291,20 @@ OPS_AXIS = 25
 OPS_HASH = 4
 OPS_MIX = 3
 XOR_RES = (1280, 720)  # the xor demo's backbuffer (HdrBackBuffer default)
+# each kernel's __global__ function, as a device trace names it: a replayed
+# CUDA graph calls no wrapper, so the paths' launches are counted from traces
+KERNEL_NAMES = {"K1": "march_bonsai_kernel", "K2": "march_tiles_kernel",
+                "K3": "resample_kernel", "K4": "composite_kernel",
+                "K34": "resample_composite_kernel", "K6": "warp_kernel",
+                "K5": "warp_stats_kernel", "K7": "march_field_kernel",
+                "K9": "genvol_kernel", "K8": "gendensity_kernel"}
+# phase 4n's poses: hybrid at I=512 and I=1024 at 1024^2 and 1920x1080, the
+# fast frame's (m, sgn) (0, +1), (2, -1), (1, +1); the escalated ones are
+# degenerate at I=512 but not at I=768 at 1024^2
+COMPILED_POSES = {"bench": dict(zoom=1.0, pitch=0.5, yaw=1.0),
+                  "yaw3": dict(zoom=1.0, pitch=0.5, yaw=3.0),
+                  "top": dict(zoom=1.0, pitch=1.2, yaw=0.3)}
+ESCALATED_POSES = [dict(zoom=1.0, pitch=-0.35, yaw=2 * math.pi * i / 8) for i in (1, 3, 5)]
 FIELD_RES = 512  # configs 1 and 2 (bench.py:442-444)
 K7_MAX, K7_MEAN = 5e-3, 1e-5  # test_pallas.py:41-58, K7 vs plain if not bitwise
 VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-371)
@@ -611,6 +652,11 @@ def main() -> int:
     args = parser.parse_args()
     t_start = time.perf_counter()
 
+    # torch.profiler's own setting for a program with CUDA graphs
+    # (torch/profiler/profiler.py): CUPTI stays up between the traces (its
+    # teardown and lazy re-initialization lose kernel records around graphs)
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
     import torch
 
     if not torch.cuda.is_available():
@@ -627,15 +673,16 @@ def main() -> int:
     from vokselis_torch.core.camera import Camera
     from vokselis_torch import native
     from vokselis_torch.engine import profiler
-    from vokselis_torch.engine.context import Context
+    from vokselis_torch.engine.context import Context, Presenter
     from vokselis_torch.engine.loop import run
     from vokselis_torch.engine.state import load_state, save_state
     from vokselis_torch.media.png import read_png, write_png
     from vokselis_torch.models import orbit as orbit_model
     from vokselis_torch.models.bonsai import BonsaiDemo
     from vokselis_torch.models.trig import TrigDemo
+    from vokselis_torch.models.trig import trig_frame as trig_eager_frame
     from vokselis_torch.models.views import ViewsBatch
-    from vokselis_torch.models.xor import XorDemo
+    from vokselis_torch.models.xor import FieldPipeline, XorDemo
     from vokselis_torch.ops import hybrid as hy
     from vokselis_torch.ops import reference, shear_warp
     from vokselis_torch.ops.cuda import build as kbuild
@@ -671,6 +718,44 @@ def main() -> int:
     def only(**counts):
         """The launch counts of a path that launches just these kernels."""
         return {k: counts.get(k, 0) for k in launches()}
+
+    def traced(fn):
+        """``fn()``'s result and the kernels it ran on the card, counted by
+        name in a torch.profiler trace (replayed graphs' included)."""
+        out, counts = profiler.kernel_launches(fn, list(KERNEL_NAMES.values()))
+        return out, {k: counts[v] for k, v in KERNEL_NAMES.items()}
+
+    def wrapped(counts):
+        """The kernels whose wrapper counted a launch (a compiled frame's
+        first call: its warm-up and its capture; a replay calls none)."""
+        return sorted(k for k, v in counts.items() if v)
+
+    def wrapper_check(name, counts, *kernels):
+        """A path's run: each of its kernels' wrappers counted launches (a
+        compiled frame's warm-up and capture), no other kernel's. Phase 4n
+        counts the kernels on the device, once per frame, in a trace of the
+        path run again (after phase 5, whose timings a profiler session
+        before them would slow)."""
+        check(wrapped(counts) == sorted(kernels),
+              f"{name}: the wrappers of {wrapped(counts)} counted launches, not {sorted(kernels)}")
+
+    def path_check(name, on_device, counts, **want):
+        """A path's kernels: once per frame on the device as ``want`` says,
+        none other, and each one's wrapper counted."""
+        check(on_device == only(**want) and wrapped(counts) == sorted(want),
+              f"{name} launched {on_device} on the device (wrappers {counts}), not "
+              f"{only(**want)}")
+
+    def synced(fn):
+        """``fn()``'s result and the host syncs it made."""
+        out = []
+        return out, host_syncs(lambda: out.append(fn()), torch)
+
+    def bitwise(a, b):
+        """Bitwise equal tensors, or tuples of them."""
+        if isinstance(a, tuple):
+            return all(bitwise(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
 
     # -- phase 1: device --------------------------------------------------
     card = card_line()
@@ -787,9 +872,8 @@ def main() -> int:
     bench_u = bench.uniform(dev)
     reset_launches()
     img_k = dense_r(bench_u, RES, RES)
-    torch.cuda.synchronize()
     dense_launches = launches()
-    check(dense_launches == only(K1=1), f"the dense frame launched {dense_launches}")
+    wrapper_check("the dense frame", dense_launches, "K1")
     eye, dxyz = geometry.rays_fragment_soa(bench_u, RES, RES)
     img_p = reference.render_bonsai_rays(dense_r.vol, eye, torch.stack(dxyz, dim=-1))
     mx, mean = rgb_err(img_k, img_p)
@@ -1124,8 +1208,7 @@ def main() -> int:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     exact_launches = launches()
-    check(exact_launches == only(K1=MAIN_FRAMES),
-          f"exact main path launched {exact_launches}, not K1 x {MAIN_FRAMES} only")
+    wrapper_check("the exact main path", exact_launches, "K1")
     img = ctx.display_image
     check(tuple(img.shape) == (RES, RES, 4), f"display shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "display image has non-finite pixels")
@@ -1142,7 +1225,8 @@ def main() -> int:
     if args.png:
         write_png(args.png, to_uint8(img).cpu().numpy())
     print(f"phase 4 main path: run(BonsaiDemo) {MAIN_FRAMES} frames {RES}x{RES} "
-          f"in {run_s:.2f} s, K1 launches {exact_launches['K1']}, lit pixels {lit:.4f}, "
+          f"in {run_s:.2f} s, K1 wrapper's launches {exact_launches['K1']} (the graph's "
+          f"warm-up and capture; the replays call none), lit pixels {lit:.4f}, "
           f"final frame vs plain max {mx:.3e} mean {mean:.3e}, png {png_bytes} bytes",
           flush=True)
 
@@ -1161,8 +1245,7 @@ def main() -> int:
     torch.cuda.synchronize()
     frun_s = time.perf_counter() - t0
     fast_launches = launches()
-    check(fast_launches == only(K34=MAIN_FRAMES, K6=MAIN_FRAMES),
-          f"fast main path launched {fast_launches}, not K34/K6 x {MAIN_FRAMES} only")
+    wrapper_check("the fast main path", fast_launches, "K34", "K6")
     img = fctx.display_image
     check(tuple(img.shape) == (RES, RES, 4), f"fast display shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "fast display image has non-finite pixels")
@@ -1174,7 +1257,7 @@ def main() -> int:
     check(fmx <= FAST_FRAME_TOL and fmean <= MEAN_TOL,
           f"final fast frame disagrees with the plain fast path (max {fmx:.3e})")
     print(f"phase 4b fast main path: run(BonsaiDemo, renderer=\"fast\") {MAIN_FRAMES} "
-          f"frames {RES}x{RES} I={II} in {frun_s:.2f} s, launches {fast_launches}, lit "
+          f"frames {RES}x{RES} I={II} in {frun_s:.2f} s, wrappers' launches {fast_launches}, lit "
           f"pixels {flit:.4f}, final frame vs plain fast path max {fmx:.3e} mean "
           f"{fmean:.3e} (tol {FAST_FRAME_TOL:g} / {MEAN_TOL:g})", flush=True)
 
@@ -1221,8 +1304,7 @@ def main() -> int:
     torch.cuda.synchronize()
     hrun_s = time.perf_counter() - t0
     hyb_launches = launches()
-    check(hyb_launches == only(K34=MAIN_FRAMES, K5=MAIN_FRAMES, K2=MAIN_FRAMES),
-          f"hybrid main path launched {hyb_launches}, not K34/K5/K2 x {MAIN_FRAMES} only")
+    wrapper_check("the hybrid main path", hyb_launches, "K34", "K5", "K2")
     img = hctx.display_image
     check(bool(torch.isfinite(img).all()), "hybrid display image has non-finite pixels")
     hlit = float((img[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
@@ -1230,7 +1312,8 @@ def main() -> int:
     u_last = hctx.camera_uniform
     mode, ii_last, b_last = hyb_r.route(u_last, RES, RES)
     print(f"phase 4d hybrid main path: run(BonsaiDemo, renderer=\"hybrid\") {MAIN_FRAMES} "
-          f"frames {RES}x{RES} in {hrun_s:.2f} s, launches {hyb_launches}, route at the "
+          f"frames {RES}x{RES} in {hrun_s:.2f} s, wrappers' launches {hyb_launches}, route at "
+          f"the "
           f"bench pose {bench_route}, lit pixels {hlit:.4f}", flush=True)
     pair = hy._pair_mode(hyb_r.dims, RES, RES)
     img_k, _, ids_k = hy._render_hybrid(hyb_r.packs, hyb_r.vol, u_last, hyb_r.thresh, RES,
@@ -1288,8 +1371,8 @@ def main() -> int:
     hyb_idx = [i for i, r in enumerate(orbit_routes) if r[0] == "hybrid"]
     n_hyb = len(hyb_idx)
     check(n_hyb > 0, f"no orbit pose renders hybrid: {orbit_routes}")
-    check(orbit_launches == only(K1=n_orbit, K34=n_hyb, K5=n_hyb, K2=n_hyb),
-          f"config 4 launched {orbit_launches} for {n_hyb} hybrid poses of {n_orbit}")
+    wrapper_check(f"config 4 ({n_hyb} hybrid poses of {n_orbit})", orbit_launches, "K1", "K34",
+                  "K5", "K2")
     for frame in orbit_frames.exact + orbit_frames.hybrid:
         check(tuple(frame.shape) == (oh, ow, 4) and bool(torch.isfinite(frame).all()),
               "a config-4 frame is not finite or has the wrong shape")
@@ -1387,7 +1470,7 @@ def main() -> int:
         torch.cuda.synchronize()
         xrun_s = time.perf_counter() - t0
         xl = launches()
-        check(xl == only(K7=MAIN_FRAMES), f"xor main path launched {xl}, not K7 x {MAIN_FRAMES}")
+        wrapper_check(f"the xor main path {w}x{h}", xl, "K7")
         hdr = xctx.render_backbuffer.texture
         check(tuple(hdr.shape) == (h, w, 4) and bool(torch.isfinite(xctx.display_image).all()),
               "xor frame is not finite or has the wrong shape")
@@ -1398,7 +1481,8 @@ def main() -> int:
         d7 = (hdr - hdr_p).abs()
         same = float((hdr == hdr_p).all(dim=-1).float().mean())
         print(f"phase 4f xor main path: run(XorDemo) {MAIN_FRAMES} frames {w}x{h} (grad "
-              f"{mf.default_grad()}) in {xrun_s:.2f} s, launches {xl}, lit pixels {lit:.4f}, "
+              f"{mf.default_grad()}) in {xrun_s:.2f} s, wrappers' launches {xl}, lit pixels "
+              f"{lit:.4f}, "
               f"final frame vs plain max {float(d7.max()):.3e} mean {float(d7.mean()):.3e}, "
               f"bitwise-equal pixels {same:.6f}", flush=True)
         check(float(d7.max()) <= K7_MAX and float(d7.mean()) <= K7_MEAN,
@@ -1460,8 +1544,7 @@ def main() -> int:
     torch.cuda.synchronize()
     c5_s = time.perf_counter() - t0
     c5_launches = launches()
-    check(c5_launches == only(K8=2, K1=2),
-          f"config 5 launched {c5_launches}, not K8 x 2 and K1 x 2 (one a batch)")
+    wrapper_check("config 5 (2 batches)", c5_launches, "K8", "K1")
     c5_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean()) for im in imgs5)
     check(bool(torch.isfinite(imgs5).all()) and c5_lit > 0.01,
           f"a config-5 view is not finite or shows nothing (least lit {c5_lit:.4f})")
@@ -1486,8 +1569,7 @@ def main() -> int:
     torch.cuda.synchronize()
     c5f_s = time.perf_counter() - t0
     c5f_launches = launches()
-    check(c5f_launches == only(K8=1, K1=1),
-          f"the full config-5 batch launched {c5f_launches}, not K8 once and K1 once")
+    wrapper_check("the full config-5 batch", c5f_launches, "K8", "K1")
     check(tuple(imgs5.shape) == (VIEWS, VIEW_RES, VIEW_RES, 4), f"views {tuple(imgs5.shape)}")
     c5f_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean()) for im in imgs5)
     check(bool(torch.isfinite(imgs5).all()) and c5f_lit > 0.01,
@@ -1540,7 +1622,27 @@ def main() -> int:
         demo.render(ctx)
         ctx.render()
 
-    frame_ms = median_ms(frame, 5 * TIMED_FRAMES, torch)
+    def eager_frame(c, render):
+        """A demo frame as the port ran it before its frames were compiled:
+        Context.update, the eager render function of the context's uniform
+        into the backbuffer, the eager present."""
+        def fn():
+            c.update()
+            c.render_backbuffer.store(render(c.camera_uniform))
+            c.display_image = present(c.render_backbuffer.texture, out_height=c.height,
+                                      out_width=c.width)
+        return fn
+
+    # each frame's eager call and its replay, in the same interleaved rounds
+    frames_ms = {}
+
+    def eager_and_replay(name, eager, replay, rounds):
+        frames_ms[name] = interleaved_ms({"eager": eager, "replay": replay}, rounds, torch,
+                                         warmup=WARMUP)
+        return frames_ms[name]["replay"]
+
+    frame_ms = eager_and_replay("exact", eager_frame(
+        ctx, lambda u: mb.render_frame(demo.renderer.vol, u, RES, RES)), frame, 5 * TIMED_FRAMES)
     mrays = RES * RES / 1e6
     print(f"phase 5 timing ({card}; median of {5 * TIMED_FRAMES} / {TIMED_FRAMES} "
           f"frames after {WARMUP} warm-up, CUDA events, bench pose, 256^3 "
@@ -1552,10 +1654,13 @@ def main() -> int:
           f"{occ_ms[1]:.4f} ms")
     print(f"phase 5 K1 plain torch: {p_ms:.4f} ms/frame "
           f"({mrays / p_ms * 1e3:.2f} Mrays/s)")
+    update_ms = median_ms(ctx.update, 5 * TIMED_FRAMES, torch)
+    frames_ms["Context.update"] = {"eager": update_ms}
     print(f"phase 5 other stages: rays_fragment_soa {rays_ms:.4f} ms, "
-          f"present {present_ms:.4f} ms")
-    print(f"phase 5 whole frame (Context.update + BonsaiDemo.render + present): "
-          f"{frame_ms:.4f} ms/frame ({mrays / frame_ms * 1e3:.1f} Mrays/s)", flush=True)
+          f"present {present_ms:.4f} ms, Context.update {update_ms:.4f} ms")
+    print(f"phase 5 whole frame (Context.update + BonsaiDemo.render + present, replayed): "
+          f"{frame_ms:.4f} ms/frame ({mrays / frame_ms * 1e3:.1f} Mrays/s); eager "
+          f"{frames_ms['exact']['eager']:.4f} ms in the same rounds", flush=True)
 
     # the dense-stress frame (phase 3's): K1 alone, the entry point's frame
     # (rays + K1), the share of K1's steps skipped and its bound
@@ -1714,8 +1819,11 @@ def main() -> int:
         if stage == "pair":
             sr.resample_composite = pair_stage
         try:
-            peaks[stage] = (peak_mib(lambda: fast_r(uni, RES, RES)),
-                            peak_mib(lambda: hyb_peak_r(uni, RES, RES)))
+            peaks[stage] = (
+                peak_mib(lambda: shear_warp._render_fast(packs, uni, RES, RES, II, True)),
+                peak_mib(lambda: hy._render_hybrid(
+                    hyb_peak_r.packs, hyb_peak_r.vol, uni, hyb_peak_r.thresh, RES, RES,
+                    II_HYBRID, BUDGET_OP, True, pair=pair)))
         finally:
             sr.resample_composite = fused_fn
     del hyb_peak_r
@@ -1732,7 +1840,9 @@ def main() -> int:
         fast_demo.render(fctx)
         fctx.render()
 
-    fframe_ms = median_ms(fast_frame, n, torch)
+    fframe_ms = eager_and_replay("fast", eager_frame(
+        fctx, lambda u: shear_warp._render_fast(fast_demo.renderer.packs, u, RES, RES, II,
+                                                True)), fast_frame, n)
     fplain_ms = median_ms(lambda: shear_warp._render_fast(packs, uni, RES, RES, II, True,
                                                           plain=True), TIMED_FRAMES, torch)
     print(f"phase 5 fast path ({card}; bench pose, 256^3 {RES}x{RES}, I={II}; medians "
@@ -1748,8 +1858,9 @@ def main() -> int:
           f"{k6p_ms:.4f} ms, whole plain fast frame {fplain_ms:.4f} ms")
     print(f"phase 5 yardsticks (grid_sample, f32, one call): K3's function {lib3_ms:.4f} ms, "
           f"K6's function {lib6_ms:.4f} ms")
-    print(f"phase 5 whole fast frame (Context.update + BonsaiDemo.render + present): "
-          f"{fframe_ms:.4f} ms/frame ({mrays / fframe_ms * 1e3:.1f} Mrays/s)", flush=True)
+    print(f"phase 5 whole fast frame (Context.update + BonsaiDemo.render + present, "
+          f"replayed): {fframe_ms:.4f} ms/frame ({mrays / fframe_ms * 1e3:.1f} Mrays/s); eager "
+          f"{frames_ms['fast']['eager']:.4f} ms in the same rounds", flush=True)
     # the hybrid's stages at the bench pose: the demo's (I=512, budget 128)
     # and the operating point (I=1024, budget 64)
     pair = hy._pair_mode(256, RES, RES)
@@ -1854,23 +1965,51 @@ def main() -> int:
         hyb_demo.render(hctx)
         hctx.render()
 
-    hframe_ms = median_ms(hyb_frame, n, torch)
+    def hyb_eager(u):
+        r = hyb_demo.renderer
+        mode, ii, b = r.route(u, RES, RES)
+        if mode in ("exact", "dense"):
+            return mb.render_frame(r.vol, u, RES, RES)
+        return hy._render_hybrid(r.packs, r.vol, u, r.thresh, RES, RES, ii, b, True,
+                                 pair=pair)[0]
+
+    hframe_ms = eager_and_replay("hybrid", eager_frame(hctx, hyb_eager), hyb_frame, n)
     print(f"phase 5 K5 plain torch {k5p_ms:.4f} ms, K2 plain torch {k2p_ms:.4f} ms; K5's "
           f"warp alone as grid_sample (4 channels, f32, none of K5's tile statistics, so no "
           f"library time of K5's function): device {lib5_dev:.4f} ms, one call {lib5_ms:.4f} "
           f"ms; K1b (compact mode, same units): device {k1b_dev:.4f} ms, one call "
           f"{k1b_ms:.4f} ms, plain {k1bp_ms:.4f} ms; K2's marched steps skipped {k2_skip:.4f}")
     print(f"phase 5 whole hybrid frame (Context.update + BonsaiDemo.render + present, I={II}, "
-          f"budget {hy.DEFAULT_BUDGET}): {hframe_ms:.4f} ms/frame "
-          f"({mrays / hframe_ms * 1e3:.1f} Mrays/s)", flush=True)
-    for name, fn in (("exact", frame), ("fast", fast_frame), ("hybrid", hyb_frame)):
-        syncs = host_syncs(fn, torch)
-        share = device_share(fn, 10, torch)
+          f"budget {hy.DEFAULT_BUDGET}, replayed): {hframe_ms:.4f} ms/frame "
+          f"({mrays / hframe_ms * 1e3:.1f} Mrays/s); eager {frames_ms['hybrid']['eager']:.4f} "
+          f"ms in the same rounds", flush=True)
+
+    def frame_profile(name, replay, eager):
+        """The replayed frame's host syncs, device kernels and copies, busy
+        ms and idle share (10 frames under torch.profiler), and the eager
+        frame's host syncs, into ``frames_ms``."""
+        syncs = host_syncs(replay, torch)
+        share = device_share(replay, 10, torch)
+        row = frames_ms[name]
+        row.update(host_syncs=syncs, eager_host_syncs=host_syncs(eager, torch))
+        if share is not None:
+            row.update(device_events=share[0], device_busy_ms=share[1], idle_share=share[2])
         trace = ("no device events in the trace" if share is None else
                  f"{share[0]:.1f} device kernels/copies per frame, device busy "
                  f"{share[1]:.4f} ms per frame, device idle share {share[2]:.3f}")
-        print(f"phase 5 {name} frame profile (10 frames, torch.profiler on): host syncs "
-              f"per frame {syncs}, {trace}", flush=True)
+        print(f"phase 5 {name} frame profile (replayed; 10 frames, torch.profiler on): host "
+              f"syncs per frame {syncs} (eager {row['eager_host_syncs']}), {trace}",
+              flush=True)
+        return syncs, trace
+
+    # profiled at the end of phase 5: after a torch.profiler session the
+    # host's launches run slower, which would reach the timings after it
+    profiles = [
+        ("exact", frame, eager_frame(ctx, lambda u: mb.render_frame(demo.renderer.vol, u,
+                                                                    RES, RES))),
+        ("fast", fast_frame, eager_frame(fctx, lambda u: shear_warp._render_fast(
+            fast_demo.renderer.packs, u, RES, RES, II, True))),
+        ("hybrid", hyb_frame, eager_frame(hctx, hyb_eager))]
 
     # bounds from this run's inputs and data-dependent work
     # K1 and K2 count OPS_K1_STEP / OPS_K2_STEP a sampled step and
@@ -2006,6 +2145,7 @@ def main() -> int:
     xw, xh = XOR_RES
     xrays = mf.field_rays(xctx.camera_uniform, xw, xh)
     xgrad = mf.default_grad()
+    xor_eager = eager_frame(xctx, lambda u: mf.render_field(u, xor_demo.gen_time, xw, xh))
     xor_stages = {
         "rays + clip (torch)": median_ms(lambda: mf.field_rays(xctx.camera_uniform, xw, xh), n,
                                          torch),
@@ -2017,18 +2157,14 @@ def main() -> int:
                                                  mf.DEFAULT_TILE_H), torch),
         "present": median_ms(lambda: present(xctx.render_backbuffer.texture,
                                              out_height=xh, out_width=xw), n, torch),
-        "whole frame (update + render + present)": median_ms(xor_frame, n, torch),
+        "whole frame (update + render + present, replayed)": eager_and_replay(
+            "xor", xor_eager, xor_frame, n),
     }
-    syncs = host_syncs(xor_frame, torch)
-    share = device_share(xor_frame, 10, torch)
-    trace = ("no device events in the trace" if share is None else
-             f"{share[0]:.1f} device kernels/copies per frame, device busy {share[1]:.4f} ms "
-             f"per frame, device idle share {share[2]:.3f}")
+    xor_stages["whole frame eager (same rounds)"] = frames_ms["xor"]["eager"]
+    profiles.append(("xor", xor_frame, xor_eager))
     print(f"phase 5 xor demo frame ({card}; {xw}x{xh}, grad {xgrad}, K7 lane efficiency "
           f"{xor_runs[XOR_RES][2]:.4f}, medians of {n}): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in xor_stages.items())
-          + f"; profile (10 frames, torch.profiler on): host syncs per frame {syncs}, {trace}",
-          flush=True)
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in xor_stages.items()), flush=True)
     trig_demo = TrigDemo.init(tctx)
 
     def trig_frame():
@@ -2036,13 +2172,17 @@ def main() -> int:
         trig_demo.render(tctx)
         tctx.render()
 
-    trig_ms = median_ms(trig_frame, n, torch)
+    trig_eager = eager_frame(tctx, lambda u: trig_eager_frame(
+        u.proj_view, tctx.global_uniform.time, tctx.global_uniform.mouse_pressed, xw, xh))
+    trig_ms = eager_and_replay("trig", trig_eager, trig_frame, n)
     trig_syncs = host_syncs(trig_frame, torch)
+    profiles.append(("trig", trig_frame, trig_eager))
     trig_field_ms = median_ms(lambda: mf.render_field(xor_u, t_dev, FIELD_RES, FIELD_RES,
                                                       field="trig", shading="emission",
                                                       quantize=False), n, torch)
     print(f"phase 5 trig ({card}; medians of {n}): trig demo frame {xw}x{xh} (update + "
-          f"rasterize + present) {trig_ms:.4f} ms, host syncs per frame {trig_syncs}; trig "
+          f"rasterize + present, replayed) {trig_ms:.4f} ms (eager "
+          f"{frames_ms['trig']['eager']:.4f} ms), host syncs per frame {trig_syncs}; trig "
           f"field frame {FIELD_RES}^2 (render_field: rays + clip + K7) {trig_field_ms:.4f} ms",
           flush=True)
     eye5, dxyz5 = geometry.rays_fragment_soa(batch64.cams[0], VIEW_RES, VIEW_RES)
@@ -2068,9 +2208,13 @@ def main() -> int:
         return vol, torch.stack([render(pack, c, VIEW_RES, VIEW_RES, max_steps5)
                                  for c in batch64.cams])
 
-    c5_pair = interleaved_ms({"batch": lambda: batch64(0), "per-view loop": c5_per_view_loop},
-                             C5_ROUNDS, torch)
+    def c5_eager():
+        return batch64.step(torch.full((), 0.0, dtype=torch.float32, device=dev))
+
+    c5_pair = interleaved_ms({"batch": lambda: batch64(0), "batch eager": c5_eager,
+                              "per-view loop": c5_per_view_loop}, C5_ROUNDS, torch)
     c5_ms = c5_pair["batch"]
+    frames_ms["config 5 batch"] = {"eager": c5_pair["batch eager"], "replay": c5_ms}
     # the batch step captured in a CUDA graph (K8, the occupancy table, the
     # batched rays and K1): the capture fails if the step syncs with the host
     c5_dev = device_ms(lambda: batch64(0), torch, n=C5_GRAPH_STEPS, reps=3)
@@ -2085,7 +2229,7 @@ def main() -> int:
                             torch, n=10, reps=3)
     del eye64, dxyz64
     c5_peak = {}
-    for name, step in (("batch", lambda: batch64(0)), ("per-view loop", c5_per_view_loop)):
+    for name, step in (("batch", c5_eager), ("per-view loop", c5_per_view_loop)):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2095,13 +2239,15 @@ def main() -> int:
         del out5
     print(f"phase 5 config 5 ({card}): one batch (K8 {VOL5}^3 + {VIEWS} views {VIEW_RES}^2, "
           f"{max_steps5} steps; ViewsBatch()(0): one ray pass, one K1 launch), medians of "
-          f"{C5_ROUNDS} interleaved rounds: batch {c5_ms:.4f} ms "
+          f"{C5_ROUNDS} interleaved rounds: batch (replayed) {c5_ms:.4f} ms, eager "
+          f"{c5_pair['batch eager']:.4f} ms, "
           f"({VIEWS * VIEW_RES ** 2 / c5_ms / 1e3:.1f} Mrays/s) vs the per-view loop "
           f"{c5_pair['per-view loop']:.4f} ms ({c5_pair['per-view loop'] / c5_ms:.3f}x); the "
           f"batch step on the device (a CUDA graph of {C5_GRAPH_STEPS} steps) {c5_dev:.4f} ms, "
           f"host syncs {c5_syncs}; batched rays device {c5_batch_rays[0]:.4f} ms, one call "
           f"{c5_batch_rays[1]:.4f} ms; batched K1 device {c5_batch_k1:.4f} ms; peak device "
-          f"memory above the resident tensors: batch {c5_peak['batch']:.1f} MiB, per-view loop "
+          f"memory above the resident tensors: eager batch {c5_peak['batch']:.1f} MiB, per-view "
+          f"loop "
           f"{c5_peak['per-view loop']:.1f} MiB; K1 one view: device {c5_view_dev:.4f} ms, one "
           f"call {c5_view_ms:.4f} ms; its rays {c5_rays_ms:.4f} ms; its marched steps skipped "
           f"{c5_skipped / c5_marched:.4f} of {c5_marched}; occupancy table ({VOL5}^3) device "
@@ -2114,14 +2260,28 @@ def main() -> int:
         it = itertools.cycle(poses)
         return lambda: render(next(it), ow, oh)
 
+    def hybrid_eager4(u, w, h):
+        route = orb.hybrid.route(u, w, h)
+        if route[0] in ("exact", "dense"):
+            return mb.render_frame(orb.exact.vol, u, w, h)
+        return hy._render_hybrid(orb.hybrid.packs, orb.hybrid.vol, u, orb.hybrid.thresh, w, h,
+                                 route[1], route[2], True, pair=pair4)[0]
+
     hyb_poses = [orb.poses[i] for i in hyb_idx]
-    orbit_ms = {
-        "exact": median_ms(cycled(orb.exact, orb.poses), 5 * n_orbit, torch),
-        "hybrid (hybrid-routed poses)": median_ms(cycled(orb.hybrid, hyb_poses),
-                                                  5 * len(hyb_poses), torch),
-        "hybrid renderer (every pose)": median_ms(cycled(orb.hybrid, orb.poses), 5 * n_orbit,
-                                                  torch),
-    }
+    orbit_ms = interleaved_ms({
+        "exact": cycled(orb.exact, orb.poses),
+        "exact eager": cycled(lambda u, w, h: mb.render_frame(orb.exact.vol, u, w, h),
+                              orb.poses)}, 5 * n_orbit, torch, warmup=n_orbit)
+    orbit_ms.update(interleaved_ms({
+        "hybrid (hybrid-routed poses)": cycled(orb.hybrid, hyb_poses),
+        "hybrid eager (hybrid-routed poses)": cycled(hybrid_eager4, hyb_poses)},
+        5 * len(hyb_poses), torch, warmup=len(hyb_poses)))
+    orbit_ms["hybrid renderer (every pose)"] = median_ms(cycled(orb.hybrid, orb.poses),
+                                                         5 * n_orbit, torch)
+    frames_ms["config 4 exact"] = {"eager": orbit_ms["exact eager"],
+                                   "replay": orbit_ms["exact"]}
+    frames_ms["config 4 hybrid pose"] = {"eager": orbit_ms["hybrid eager (hybrid-routed poses)"],
+                                         "replay": orbit_ms["hybrid (hybrid-routed poses)"]}
     eye4, dxyz4 = geometry.rays_fragment_soa(orb.poses[0], ow, oh)
     orbit_k1_dev = device_ms(lambda: mb.render_bonsai_rays_cuda(orb.exact.vol, eye4, dxyz4),
                              torch)
@@ -2131,6 +2291,9 @@ def main() -> int:
           + f"; K1 at pose 0 device {orbit_k1_dev:.4f} ms "
           f"({ow * oh / orbit_k1_dev / 1e3:.1f} Mrays/s)", flush=True)
     del eye4, dxyz4
+    for name, fn, fn_eager in profiles:
+        frame_profile(name, fn, fn_eager)
+    print(f"phase 5 frames json {json.dumps(frames_ms)}", flush=True)
 
     # PERF.md's ranking on device times: slower than a same-function library
     # call first, then launches per frame (one each here) x (device - bound);
@@ -2281,6 +2444,239 @@ def main() -> int:
           f"all_reduce {parts['all_reduce']:.4f} ms (sum {sum(parts.values()):.4f}); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # -- phase 4n: compiled frames (engine/compiled.py) ---------------------
+    # every entry's first call captures one CUDA graph per static key, later
+    # calls replay it: each replay (3 poses, the fast frame's m and sgn
+    # changing between them, 2 times for xor) bitwise against the eager frame
+    # on the same inputs, its host syncs, its kernels from a device trace;
+    # captures per key and each renderer's graph pool
+    t_phase = time.perf_counter()
+    # the main paths of phases 3-4m, run again from fresh contexts and
+    # renderers under a device trace: each kernel once per frame (the first
+    # frame is a graph's warm-up, the others replays)
+    def demo_run(demo_cls, w, h, events=True):
+        """The demo's main path from a fresh context at its default pose."""
+        def fn():
+            c = Context(w, h, camera=demo_cls.default_camera(w / h), backbuffer_resolution=(w, h),
+                        device="cuda")
+            return run(demo_cls, frames=MAIN_FRAMES, context=c, quiet=True,
+                       events=orbit_events(MAIN_FRAMES, w, h) if events else None)
+        return fn
+
+    def batches(n_views, n):
+        b = ViewsBatch(n_views=n_views, view_res=VIEW_RES, dims=VOL5, device=dev)
+        return lambda: [b(i) for i in range(n)]
+
+    path_runs = {
+        "dense": (lambda: mb.BonsaiRenderer(dense_r.vol, dev)(bench_u, RES, RES), dict(K1=1)),
+        "exact": (demo_run(BonsaiDemo, RES, RES), dict(K1=MAIN_FRAMES)),
+        "fast": (demo_run(FastDemo, RES, RES), dict(K34=MAIN_FRAMES, K6=MAIN_FRAMES)),
+        "hybrid": (demo_run(HybridDemo, RES, RES, events=False),
+                   dict(K34=MAIN_FRAMES, K5=MAIN_FRAMES, K2=MAIN_FRAMES)),
+        "config 4": (lambda: orbit_model.BonsaiOrbit(vol_bonsai, dev)(),
+                     dict(K1=n_orbit, K34=n_hyb, K5=n_hyb, K2=n_hyb)),
+        "xor": (demo_run(XorDemo, *XOR_RES), dict(K7=MAIN_FRAMES)),
+        f"xor {FIELD_RES}^2": (demo_run(XorDemo, FIELD_RES, FIELD_RES), dict(K7=MAIN_FRAMES)),
+        "trig": (demo_run(TrigDemo, *XOR_RES), {}),
+        "config 5 (2 batches of 8 views)": (batches(VIEWS_SMOKE, 2), dict(K8=2, K1=2)),
+        "config 5 (one full batch)": (batches(VIEWS, 1), dict(K8=1, K1=1)),
+    }
+    path_traced = {}
+    for name, (fn, want) in path_runs.items():
+        reset_launches()
+        _, path_traced[name] = traced(fn)
+        path_check(f"the {name} path", path_traced[name], launches(), **want)
+    print(f"phase 4n main paths again, traced ({card}): launches on the device per path "
+          + "; ".join(f"{k} {({n: c for n, c in v.items() if c})}" for k, v in path_traced.items())
+          + f" ({MAIN_FRAMES} frames a demo path, {n_orbit} poses of config 4 with {n_hyb} "
+          f"hybrid-routed)", flush=True)
+    del path_runs
+
+    def poses_at(w, h, kws=COMPILED_POSES.values(), target=(0.5, 0.5, 0.5)):
+        return [Camera(target=target, aspect=w / h, **kw).uniform(dev) for kw in kws]
+
+    def pool_mib(compiled):
+        pool = tuple(compiled.pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool) / 2 ** 20
+
+    compiled_rows = {}
+
+    def hold(name, compiled, keys, calls, **kernels):
+        """``calls``: (replay, eager) pairs, each key captured already. Every
+        replay bitwise its eager frame and free of host syncs; the replays'
+        kernels from the trace, each of ``kernels`` once a call; ``keys``
+        captures."""
+        want = [eager() for _, eager in calls]
+        got = [synced(replay) for replay, _ in calls]
+        equal = sum(bitwise(g[0][0], w) for g, w in zip(got, want))
+        syncs = [g[1] for g in got]
+        del got, want
+        _, on_device = traced(lambda: [replay() for replay, _ in calls])
+        row = {"replays": len(calls), "bitwise": equal, "host_syncs": max(syncs),
+               "captures": compiled.captures, "keys": keys, "device_launches": on_device,
+               "pool_mib": pool_mib(compiled)}
+        compiled_rows[name] = row
+        print(f"phase 4n {name} ({card}): {keys} keys, captures {compiled.captures}; "
+              f"{len(calls)} replays, bitwise the eager frame {equal}/{len(calls)}, host syncs "
+              f"per replay {syncs}; launches on the device {on_device}; graph pool "
+              f"{row['pool_mib']:.1f} MiB", flush=True)
+        check(equal == len(calls) and max(syncs) == 0 and compiled.captures == keys
+              and on_device == only(**{k: v * len(calls) for k, v in kernels.items()}),
+              f"compiled {name}: {row}")
+
+    # the exact frame at 1024^2 and 1920x1080
+    er = mb.BonsaiRenderer(vol_bonsai, dev)
+    calls = []
+    for w, h in ((RES, RES), (ow, oh)):
+        ps = poses_at(w, h)
+        er(ps[0], w, h)
+        calls += [(lambda u=u, w=w, h=h: er(u, w, h),
+                   lambda u=u, w=w, h=h: mb.render_frame(er.vol, u, w, h)) for u in ps]
+    hold("exact 1024^2 + 1920x1080", er.compiled, 2, calls, K1=1)
+    # the fast frame at I=256 and I=512
+    fr = shear_warp.FastBonsaiRenderer(vol_bonsai, dev, intermediate=II)
+    ps = poses_at(RES, RES)
+    msg = {(int(g.m[0]), int(g.sgn[0])) for g in (shear_warp.fast_geometry(fr.packs, u, RES,
+                                                                           RES, II) for u in ps)}
+    check(len(msg) == len(ps), f"phase 4n's poses share the fast frame's (m, sgn): {msg}")
+    calls = []
+    for ii in (256, II):
+        fr(ps[0], RES, RES, intermediate=ii)
+        calls += [(lambda u=u, ii=ii: fr(u, RES, RES, intermediate=ii),
+                   lambda u=u, ii=ii: shear_warp._render_fast(fr.packs, u, RES, RES, ii, True))
+                  for u in ps]
+    hold(f"fast I=256 + I={II} (m, sgn {sorted(msg)})", fr.compiled, 2, calls, K34=1, K6=1)
+    # the hybrid at I=512 / budget 128 (with the escalated route) and at
+    # I=1024 / budget 64 (with the functional builder's flag); the route
+    # reads the uniforms' host mirrors
+    pair = hy._pair_mode(256, RES, RES)
+    hr = hy.HybridBonsaiRenderer(vol_bonsai, dev)
+    hr_op = hy.HybridBonsaiRenderer(vol_bonsai, dev, intermediate=II_HYBRID, budget=BUDGET_OP)
+    esc = poses_at(RES, RES, ESCALATED_POSES)
+    routes = {}
+    for r, us in ((hr, ps + esc), (hr_op, ps)):
+        for u in us:
+            shear_warp._HINT_CACHE.clear()
+            (route,), n_sync = synced(lambda u=u: r.route(u, RES, RES))
+            routes.setdefault(r.intermediate, set()).add(route)
+            check(n_sync == 0, f"the hybrid's route made {n_sync} host syncs")
+    check(routes == {II: {("hybrid", II, hy.DEFAULT_BUDGET), ("escalated", 768, 192)},
+                     II_HYBRID: {("hybrid", II_HYBRID, BUDGET_OP)}},
+          f"phase 4n's hybrid routes {routes}")
+
+    def eager_hybrid(r, u, ii, budget):
+        return hy._render_hybrid(r.packs, r.vol, u, r.thresh, RES, RES, ii, budget, True,
+                                 pair=pair)[0]
+
+    hr(ps[0], RES, RES)
+    hr(esc[0], RES, RES)
+    calls = [(lambda u=u: hr(u, RES, RES), lambda u=u: eager_hybrid(hr, u, II, 128))
+             for u in ps]
+    calls += [(lambda u=u: hr(u, RES, RES), lambda u=u: eager_hybrid(hr, u, 768, 192))
+              for u in esc]
+    hold(f"hybrid I={II} budget 128 + escalated I=768 budget 192", hr.compiled, 2, calls, K34=1,
+         K5=1, K2=1)
+    frender, fpack = hr_op.functional()
+    hr_op(ps[0], RES, RES)
+    frender(fpack, ps[0], RES, RES)
+    calls = [(lambda u=u: hr_op(u, RES, RES),
+              lambda u=u: eager_hybrid(hr_op, u, II_HYBRID, BUDGET_OP)) for u in ps]
+    calls += [(lambda u=u: frender(fpack, u, RES, RES)[::2],
+               lambda u=u: (eager_hybrid(hr_op, u, II_HYBRID, BUDGET_OP),
+                            shear_warp.traced_degenerate(u, 256))) for u in ps]
+    hold(f"hybrid I={II_HYBRID} budget {BUDGET_OP} + functional", hr_op.compiled, 2, calls,
+         K34=1, K5=1, K2=1)
+    # the xor frame at 1280x720, 3 poses x 2 times (0-d tensors, as the demo's)
+    xw, xh = XOR_RES
+    pipe = FieldPipeline(dev)
+    xps = poses_at(xw, xh, [dict(zoom=3.0, pitch=-0.5, yaw=y) for y in (1.0, 2.0, 4.0)],
+                   target=(0.0, 0.0, 0.0))
+    times = [torch.full((), t, dtype=torch.float32, device=dev) for t in (0.0, 1.7)]
+    pipe.render(xps[0], times[0], xw, xh)
+    calls = [(lambda u=u, t=t: pipe.render(u, t, xw, xh),
+              lambda u=u, t=t: mf.render_field(u, t, xw, xh)) for u in xps for t in times]
+    hold(f"xor {xw}x{xh} (3 poses x 2 times)", pipe.compiled, 1, calls, K7=1)
+    # the trig raster at 512^2 and Context.update
+    tctx2 = Context(FIELD_RES, FIELD_RES, backbuffer_resolution=(FIELD_RES, FIELD_RES),
+                    device="cuda")
+    tdemo = TrigDemo.init(tctx2)
+    tps = poses_at(FIELD_RES, FIELD_RES, [dict(zoom=1.0 + 0.2 * i, pitch=0.5, yaw=1.0 + i)
+                                          for i in range(3)], target=(0.0, 0.0, 0.0))
+
+    def trig_state(u, t):
+        tctx2.camera_uniform = u
+        tctx2.update(time=t)
+
+    def trig_replay(u, t):
+        trig_state(u, t)
+        tdemo.render(tctx2)
+        return tctx2.render_backbuffer.texture
+
+    def trig_eager(u, t):
+        trig_state(u, t)
+        g = tctx2.global_uniform
+        return trig_eager_frame(u.proj_view, g.time, g.mouse_pressed, FIELD_RES, FIELD_RES)
+
+    trig_replay(tps[0], 0.25)
+    calls = [(lambda u=u, t=t: trig_replay(u, t), lambda u=u, t=t: trig_eager(u, t))
+             for u, t in zip(tps, (0.25, 1.5, 2.75))]
+    hold(f"trig {FIELD_RES}^2 (with Context.update)", tdemo.compiled, 1, calls)
+    _, update_syncs = synced(lambda: tctx2.update(time=3.0))
+    tctx2.camera.add_yaw(0.1)
+    _, update_cam_syncs = synced(lambda: tctx2.update(time=3.5))
+    print(f"phase 4n Context.update ({card}): host syncs {update_syncs}, with a camera change "
+          f"{update_cam_syncs}", flush=True)
+    check(update_syncs == 0 and update_cam_syncs == 0, "Context.update syncs with the host")
+    # present with its three filters (the exact frames above as HDR input)
+    pr = Presenter()
+    hdrs = [mb.render_frame(vol_bonsai, u, RES, RES) for u in ps]
+    calls = []
+    for oh_, ow_, filt in ((RES, RES, "linear"), (1440, 1920, "linear"),
+                           (1440, 1920, "quadratic"), (1440, 1920, "bicubic")):
+        pr(hdrs[0], oh_, ow_, filter=filt)
+        calls += [(lambda x=x, oh_=oh_, ow_=ow_, filt=filt: pr(x, oh_, ow_, filter=filt),
+                   lambda x=x, oh_=oh_, ow_=ow_, filt=filt: present(x, oh_, ow_, filter=filt))
+                  for x in hdrs]
+    hold("present (linear 1024^2, linear / quadratic / bicubic 1440x1920)", pr.compiled, 4,
+         calls)
+    # config 4's orbit (phase 4l's renderers, captured there): a second pass
+    orbit_eager = []
+    for i, u in enumerate(orb.poses):
+        img_e = mb.render_frame(orb.exact.vol, u, ow, oh)
+        hyb_e = (img_e if i not in hyb_idx else hy._render_hybrid(
+            orb.hybrid.packs, orb.hybrid.vol, u, orb.hybrid.thresh, ow, oh,
+            orbit_model.INTERMEDIATE, orbit_model.BUDGET, True, pair=pair4)[0])
+        orbit_eager.append((img_e, hyb_e))
+    (frames4,), orbit_syncs = synced(orb)
+    orbit_equal = sum(torch.equal(f, e[0]) + torch.equal(g, e[1]) for f, g, e in
+                      zip(frames4.exact, frames4.hybrid, orbit_eager))
+    _, orbit_replayed = traced(orb)
+    del frames4, orbit_eager
+    compiled_rows["config 4"] = {"replays": 2 * n_orbit, "bitwise": orbit_equal,
+                                 "host_syncs": orbit_syncs,
+                                 "captures": orb.hybrid.compiled.captures, "keys": 3,
+                                 "device_launches": orbit_replayed,
+                                 "pool_mib": pool_mib(orb.hybrid.compiled)}
+    print(f"phase 4n config 4 ({card}; BonsaiOrbit's second pass, {n_orbit} poses {ow}x{oh}): "
+          f"captures {orb.hybrid.compiled.captures} (exact, hybrid, and phase 4l's functional "
+          f"frames of the degenerate poses); frames bitwise the eager "
+          f"ones {orbit_equal}/{2 * n_orbit}; host syncs per pass {orbit_syncs}; launches on "
+          f"the device {orbit_replayed}; graph pool "
+          f"{compiled_rows['config 4']['pool_mib']:.1f} MiB", flush=True)
+    check(orbit_equal == 2 * n_orbit and orbit_syncs == 0 and orb.hybrid.compiled.captures == 3
+          and orbit_replayed == only(K1=n_orbit, K34=n_hyb, K5=n_hyb, K2=n_hyb),
+          f"compiled config 4: {compiled_rows['config 4']}")
+    # config 5: batches 1 and 2 replay phase 4m's graph
+    calls = [(lambda b=b: batch64(b),
+              lambda b=b: batch64.step(torch.full((), 0.3 * b, dtype=torch.float32,
+                                                  device=dev))) for b in (1, 2)]
+    hold(f"config 5 batch step ({VIEWS} views {VIEW_RES}^2 + K8 {VOL5}^3)", batch64.compiled,
+         1, calls, K8=1, K1=1)
+    del er, fr, hr, hr_op, pipe, tdemo, tctx2, pr, hdrs, calls, frender, fpack
+    print(f"phase 4n json {json.dumps(compiled_rows)}", flush=True)
+    print(f"phase 4n compiled frames: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # -- phase 4i: hot reload of K7 on the card ------------------------------
     # a copy of march_field.cu and its headers; the repository's csrc is never
     # edited. The watcher is driven with poll_once (its thread is stopped so
@@ -2307,9 +2703,12 @@ def main() -> int:
         rctx.watcher.stop()
         watched = sorted(os.path.basename(p) for p in rctx.watcher.registry)
 
+        reload_traced = only()
+
         def xor_frame():
-            demo.render(rctx)
-            torch.cuda.synchronize()
+            _, on_device = traced(lambda: demo.render(rctx))
+            for k, v in on_device.items():
+                reload_traced[k] += v
             return rctx.render_backbuffer.texture.clone()
 
         reset_launches()
@@ -2341,14 +2740,16 @@ def main() -> int:
         check(res_back.ok and torch.equal(restored, base), "the restored source's frame differs")
         unedited = mf.render_field(rctx.camera_uniform, demo.gen_time, FIELD_RES, FIELD_RES)
         check(torch.equal(restored, unedited), "the restored frame is not the unedited K7 frame")
-        check(reload_launches == only(K7=4), f"hot reload path launched {reload_launches}")
+        path_check("the hot reload path", reload_traced, reload_launches, K7=4)
         diag = next((ln.strip() for ln in res_bad.error.splitlines() if "error" in ln), "")
     print(f"phase 4i hot reload ({card}; XorDemo {FIELD_RES}^2 on a copy of march_field.cu, "
           f"watching {watched}): edit rebuild {res_edit.seconds:.2f} s -> "
           f"{os.path.basename(res_edit.compiled._name)}, frame changed; syntax error "
           f"{res_bad.seconds:.2f} s, diagnostics \"{diag[:160]}\", frame kept bitwise; restore "
           f"{res_back.seconds:.2f} s (its library built before), frame bitwise the unedited "
-          f"K7 frame; launches {reload_launches}; phase {time.perf_counter() - t_phase:.1f} s",
+          f"K7 frame (each library's frames a graph of its own); launches on the device "
+          f"{reload_traced} (wrappers {reload_launches}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s",
           flush=True)
     reload_s = {"edit": res_edit.seconds, "syntax_error": res_bad.seconds,
                 "restore": res_back.seconds}
@@ -2359,20 +2760,25 @@ def main() -> int:
         sctx = Context(RES, RES, camera=BonsaiDemo.default_camera(1.0),
                        backbuffer_resolution=(RES, RES), device="cuda")
         reset_launches()
-        sctx = run(BonsaiDemo, frames=2, events=orbit_events(2, RES, RES), context=sctx,
-                   quiet=True)
+        state_traced = only()
+
+        def run_traced(**kw):
+            out, on_device = traced(lambda: run(BonsaiDemo, context=sctx, quiet=True, **kw))
+            for k, v in on_device.items():
+                state_traced[k] += v
+            return out
+
+        sctx = run_traced(frames=2, events=orbit_events(2, RES, RES))
         saved = sctx.display_image.clone()
         save_state(sctx, os.path.join(tmp, "state.json"))
-        sctx = run(BonsaiDemo, frames=2, events=orbit_events(2, RES, RES), context=sctx,
-                   quiet=True)
+        sctx = run_traced(frames=2, events=orbit_events(2, RES, RES))
         moved = not torch.equal(sctx.display_image, saved)
         load_state(sctx, os.path.join(tmp, "state.json"))
-        sctx = run(BonsaiDemo, frames=1, context=sctx, quiet=True)
-        torch.cuda.synchronize()
+        sctx = run_traced(frames=1)
         state_launches = launches()
         check(moved and torch.equal(sctx.display_image, saved),
               "the restored state does not reproduce the saved frame bitwise")
-        check(state_launches == only(K1=5), f"state path launched {state_launches}")
+        path_check("the state path", state_traced, state_launches, K1=5)
         sdemo = BonsaiDemo.init(sctx)
         with profiler.trace(os.path.join(tmp, "trace")) as prof:
             sdemo.render(sctx)
@@ -2393,8 +2799,9 @@ def main() -> int:
             filt_err[f"{filt} {oh}x{ow}"] = float(d)
     check(max(filt_err.values()) <= 1e-5, f"present filters on the card vs the CPU: {filt_err}")
     print(f"phase 4j state/trace/present ({card}): save after 2 exact frames {RES}^2, 2 more "
-          f"orbit frames, restore: next frame bitwise the saved one (launches "
-          f"{state_launches}); profiler.trace of one exact frame names march_bonsai_kernel "
+          f"orbit frames, restore: next frame bitwise the saved one through the graph path "
+          f"(launches on the device {state_traced}, wrappers {state_launches}); profiler.trace "
+          f"of one exact frame names march_bonsai_kernel "
           f"({trace_kib:.0f} KiB Chrome trace); present(filter=) on the card vs the CPU, max "
           f"|d| {filt_err} (limit 1e-5); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -2434,12 +2841,16 @@ def main() -> int:
     del sctx, saved, hdr, hdr_cpu
 
     def entry(name, source, replaces, n_launches, err, dev, call, plain_ms, bound, lib=None):
-        """One kernel's line: ``ms`` and ``call_ms`` are one wrapper call's
-        time, ``device_ms`` the kernel's own; ``lib`` the (device, call)
-        times of one PyTorch call computing the same function, where there
-        is one."""
+        """One kernel's line: ``launches`` its wrapper's count on the main
+        path (a compiled frame's warm-up and capture), ``device_launches``
+        the path's launches on the device (every frame, replays included);
+        ``ms`` and ``call_ms`` are one wrapper call's time, ``device_ms`` the
+        kernel's own; ``lib`` the (device, call) times of one PyTorch call
+        computing the same function, where there is one. ``n_launches``:
+        (wrapper's count, device's count)."""
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n_launches, "max_abs_err": err, "ms": call, "device_ms": dev,
+                "launches": n_launches[0], "device_launches": n_launches[1],
+                "max_abs_err": err, "ms": call, "device_ms": dev,
                 "call_ms": call, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": None if lib is None else lib[0],
                 "library_call_ms": None if lib is None else lib[1]}
@@ -2449,33 +2860,38 @@ def main() -> int:
                     "lane_efficiency": k7_lanes[k]} for k in k7_dev}
     kernels = [
         dict(entry("march_bonsai", "vokselis_torch/csrc/march_bonsai.cu",
-                   "vokselis_tpu/ops/pallas/march_bonsai.py:131", exact_launches["K1"],
+                   "vokselis_tpu/ops/pallas/march_bonsai.py:131",
+                   (exact_launches["K1"], path_traced["exact"]["K1"]),
                    worst["K1"], k1_dev, k_ms, p_ms, k1_bound),
              launches_multi_device=mesh_launches["K1"], multi_device=mesh_times,
-             launches_config4=orbit_launches["K1"], config4_ms=orbit_ms,
-             config4_device_ms=orbit_k1_dev, launches_config5=c5f_launches["K1"],
+             launches_config4=path_traced["config 4"]["K1"], config4_ms=orbit_ms,
+             config4_device_ms=orbit_k1_dev,
+             launches_config5=path_traced["config 5 (one full batch)"]["K1"],
              config5={"batch_ms": c5_ms, "per_view_loop_ms": c5_pair["per-view loop"],
                       "batch_device_ms": c5_dev, "batch_host_syncs": c5_syncs,
                       "batch_rays_device_ms": c5_batch_rays[0],
                       "batch_rays_call_ms": c5_batch_rays[1], "batch_k1_device_ms": c5_batch_k1,
                       "peak_mib": c5_peak, "view_device_ms": c5_view_dev,
                       "view_call_ms": c5_view_ms},
-             launches_dense=dense_launches["K1"],
+             launches_dense=path_traced["dense"]["K1"],
              dense={"device_ms": dense_dev, "frame_ms": dense_ms,
                     "skip_share": dense_skipped / dense_steps, "bound_ms": dense_bound[0],
                     "bound_by": dense_bound[1]}),
         entry("resample_slabs", "vokselis_torch/csrc/shear_resample.cu",
-              "vokselis_tpu/ops/pallas/shear_resample.py:117", fast_launches["K3"],
+              "vokselis_tpu/ops/pallas/shear_resample.py:117",
+              (fast_launches["K3"], path_traced["fast"]["K3"]),
               worst["K3"], dev_ms["K3"], k3_ms, k3p_ms, k3_bound,
               (dev_ms["grid_sample K3"], lib3_ms)),
         entry("composite", "vokselis_torch/csrc/shear_resample.cu",
-              "vokselis_tpu/ops/pallas/shear_resample.py:236", fast_launches["K4"],
+              "vokselis_tpu/ops/pallas/shear_resample.py:236",
+              (fast_launches["K4"], path_traced["fast"]["K4"]),
               worst["K4"], dev_ms["K4"], k4_ms, k4p_ms, k4_bound),
         dict(entry("resample_composite", "vokselis_torch/csrc/shear_resample.cu",
-                   "vokselis_tpu/ops/pallas/shear_resample.py:402", fast_launches["K34"],
+                   "vokselis_tpu/ops/pallas/shear_resample.py:402",
+                   (fast_launches["K34"], path_traced["fast"]["K34"]),
                    worst["K34"], k34_main["device"], k34_main["call"], k34p_ms,
                    k34_main["bound"]),
-             launches_config4=orbit_launches["K34"],
+             launches_config4=path_traced["config 4"]["K34"],
              modes={f"I={ii} {t}": {"device_ms": r["device"], "call_ms": r["call"],
                                     "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                                     "texels": r["texels"], "samples": r["samples"],
@@ -2484,34 +2900,42 @@ def main() -> int:
                                     "pair_call_ms": pair34[(ii, t)]["pair call"]}
                     for (ii, t), r in k34.items()}),
         entry("warp_bilinear", "vokselis_torch/csrc/warp2d.cu",
-              "vokselis_tpu/ops/pallas/warp2d.py:218", fast_launches["K6"],
+              "vokselis_tpu/ops/pallas/warp2d.py:218",
+              (fast_launches["K6"], path_traced["fast"]["K6"]),
               worst["K6"], dev_ms["K6"], k6_ms, k6p_ms, k6_bound,
               (dev_ms["grid_sample K6"], lib6_ms)),
         dict(entry("march_tiles", "vokselis_torch/csrc/march_bonsai.cu",
-                   "vokselis_tpu/ops/pallas/march_bonsai.py:1021", hyb_launches["K2"],
+                   "vokselis_tpu/ops/pallas/march_bonsai.py:1021",
+                   (hyb_launches["K2"], path_traced["hybrid"]["K2"]),
                    worst["K2"], hyb_rows[II]["K2 device"], hyb_rows[II]["K2"], k2p_ms,
-                   k2_bound), launches_config4=orbit_launches["K2"]),
+                   k2_bound), launches_config4=path_traced["config 4"]["K2"]),
         # grid_sample computes K5's warp but none of its tile statistics: no library time
         dict(entry("warp_stats", "vokselis_torch/csrc/warp2d.cu",
-                   "vokselis_tpu/ops/pallas/warp2d.py:470", hyb_launches["K5"],
+                   "vokselis_tpu/ops/pallas/warp2d.py:470",
+                   (hyb_launches["K5"], path_traced["hybrid"]["K5"]),
                    worst["K5"], hyb_rows[II]["K5 device"], hyb_rows[II]["K5"], k5p_ms,
                    k5_bound),
-             launches_config4=orbit_launches["K5"],
+             launches_config4=path_traced["config 4"]["K5"],
              modes={f"I={ii}": {"device_ms": hyb_rows[ii]["K5 device"],
                                 "call_ms": hyb_rows[ii]["K5"], "bound_ms": k5_bounds[ii][0],
                                 "bound_by": k5_bounds[ii][1], "ok_pixels": k5_ok[ii],
                                 "texels_tapped": k5_texels[ii]}
                     for ii in (II, II_HYBRID)}),
         dict(entry("march_field", "vokselis_torch/csrc/march_field.cu",
-                   "vokselis_tpu/ops/pallas/march_field.py:61", xor_runs[XOR_RES][1]["K7"],
+                   "vokselis_tpu/ops/pallas/march_field.py:61",
+                   (xor_runs[XOR_RES][1]["K7"], path_traced["xor"]["K7"]),
                    worst["K7"], k7_dev["xor analytic"], k7_ms["xor analytic"],
                    k7p_ms["xor analytic"], k7_bound["xor analytic"]), modes=k7_modes,
-             launches_hot_reload=reload_launches["K7"], rebuild_s=reload_s),
+             launches_hot_reload=reload_traced["K7"], rebuild_s=reload_s),
         entry("genvol", "vokselis_torch/csrc/genvol.cu", "vokselis_tpu/ops/pallas/genvol.py:27",
-              tex_launches["K9"], worst["K9"], k9_dev, k9_ms, k9p_ms, k9_bound),
+              (tex_launches["K9"], tex_launches["K9"]), worst["K9"], k9_dev, k9_ms, k9p_ms,
+              k9_bound),
         dict(entry("gendensity", "vokselis_torch/csrc/genvol.cu",
-                   "vokselis_tpu/ops/pallas/genvol.py:86", c5_launches["K8"], worst["K8"],
-                   k8_dev, k8_ms, k8p_ms, k8_bound), launches_config5=c5f_launches["K8"]),
+                   "vokselis_tpu/ops/pallas/genvol.py:86",
+                   (c5_launches["K8"], path_traced["config 5 (2 batches of 8 views)"]["K8"]),
+                   worst["K8"],
+                   k8_dev, k8_ms, k8p_ms, k8_bound),
+             launches_config5=path_traced["config 5 (one full batch)"]["K8"]),
     ]
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line())

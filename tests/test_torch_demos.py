@@ -21,7 +21,7 @@ import torch
 from vokselis_torch.core.camera import Camera, CameraUniform
 from vokselis_torch.engine.context import Context
 from vokselis_torch.engine.loop import run
-from vokselis_torch.engine.profiler import PassTimer
+from vokselis_torch.engine.profiler import PassTimer, kernel_launches
 from vokselis_torch.media.png import read_png
 from vokselis_torch.models import TrigDemo, XorDemo
 from vokselis_torch.models import xor as xor_model
@@ -224,13 +224,14 @@ def test_orbit_camera_batch_matches_jax():
 
 @pytest.mark.gpu
 def test_xor_demo_launches_k7_once_per_frame_on_gpu(cuda_device):
-    """On a CUDA context each xor frame launches K7 once, both modes give
-    the same frame, and it equals the plain version."""
+    """On a CUDA context each xor frame launches K7 once (counted on the
+    device: replayed frames call no wrapper), both modes give the same
+    frame, and it equals the plain version."""
     ctx = _ctx(XorDemo, 128, 72, "cuda")
-    before = mf.LAUNCHES_FIELD
-    ctx = run(XorDemo, frames=3, context=ctx, quiet=True,
-              events=[None, {"type": "key", "key": "f1", "pressed": True}, None, None])
-    torch.cuda.synchronize()
-    assert mf.LAUNCHES_FIELD == before + 3
+    ctx, counts = kernel_launches(lambda: run(
+        XorDemo, frames=3, context=ctx, quiet=True,
+        events=[None, {"type": "key", "key": "f1", "pressed": True}, None, None]),
+        ["march_field_kernel"])
+    assert counts == {"march_field_kernel": 3}
     hdr = ctx.render_backbuffer.texture
     assert torch.equal(hdr, mf.render_field_plain(ctx.camera_uniform, 0.0, 128, 72))

@@ -24,6 +24,7 @@ from vokselis_torch.core import colors
 from vokselis_torch.core.camera import Camera, CameraUniform
 from vokselis_torch.engine.context import Context
 from vokselis_torch.engine.loop import run
+from vokselis_torch.engine.profiler import kernel_launches
 from vokselis_torch.models import bonsai as bonsai_model
 from vokselis_torch.ops import reference, shear_warp
 from vokselis_torch.ops.cuda import shear_resample as sr
@@ -752,17 +753,24 @@ def test_kernels_match_plain_on_gpu(cuda_device, pose):
 @pytest.mark.gpu
 def test_fast_frame_launches_on_gpu(cuda_device):
     """One fast frame on the card launches the fused slab stage (K3 -> K4
-    in one kernel) and K6 once each, K3 and K4 never, and agrees with the
-    plain path on the card (a rejected call launches nothing)."""
+    in one kernel) and K6 once each, K3 and K4 never: the eager frame
+    through the wrappers, the renderer's frames (its graph's warm-up, then
+    replays) on the device; it agrees with the plain path on the card (a
+    rejected call launches nothing)."""
     r = shear_warp.FastBonsaiRenderer(get_bonsai(64), cuda_device, intermediate=128)
     u = Camera.bonsai(4 / 3).uniform(cuda_device)
     before = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
               warp2d.LAUNCHES_WARP)
-    img = r(u, 160, 120)
+    eager = shear_warp._render_fast(r.packs, u, 160, 120, 128, True)
     torch.cuda.synchronize()
     after = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
              warp2d.LAUNCHES_WARP)
     assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 1, 1)
+    names = ["resample_kernel", "composite_kernel", "resample_composite_kernel", "warp_kernel"]
+    img, counts = kernel_launches(lambda: [r(u, 160, 120) for _ in range(3)][-1], names)
+    assert [counts[n] for n in names] == [0, 0, 3, 3] and torch.equal(img, eager)
+    after = (sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
+             warp2d.LAUNCHES_WARP)
     plain = shear_warp._render_fast(r.packs, u, 160, 120, 128, True, plain=True)
     assert img.shape == (120, 160, 4) and bool(torch.isfinite(img).all())
     assert float((img - plain).abs().max()) <= 2e-3  # K4's 1e-4 through sRGB's slope

@@ -22,8 +22,10 @@ import pytest
 import torch
 
 from vokselis_torch.core.camera import Camera, CameraUniform
+from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.engine.context import Context
 from vokselis_torch.engine.loop import run
+from vokselis_torch.engine.profiler import kernel_launches
 from vokselis_torch.models import bonsai as bonsai_model
 from vokselis_torch.ops import hybrid as hy
 from vokselis_torch.ops import reference, shear_warp
@@ -616,6 +618,7 @@ def test_hybrid_escalation_ladder(monkeypatch):
     r.packs = r.vol = None
     r.dims, r.intermediate, r.budget, r.thresh = 32, 512, 8, 0.0
     r.dense_fallback = False
+    r.compiled = CompiledFrame("routes")
     r.exact = fake_exact
     monkeypatch.setattr(hy, "_render_hybrid", fake_render_hybrid)
     monkeypatch.setattr(hy, "pose_hint", lambda u, w, h, ii, d: hints[ii])
@@ -843,8 +846,10 @@ def test_tiles_last_row_and_column_stay_inside_frame_on_gpu(cuda_device, size, t
 @pytest.mark.gpu
 def test_hybrid_frame_launches_on_gpu(cuda_device):
     """One hybrid frame on the card launches the fused slab stage (K3 ->
-    K4 in one kernel), K5 and K2 once each, and neither K3, K4, K6 nor K1;
-    it agrees with the plain hybrid path."""
+    K4 in one kernel), K5 and K2 once each, and neither K3, K4, K6 nor K1:
+    the eager frame through the wrappers, the renderer's frames (its
+    graph's warm-up, then replays) on the device; it agrees with the plain
+    hybrid path."""
     r = hy.HybridBonsaiRenderer(get_bonsai(64), cuda_device, intermediate=128, budget=8)
     u = Camera.bonsai(4 / 3).uniform(cuda_device)
     assert r.route(u, 160, 120)[0] == "hybrid"
@@ -852,12 +857,18 @@ def test_hybrid_frame_launches_on_gpu(cuda_device):
     before = [getattr(mb, n) for n in names] + [
         sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
         warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP]
-    img = r(u, 160, 120)
+    eager, _, _ = hy._render_hybrid(r.packs, r.vol, u, r.thresh, 160, 120, 128, 8, True)
     torch.cuda.synchronize()
     after = [getattr(mb, n) for n in names] + [
         sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
         warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP]
     assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 0, 1, 1, 0]
+    kernels = ["march_bonsai_kernel", "march_tiles_kernel", "resample_kernel",
+               "composite_kernel", "resample_composite_kernel", "warp_stats_kernel",
+               "warp_kernel"]
+    img, counts = kernel_launches(lambda: [r(u, 160, 120) for _ in range(3)][-1], kernels)
+    assert [counts[k] for k in kernels] == [0, 3, 0, 0, 3, 3, 0]
+    assert torch.equal(img, eager)
     plain, _, _ = hy._render_hybrid(r.packs, r.vol, u, r.thresh, 160, 120, 128, 8, True,
                                     plain=True)
     assert img.shape == (120, 160, 4) and bool(torch.isfinite(img).all())

@@ -20,6 +20,7 @@ import torch
 from vokselis_torch.core import geometry
 from vokselis_torch.core.camera import Camera, CameraUniform
 from vokselis_torch.core.colors import bonsai_transfer_fast_soa, linear_to_srgb
+from vokselis_torch.engine.profiler import kernel_launches
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda import march_bonsai as mb
 from vokselis_torch.volume.io import get_bonsai
@@ -360,11 +361,16 @@ def test_kernel_matches_plain_on_gpu(cuda_device, volume, pose):
 
 @pytest.mark.gpu
 def test_launch_counting_on_gpu(cuda_device):
+    """The wrapper counts each launch it makes: a renderer's first call
+    launches K1 for its graph's warm-up and once more into the graph it
+    captures; a replay calls no wrapper, and its launch shows on the
+    device."""
     r = mb.BonsaiRenderer(get_bonsai(64), cuda_device)
     u = Camera(aspect=1.0, **POSES["bench"]).uniform(cuda_device)
     mb.LAUNCHES = 0
-    for _ in range(3):
-        r(u, 40, 24)
+    _, counts = kernel_launches(lambda: [r(u, 40, 24) for _ in range(3)],
+                                ["march_bonsai_kernel"])
+    assert mb.LAUNCHES == 2 and counts == {"march_bonsai_kernel": 3}
     render, pack = mb.build_renderer(get_bonsai(64), cuda_device, with_overflow=True)
     img, ovf = render(pack, u, 40, 24)
     torch.cuda.synchronize()

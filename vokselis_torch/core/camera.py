@@ -16,7 +16,10 @@ hold:
 
 Matrices are built on the host in numpy (row-major: ``clip = proj_view @
 [p, 1]``) and handed to the device once per camera change as a
-:class:`CameraUniform` of float32 tensors.
+:class:`CameraUniform` of float32 tensors, uploaded without a synchronizing
+copy. :meth:`Camera.uniform` also attaches the host arrays as ``host_np``
+(the JAX package's host mirrors), so that host-side pose classification
+reads no device value.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from vokselis_torch.core.uniforms import upload
 
 ZFAR = 100.0
 ZNEAR = 0.1
@@ -86,21 +91,27 @@ class CameraUniform:
     package's stacked pytree does (``vokselis_tpu/parallel/sharding.py``
     ``orbit_camera_batch``): :meth:`stack` builds one, ``len`` counts its
     views, an int index gives one view's unbatched uniform and a slice a
-    batch of a block of views."""
+    batch of a block of views.
+
+    ``host_np`` is ``(view_position, proj_view, inv_proj)`` as the float32
+    numpy arrays the tensors were uploaded from, or None. Only
+    :meth:`Camera.uniform` attaches it (the JAX package's
+    ``vokselis_tpu/core/camera.py:178-182``); :meth:`from_numpy`,
+    :meth:`stack` and indexing give uniforms without it, as the JAX
+    package's rebuilt uniforms lack it."""
 
     view_position: torch.Tensor  # (4,) eye.xyz, 1; (V, 4) batched
     proj_view: torch.Tensor  # (4, 4) row-major; (V, 4, 4) batched
     inv_proj: torch.Tensor  # (4, 4) inverse of proj_view (name kept from reference)
+    host_np: tuple | None = field(default=None, repr=False, compare=False)
 
     @classmethod
     def from_numpy(cls, view_position, proj_view, inv_proj, device):
         """Upload host arrays (e.g. another renderer's camera state, one view
-        or a stacked batch) as the float32 payload on ``device``."""
-
-        def up(x):
-            return torch.tensor(np.asarray(x, np.float32), device=device)
-
-        return cls(up(view_position), up(proj_view), up(inv_proj))
+        or a stacked batch) as the float32 payload on ``device``, without a
+        synchronizing copy (:func:`vokselis_torch.core.uniforms.upload`)."""
+        return cls(*(upload(np.asarray(x, np.float32), device)
+                     for x in (view_position, proj_view, inv_proj)))
 
     @classmethod
     def stack(cls, uniforms):
@@ -110,6 +121,11 @@ class CameraUniform:
             raise ValueError("stack takes one or more unbatched uniforms")
         return cls(*(torch.stack([getattr(u, name) for u in uniforms])
                      for name in ("view_position", "proj_view", "inv_proj")))
+
+    def tensors(self) -> tuple:
+        """``(view_position, proj_view, inv_proj)``: what a compiled frame
+        copies into its graph's static inputs."""
+        return self.view_position, self.proj_view, self.inv_proj
 
     @property
     def batched(self) -> bool:
@@ -204,12 +220,17 @@ class Camera:
         return (proj.astype(np.float64) @ view.astype(np.float64)).astype(np.float32)
 
     def uniform(self, device) -> CameraUniform:
+        """This pose's :class:`CameraUniform` on ``device``, with its host
+        mirrors ``host_np`` attached."""
         pv = self.build_projection_view_matrix()
         inv = np.linalg.inv(pv.astype(np.float64)).astype(np.float32)
         vp = np.asarray(
             [self.eye[0], self.eye[1], self.eye[2], 1.0], np.float32
         )
-        return CameraUniform.from_numpy(vp, pv, inv, device)
+        u = CameraUniform.from_numpy(vp, pv, inv, device)
+        # host mirrors: pose_hint reads these instead of the device
+        u.host_np = (vp, pv, inv)
+        return u
 
     # convenience: the reference per-demo poses
     @classmethod

@@ -2,14 +2,29 @@
 
 In the reference this is a 48-byte UBO re-uploaded every frame
 (src/context/global_ubo.rs:47-49). Here it is a dataclass of small tensors on
-the render device, rebuilt by :meth:`GlobalUniform.with_` each frame.
+the render device, rebuilt by :meth:`GlobalUniform.with_` each frame. Host
+values reach a card through :func:`upload`, which never makes the host wait.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
+
+
+def upload(x, device, dtype=torch.float32) -> torch.Tensor:
+    """Host values (a number, a sequence, a numpy array) as a new tensor of
+    ``dtype`` on ``device``, without a synchronizing copy: for a card they
+    are staged in pinned memory and copied ``non_blocking``, and the
+    caching host allocator keeps the staging block until the copy has run
+    (each call stages its own block). Other devices get a plain copy."""
+    device = torch.device(device)
+    host = torch.tensor(np.asarray(x), dtype=dtype)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 @dataclass
@@ -32,10 +47,10 @@ class GlobalUniform:
         """
 
         def f32(v):
-            return torch.tensor(v, dtype=torch.float32, device=device)
+            return upload(v, device)
 
         def u32(v):
-            return torch.tensor(v, dtype=torch.uint32, device=device)
+            return upload(v, device, torch.uint32)
 
         return cls(
             pos=f32([0.0, 0.0, 0.0]),
@@ -52,12 +67,18 @@ class GlobalUniform:
         return self.pos.device
 
     def with_(self, **kw) -> "GlobalUniform":
+        """A copy with the given fields replaced: tensors are taken as they
+        are (cast to the field's dtype on this device), host values are
+        uploaded without a synchronizing copy (:func:`upload`)."""
         conv = {}
         for k, v in kw.items():
-            if k in ("frame", "mouse_pressed"):
-                conv[k] = torch.tensor(int(v), dtype=torch.uint32, device=self.device)
+            dtype = torch.uint32 if k in ("frame", "mouse_pressed") else torch.float32
+            if isinstance(v, torch.Tensor):
+                conv[k] = v.to(device=self.device, dtype=dtype)
+            elif dtype == torch.uint32:
+                conv[k] = upload(int(v), self.device, dtype)
             else:
-                conv[k] = torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                conv[k] = upload(v, self.device, dtype)
         return replace(self, **conv)
 
     def __str__(self):

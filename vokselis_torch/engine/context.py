@@ -10,10 +10,11 @@ Rebuilds the reference's Context (src/context.rs:38-359) for PyTorch:
   1280x720 regardless of window size, faithfully kept);
 - ``update()`` refreshes the global uniform (time/dt/frame/resolution +
   input, context.rs:225-236) and the camera uniform when dirty
-  (camera.rs:62-71);
+  (camera.rs:62-71), uploading without a synchronizing copy;
 - ``render()`` is the present pass: ACES + sRGB into the window-sized
   display image AND the rgb capture image — one op returning identical
-  bytes for both targets (context.rs:251-297);
+  bytes for both targets (context.rs:251-297), replayed from a CUDA graph
+  on a card (:class:`Presenter`);
 - ``capture_frame()`` is the screenshot path: uint8 quantize + host copy
   (src/context/screenshot.rs:37-77 — no 256-byte row padding needed here,
   but ImageDimensions keeps the even-dimension rule for encoders);
@@ -36,7 +37,8 @@ from vokselis_torch.core.uniforms import GlobalUniform
 from vokselis_torch.engine.compiler import KernelCompiler
 from vokselis_torch.engine.input import Input
 from vokselis_torch.engine.reload import Watcher
-from vokselis_torch.ops.present import present, to_uint8
+from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.ops.present import FILTERS, present, to_uint8
 from vokselis_torch.utils.misc import ImageDimensions
 
 
@@ -65,6 +67,32 @@ class HdrBackBuffer:
                 f"is {tuple(self.texture.shape)} on {self.texture.device}"
             )
         self.texture = img
+
+
+class Presenter:
+    """:func:`vokselis_torch.ops.present.present` and ``to_uint8`` as
+    compiled frames (the JAX package jits both): on a card each call
+    replays a CUDA graph, one per ``(out_height, out_width, tonemap,
+    filter)`` and input shape, and returns a fresh image; elsewhere it
+    calls the function. The module functions are the eager passes."""
+
+    def __init__(self):
+        self.compiled = CompiledFrame("Presenter")
+
+    def __call__(self, hdr, out_height: int | None = None, out_width: int | None = None,
+                 tonemap: bool = True, filter: str = "linear"):
+        if filter not in FILTERS:
+            raise ValueError(f"filter must be one of {tuple(FILTERS)}, got {filter!r}")
+        out_h = out_height or hdr.shape[0]
+        out_w = out_width or hdr.shape[1]
+
+        def fn(x):
+            return present(x, out_h, out_w, tonemap, filter)
+
+        return self.compiled(("present", out_h, out_w, bool(tonemap), filter), fn, (hdr,))
+
+    def to_uint8(self, img):
+        return self.compiled(("to_uint8",), to_uint8, (img,))
 
 
 def renderer_info(device) -> str:
@@ -116,6 +144,7 @@ class Context:
             self.device, backbuffer_resolution or HdrBackBuffer.DEFAULT_RESOLUTION
         )
         self.display_image = None  # last presented frame (window-sized)
+        self.presenter = Presenter()
         self.shader_compiler = KernelCompiler()
         self.watcher = Watcher(autostart=watch, compiler=self.shader_compiler)
         self.input = Input()
@@ -152,7 +181,7 @@ class Context:
     def render(self):
         """Tonemap the backbuffer to the window-sized display image; the
         same bytes serve the capture target. Returns the display image."""
-        self.display_image = present(
+        self.display_image = self.presenter(
             self.render_backbuffer.texture,
             out_height=self.height,
             out_width=self.width,
@@ -165,5 +194,5 @@ class Context:
         uint8 RGBA rows (even-dimension cropped for encoders)."""
         if self.display_image is None:
             self.render()
-        frame = to_uint8(self.display_image).cpu().numpy()
+        frame = self.presenter.to_uint8(self.display_image).cpu().numpy()
         return frame[: self.dims.height, : self.dims.width]

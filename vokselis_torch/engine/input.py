@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import torch
+from vokselis_torch.core.uniforms import upload
 
 MOVE_STEP = 0.01  # input.rs:92-107
 
@@ -69,7 +69,7 @@ class Input:
         dz = (MOVE_STEP if self.slash_pressed else 0.0) - (
             MOVE_STEP if self.right_shift_pressed else 0.0
         )
-        step = torch.tensor([dx, dy, dz], dtype=torch.float32, device=uniform.device)
+        step = upload([dx, dy, dz], uniform.device)
         return uniform.with_(
             pos=uniform.pos + step,
             mouse=self.mouse,

@@ -13,12 +13,16 @@
 - :func:`trace` captures a device trace around a block (the JAX package's
   ``jax.profiler.trace``): ``torch.profiler`` with CPU and, where there is
   a card, CUDA activities, written as a Chrome trace.
+- :func:`kernel_launches` counts the kernels a call ran on the card by
+  name, from such a trace: a replayed CUDA graph calls no launch wrapper,
+  so its kernels are counted here.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import re
 import tempfile
 import time
 
@@ -121,3 +125,25 @@ def trace(logdir: str | None = None):
     prof.trace_path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(prof.trace_path)
     print(f"profiler trace written to {prof.trace_path}")
+
+
+def kernel_launches(fn, names):
+    """Run ``fn()`` under ``torch.profiler`` and count the device kernels
+    whose name is one of ``names`` (``__global__`` function names), those
+    of replayed CUDA graphs included. Returns ``(fn's result, {name:
+    launches})``; without a card every count is 0."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    pattern = re.compile(r"(?<!\w)(" + "|".join(map(re.escape, names)) + r")(?!\w)")
+    counts = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = pattern.search(e.name)
+            if m:
+                counts[m.group(1)] += 1
+    return out, counts

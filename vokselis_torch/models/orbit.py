@@ -25,7 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from vokselis_torch.ops.hybrid import HybridBonsaiRenderer
-from vokselis_torch.parallel.sharding import orbit_camera_batch
+from vokselis_torch.parallel.sharding import orbit_camera_batch, orbit_cameras
 from vokselis_torch.volume.io import get_bonsai
 
 WIDTH, HEIGHT = 1920, 1080
@@ -77,9 +77,11 @@ class BonsaiOrbit:
     """Config 4's renderers over one volume: ``exact`` (K1) and ``hybrid``
     (K34, K5 and K2; K1 at degenerate poses), both on ``device``, and the
     orbit's ``poses``, a list of one uniform per pose (the caller's uniforms
-    or batch, by default :func:`orbit_poses` at this frame): each pose
-    routes on its own. ``vol``: a (D, D, D) uint8 volume, by default the 256^3
-    bonsai."""
+    or batch, by default each pose's own ``Camera.uniform()``, as
+    ``bench.py:283-286`` makes them, whose host mirrors let the hybrid
+    route the pose without a device read): each pose routes on its own. On a card the poses replay two
+    CUDA graphs, the exact frame's and the hybrid frame's. ``vol``: a
+    (D, D, D) uint8 volume, by default the 256^3 bonsai."""
 
     def __init__(self, vol=None, device="cuda", width: int = WIDTH, height: int = HEIGHT,
                  intermediate: int = INTERMEDIATE, budget: int = BUDGET, poses=None):
@@ -88,8 +90,9 @@ class BonsaiOrbit:
         self.hybrid = HybridBonsaiRenderer(get_bonsai() if vol is None else vol, self.device,
                                            intermediate=intermediate, budget=budget)
         self.exact = self.hybrid.exact
-        self.poses = list(orbit_poses(N_POSES, width, height, device=self.device)
-                          if poses is None else poses)
+        self.poses = ([c.uniform(self.device)
+                       for c in orbit_cameras(N_POSES, aspect=width / height)]
+                      if poses is None else list(poses))
 
     @torch.no_grad()
     def __call__(self) -> OrbitFrames:

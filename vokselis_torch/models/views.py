@@ -8,7 +8,9 @@ exact march, each ray allowed the full diagonal of steps: one ray pass over
 the batched uniform of the views and one K1 launch for all of them (whose
 occupancy table of the new volume is built first), the counterpart of the
 JAX package's ``vmap`` of its render. The step uploads nothing from the host
-(t is filled on the device), so it can be captured in a CUDA graph. With a ``mesh``
+(t is filled on the device), and on a card it replays as one CUDA graph
+(:meth:`ViewsBatch.step` is the eager step), t copied into the graph's 0-d
+input. With a ``mesh``
 (:func:`vokselis_torch.parallel.make_mesh`) the views are sharded over its
 'views' dimension (:func:`vokselis_torch.parallel.render_views_sharded`), as
 ``bench.py`` shards them over the JAX mesh. The TPU's slab-layout repack has
@@ -22,6 +24,7 @@ import math
 
 import torch
 
+from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.ops.cuda.genvol import generate_density_u8
 from vokselis_torch.parallel.sharding import (
     build_default_renderer,
@@ -53,13 +56,14 @@ class ViewsBatch:
         self.mesh = mesh
         self.max_steps = full_diagonal(dims)
         self.cams = orbit_camera_batch(n_views, device=self.device)
+        self.compiled = CompiledFrame("ViewsBatch")
 
     @torch.no_grad()
-    def __call__(self, b=0):
-        """Batch step ``b``: ``(volume, views)``, the (D, D, D) uint8 volume
-        and the (n, view_res, view_res, 4) float32 frames (with a mesh, this
-        rank's block of them)."""
-        t = torch.full((), 0.3 * b, dtype=torch.float32, device=self.device)
+    def step(self, t):
+        """The eager batch step at time ``t`` (a 0-d float32 tensor on the
+        device): ``(volume, views)``, the (D, D, D) uint8 volume and the
+        (n, view_res, view_res, 4) float32 frames (with a mesh, this rank's
+        block of them)."""
         vol = generate_density_u8(t, self.dims)  # bench.py:348-350
         render, pack = build_default_renderer(vol, self.device)
         res, steps = self.view_res, self.max_steps
@@ -67,3 +71,13 @@ class ViewsBatch:
             return vol, render_views_sharded(self.mesh, render, pack, self.cams, res, res,
                                              max_steps=steps)
         return vol, render(pack, self.cams, res, res, steps)
+
+    def __call__(self, b=0):
+        """Batch step ``b`` (t = 0.3 b): :meth:`step`, replayed from its CUDA
+        graph on a card without a mesh (sharded steps stay eager: their
+        collectives are not captured)."""
+        t = torch.full((), 0.3 * b, dtype=torch.float32, device=self.device)
+        if self.mesh is not None:
+            return self.step(t)
+        return self.compiled(("step", self.n_views, self.view_res, self.dims), self.step, (t,),
+                             reads=self.cams)

@@ -31,14 +31,18 @@ from pathlib import Path
 import torch
 
 from vokselis_torch.core.camera import Camera
+from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.engine.demo import Demo
 from vokselis_torch.engine.profiler import PassTimer
 from vokselis_torch.ops.cuda import march_field
 from vokselis_torch.ops.cuda.build import load_library
+from vokselis_torch.ops.reference import MAX_STEPS_COMPUTE
 from vokselis_torch.volume import fields_soa
 
 # block rows of the march kernel in each dispatch mode
 MODE_TILE_H = {"SinglePass": 8, "Tile": 16}
+# the demo's field, shading and grid (the quantized 256^3 noise volume)
+FIELD, SHADING, DIMS = "noise", "xor", 256
 
 
 class FieldPipeline:
@@ -52,7 +56,14 @@ class FieldPipeline:
     one (an edited copy with its headers beside it) is built here, and a
     failed first build raises. ``lib`` is the K7 library the pipeline
     launches (None: the module's own) and ``fields`` the plain version's
-    field module; :meth:`reload` rebinds the one of the device's route."""
+    field module; :meth:`reload` rebinds the one of the device's route.
+
+    On a card :meth:`render` replays a CUDA graph of the frame
+    (:func:`march_field.field_rays` + K7; ``compiled``), one per width,
+    height and ``tile_h`` (the field, shading, normals, quantization, grid
+    and step count are the pipeline's), with the time copied into the
+    graph's 0-d input: a new time replays. :func:`march_field.render_field`
+    is the eager frame."""
 
     def __init__(self, device, grad: str | None = None, source=None):
         self.device = torch.device(device)
@@ -60,6 +71,7 @@ class FieldPipeline:
         self.source = march_field.SOURCE if source is None else Path(source)
         self.fields = fields_soa
         self.lib = None
+        self.compiled = CompiledFrame("FieldPipeline")
         if self.device.type == "cuda" and source is not None:
             self.lib = march_field.bind(load_library(self.source)[0])
 
@@ -72,19 +84,29 @@ class FieldPipeline:
 
     def reload(self, module):
         """``module``: a rebuilt K7 library (CUDA) or a re-imported field
-        module (CPU)."""
+        module (CPU). The frames are captured anew, as the JAX package
+        re-jits after a reload: a graph keeps the old kernel's function."""
         if self.device.type == "cuda":
             self.lib = march_field.bind(module)
         else:
             self.fields = module
+        self.compiled.clear()
 
     def render(self, camera_uniform, time, width: int, height: int,
                tile_h: int = march_field.DEFAULT_TILE_H):
+        """The frame at ``time`` (a Python float or a 0-d tensor on the
+        uniform's device)."""
         cuda = self.device.type == "cuda"
-        return march_field.render_field(camera_uniform, time, width, height, field="noise",
-                                        shading="xor", tile_h=tile_h, grad=self.grad,
-                                        lib=self.lib if cuda else None,
-                                        fields=None if cuda else self.fields)
+        lib, fields = (self.lib, None) if cuda else (None, self.fields)
+
+        def fn(u, t):
+            return march_field.render_field(u, t, width, height, field=FIELD, shading=SHADING,
+                                            dims=DIMS, max_steps=MAX_STEPS_COMPUTE,
+                                            tile_h=tile_h, grad=self.grad, lib=lib,
+                                            fields=fields)
+
+        key = (width, height, FIELD, SHADING, self.grad, True, tile_h, DIMS, MAX_STEPS_COMPUTE)
+        return self.compiled(key, fn, (camera_uniform, time))
 
 
 class XorDemo(Demo):

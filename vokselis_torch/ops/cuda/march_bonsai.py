@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from vokselis_torch.core import geometry
+from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
@@ -407,17 +408,45 @@ def volume_tensor(vol_u8, device) -> torch.Tensor:
     return vol.to(device=torch.device(device)).contiguous()
 
 
+def render_frame(vol, camera_uniform, width: int, height: int,
+                 max_steps: int = MAX_STEPS_BONSAI, srgb: bool = True):
+    """The exact frame, eagerly (the JAX package's ``_render_bonsai_pallas``
+    un-jitted): :func:`geometry.rays_fragment_soa`, then
+    :func:`render_bonsai_rays_cuda` (one K1 launch on a card, for every view
+    of a batched uniform). :class:`BonsaiRenderer` and
+    :func:`build_renderer` replay it from a CUDA graph; this is the frame
+    they are held to."""
+    eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
+    return render_bonsai_rays_cuda(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
+
+
+def _exact_frame(vol, compiled, camera_uniform, width, height, max_steps, srgb):
+    """:func:`render_frame` of ``vol`` through ``compiled``, one graph per
+    ``(width, height, max_steps, srgb)`` and uniform shape."""
+    def fn(u):
+        return render_frame(vol, u, width, height, max_steps, srgb)
+
+    return compiled(("exact", width, height, max_steps, bool(srgb)), fn, (camera_uniform,),
+                    reads=vol)
+
+
 class BonsaiRenderer:
     """Holds the volume on its device, and on a card builds its occupancy
     table; call to render (the analog of the reference's VolumeTexture +
-    RaycastPipeline pair, examples/bonsai/raycast.rs:12-141)."""
+    RaycastPipeline pair, examples/bonsai/raycast.rs:12-141). On a card a
+    call replays the frame's CUDA graph (``compiled``, one per width,
+    height, max_steps and srgb; see :mod:`vokselis_torch.engine.compiled`);
+    :func:`render_frame` is the eager frame. ``compiled`` may be shared
+    with another renderer of the same volume (the hybrid's), whose graphs
+    then share its memory pool."""
 
-    def __init__(self, vol_u8, device):
+    def __init__(self, vol_u8, device, compiled: CompiledFrame | None = None):
         self.device = torch.device(device)
         self.vol = volume_tensor(vol_u8, self.device)
         if self.vol.is_cuda:
             volume_occupancy(self.vol)
         self.dims = self.vol.shape[0]
+        self.compiled = CompiledFrame("BonsaiRenderer") if compiled is None else compiled
         # a windowless kernel cannot overflow; kept for API parity
         self.last_overflow = 0
 
@@ -434,9 +463,8 @@ class BonsaiRenderer:
         views in one launch. ``strict`` is accepted for API parity and does
         nothing: every pixel of this kernel is exact, there is no window
         overflow to re-render."""
-        eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
-        return render_bonsai_rays_cuda(self.vol, eye, dxyz,
-                                       max_steps=max_steps, srgb=srgb)
+        return _exact_frame(self.vol, self.compiled, camera_uniform, width, height,
+                            max_steps, srgb)
 
 
 def build_renderer(vol_u8, device, with_overflow: bool = False):
@@ -447,14 +475,15 @@ def build_renderer(vol_u8, device, with_overflow: bool = False):
     ray pass and one K1 launch: the counterpart of the JAX package's
     ``vmap`` of its render over a view batch.
     ``with_overflow=True`` makes render_fn return ``(img, 0)``: the kernel
-    has no window that could overflow."""
+    has no window that could overflow. On a card render_fn replays one CUDA
+    graph per static key, as :class:`BonsaiRenderer` does; another ``pack``
+    than the last one captures again."""
     pack = volume_tensor(vol_u8, device)
+    compiled = CompiledFrame("build_renderer")
 
     def render(pk, camera_uniform, width, height,
                max_steps=MAX_STEPS_BONSAI, srgb=True):
-        eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
-        img = render_bonsai_rays_cuda(pk, eye, dxyz, max_steps=max_steps,
-                                      srgb=srgb)
+        img = _exact_frame(pk, compiled, camera_uniform, width, height, max_steps, srgb)
         return (img, 0) if with_overflow else img
 
     return render, pack

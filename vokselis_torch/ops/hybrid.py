@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.ops.cuda.march_bonsai import (
     BonsaiRenderer,
     render_bonsai_tiles_into,
@@ -175,7 +176,12 @@ class HybridBonsaiRenderer:
     :class:`vokselis_torch.ops.cuda.march_bonsai.BonsaiRenderer`.
     ``last_overflow`` is kept for API parity and stays 0 (no window).
     ``exact`` is the K1 renderer of the same volume tensor, which renders
-    degenerate poses and dense volumes."""
+    degenerate poses and dense volumes. The route is chosen on the host;
+    on a card each route replays a CUDA graph of its frame (``compiled``,
+    which ``exact`` shares, so that all the renderer's graphs share one
+    memory pool): :func:`_render_hybrid` for "hybrid" and "escalated",
+    the exact frame for "exact" and "dense". :func:`_render_hybrid` is
+    the eager frame."""
 
     def __init__(self, vol_u8, device, intermediate: int = 512,
                  budget: int = DEFAULT_BUDGET, thresh: float = DEFAULT_THRESH):
@@ -183,7 +189,8 @@ class HybridBonsaiRenderer:
         vol_np = (vol_u8.detach().cpu().numpy() if isinstance(vol_u8, torch.Tensor)
                   else np.asarray(vol_u8))
         self.packs = prepare_fast_volume(vol_np, self.device)
-        self.exact = BonsaiRenderer(vol_np, self.device)
+        self.compiled = CompiledFrame("HybridBonsaiRenderer")
+        self.exact = BonsaiRenderer(vol_np, self.device, compiled=self.compiled)
         self.vol = self.exact.vol
         self.dims = int(self.vol.shape[0])
         self.intermediate = intermediate
@@ -200,8 +207,9 @@ class HybridBonsaiRenderer:
         intermediate, budget)`` with mode "dense" or "exact" (the K1 frame;
         intermediate and budget None), "hybrid", or "escalated" (a pose
         degenerate at the base intermediate that is not at 768 or 1024,
-        with 1.5x the budget). Reads the camera uniform on the host through
-        :func:`pose_hint` unless ``hint=(_, _, degenerate)`` is given."""
+        with 1.5x the budget). Classifies the pose on the host through
+        :func:`pose_hint` unless ``hint=(_, _, degenerate)`` is given: from a
+        :meth:`Camera.uniform`'s host mirrors without a device read."""
         if self.dense_fallback:
             return "dense", None, None
         degen = (hint if hint is not None else
@@ -228,23 +236,44 @@ class HybridBonsaiRenderer:
                        if route is None else route)
         if mode in ("dense", "exact"):
             return self.exact(camera_uniform, width, height, max_steps, srgb), 0
+        return self._hybrid_frame((self.packs, self.vol), camera_uniform, width, height, ii,
+                                  b, srgb, max_steps, False), 0
+
+    def _hybrid_frame(self, pk, camera_uniform, width, height, ii, budget, srgb, max_steps,
+                      with_degraded):
+        """:func:`_render_hybrid` of the pack ``pk`` through :attr:`compiled`:
+        one graph per ``(width, height, intermediate, budget, srgb,
+        max_steps)`` (the pair mode and the threshold follow from them and
+        the renderer), which returns the image, and with ``with_degraded``
+        also :func:`traced_degenerate`'s flag, computed in the graph."""
+        packs, vol = pk
         pair = _pair_mode(self.dims, width, height)
-        img, ovf, _ = _render_hybrid(self.packs, self.vol, camera_uniform, self.thresh,
-                                     width, height, ii, b, srgb, max_steps, pair)
-        return img, ovf
+        thresh = self.thresh
+
+        def fn(u):
+            img = _render_hybrid(packs, vol, u, thresh, width, height, ii, budget, srgb,
+                                 max_steps, pair)[0]
+            return (img, traced_degenerate(u, self.dims)) if with_degraded else img
+
+        key = ("hybrid", width, height, ii, budget, bool(srgb), max_steps, pair, thresh,
+               with_degraded)
+        return self.compiled(key, fn, (camera_uniform,), reads=pk)
 
     def functional(self):
         """``(render, pack)`` for callers that render many frames without the
-        host-side pose classification: ``render(pack, camera_uniform,
+        host-side pose classification (the JAX package's builders "for jit
+        pipelines where the camera is TRACED"): ``render(pack, camera_uniform,
         width, height, hint=None, max_steps=, srgb=, budget=None,
         with_degraded=True)`` -> ``(img, ovf, degraded)`` (``(img, ovf)``
         with ``with_degraded=False``). It never escalates nor falls back:
         ``degraded`` (a 0-d bool tensor, :func:`traced_degenerate`) marks
         frames whose pose breaks the shear-warp factorization, whose pixels
         are outside the error contract. ``hint`` is accepted for API parity
-        (the TPU's warp windows) and unused. For a dense volume the render
-        is the exact kernel (:attr:`exact`, which holds ``pack``'s volume
-        tensor) and ``degraded`` is False."""
+        (the TPU's warp windows) and unused. On a card render replays one
+        CUDA graph per static key, the flag computed in it; it never reads
+        the device on the host. For a dense volume the render is the exact
+        kernel (:attr:`exact`, which holds ``pack``'s volume tensor) and
+        ``degraded`` is False."""
         pack = (self.packs, self.vol)
 
         if self.dense_fallback:
@@ -261,14 +290,10 @@ class HybridBonsaiRenderer:
         def render(pk, camera_uniform, width, height, hint=None,
                    max_steps=MAX_STEPS_BONSAI, srgb=True, budget=None,
                    with_degraded=True):
-            packs, vol = pk
-            img, ovf, _ = _render_hybrid(packs, vol, camera_uniform, self.thresh, width,
-                                         height, self.intermediate,
-                                         self.budget if budget is None else budget, srgb,
-                                         max_steps, _pair_mode(self.dims, width, height))
-            if with_degraded:
-                return img, ovf, traced_degenerate(camera_uniform, self.dims)
-            return img, ovf
+            out = self._hybrid_frame(pk, camera_uniform, width, height, self.intermediate,
+                                     self.budget if budget is None else budget, srgb,
+                                     max_steps, with_degraded)
+            return (out[0], 0, out[1]) if with_degraded else (out, 0)
 
         return render, pack
 

@@ -9,7 +9,8 @@ src/context/present_pipeline.rs:36-112). Here that is an optional resize
 followed by ``srgb(ACES(x))`` (the vectorized ceil-select sRGB form the
 present shader uses), returned once — the two wgpu targets receive
 identical bytes. Plain torch: the JAX package computes this outside any
-Pallas kernel too.
+Pallas kernel too. :class:`vokselis_torch.engine.context.Presenter` replays the pass
+from a CUDA graph on a card, as the JAX package jits it.
 """
 
 from __future__ import annotations
@@ -184,3 +185,4 @@ def to_uint8(img):
     """Quantize a [0,1] float image to uint8 (the Rgba8Unorm capture target,
     src/context.rs:339-359): round-to-nearest like the GPU's unorm store."""
     return torch.clamp(torch.round(img * 255.0), 0, 255).to(torch.uint8)
+

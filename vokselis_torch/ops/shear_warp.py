@@ -44,6 +44,7 @@ import torch
 
 from vokselis_torch.core import geometry
 from vokselis_torch.core.colors import linear_to_srgb
+from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.ops.cuda import shear_resample, warp2d
 from vokselis_torch.ops.cuda.march_bonsai import volume_tensor
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
@@ -421,11 +422,17 @@ def pose_hint(camera_uniform, width: int, height: int, intermediate: int,
     reads it. The window buckets size the TPU warp's VMEM windows; this
     port's warp has none and does not use them.
 
-    Reads the camera uniform on the host (one copy per call); results are
-    cached by the uniform's bytes."""
-    vp_a = camera_uniform.view_position.detach().cpu().numpy()
-    pv_a = camera_uniform.proj_view.detach().cpu().numpy().astype(np.float64)
-    ip_a = camera_uniform.inv_proj.detach().cpu().numpy()
+    Reads the uniform's host mirrors ``host_np`` when it carries them (a
+    :meth:`Camera.uniform`), and otherwise its tensors on the device (three
+    copies to the host), as the JAX package does (shear_warp.py:738-745);
+    results are cached by the uniform's bytes."""
+    host = getattr(camera_uniform, "host_np", None)
+    if host is not None:
+        vp_a, pv_a, ip_a = host
+    else:
+        vp_a, pv_a, ip_a = (t.detach().cpu().numpy() for t in (
+            camera_uniform.view_position, camera_uniform.proj_view, camera_uniform.inv_proj))
+    pv_a = np.asarray(pv_a, np.float64)
     key = (pv_a.tobytes(), bytes(np.asarray(vp_a, np.float64)),
            width, height, intermediate, d)
     cached = _HINT_CACHE.get(key)
@@ -561,35 +568,50 @@ def pose_hint(camera_uniform, width: int, height: int, intermediate: int,
     return out
 
 
+def _fast_frame(pack, compiled, camera_uniform, width, height, intermediate, srgb):
+    """:func:`_render_fast` of ``pack`` through ``compiled``, one graph per
+    ``(width, height, intermediate, srgb)``, the JAX package's static
+    arguments of ``_render_fast`` less the TPU's warp windows."""
+    def fn(u):
+        return _render_fast(pack, u, width, height, intermediate, srgb)
+
+    return compiled(("fast", width, height, intermediate, bool(srgb)), fn, (camera_uniform,),
+                    reads=pack)
+
+
 class FastBonsaiRenderer:
     """renderer="fast": whole-frame shear-warp approximation. Holds the
     half-shifted per-axis packs and occupancy tables on ``device``; call
     like :class:`vokselis_torch.ops.cuda.march_bonsai.BonsaiRenderer`.
     Degenerate poses (see :func:`pose_hint`) still render fast; the hybrid
-    renderer is the one that routes them to the exact kernel."""
+    renderer is the one that routes them to the exact kernel. On a card a
+    call replays the frame's CUDA graph (``compiled``); :func:`_render_fast`
+    is the eager frame."""
 
     def __init__(self, vol_u8, device, intermediate: int = 512):
         self.device = torch.device(device)
         self.packs = prepare_fast_volume(vol_u8, self.device)
         self.intermediate = intermediate
         self.dims = int(self.packs[0].shape[2])
+        self.compiled = CompiledFrame("FastBonsaiRenderer")
 
     def __call__(self, camera_uniform, width=1280, height=720, srgb=True,
                  max_steps: int = MAX_STEPS_BONSAI, intermediate=None):
         """Render one frame; ``max_steps`` is accepted for API parity with
         the exact renderer (a fast frame takes one sample per slab)."""
-        return _render_fast(self.packs, camera_uniform, width, height,
-                            intermediate or self.intermediate, srgb)
+        return _fast_frame(self.packs, self.compiled, camera_uniform, width, height,
+                           intermediate or self.intermediate, srgb)
 
 
 def build_fast_renderer(vol_u8, device, intermediate: int = 512):
     """Functional (render, pack) pair matching
     :func:`vokselis_torch.ops.cuda.march_bonsai.build_renderer`'s
-    signature."""
+    signature; on a card render replays one CUDA graph per static key."""
     pack = prepare_fast_volume(vol_u8, device)
+    compiled = CompiledFrame("build_fast_renderer")
 
     def render(pk, camera_uniform, width, height, max_steps=MAX_STEPS_BONSAI,
                srgb=True):
-        return _render_fast(pk, camera_uniform, width, height, intermediate, srgb)
+        return _fast_frame(pk, compiled, camera_uniform, width, height, intermediate, srgb)
 
     return render, pack

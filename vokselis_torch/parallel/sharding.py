@@ -85,24 +85,37 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def orbit_cameras(n_views: int, target=(0.5, 0.5, 0.5), zoom=1.0, pitch=0.5,
+                  aspect=1.0) -> list:
+    """N cameras orbiting the target in yaw, camera i at yaw 2 pi i / n."""
+    return [Camera(zoom=zoom, pitch=pitch, yaw=2.0 * math.pi * i / n_views, target=target,
+                   aspect=aspect) for i in range(n_views)]
+
+
 def orbit_camera_batch(n_views: int, target=(0.5, 0.5, 0.5), zoom=1.0, pitch=0.5,
                        aspect=1.0, *, device) -> CameraUniform:
     """N cameras orbiting the target in yaw — BASELINE config 5's batched
     views (and config 4's orbiting camera, sampled at n frames): one
     :class:`CameraUniform` on ``device`` with a leading (n_views,) batch
     axis, view i at yaw 2 pi i / n, as the JAX package's pytree."""
-    return CameraUniform.stack(
-        Camera(zoom=zoom, pitch=pitch, yaw=2.0 * math.pi * i / n_views, target=target,
-               aspect=aspect).uniform(device)
-        for i in range(n_views))
+    return CameraUniform.stack(c.uniform(device) for c in
+                               orbit_cameras(n_views, target, zoom, pitch, aspect))
 
 
 def build_default_renderer(vol_u8, device):
     """``(render, pack)`` with ``render(pack, camera_uniform, width, height,
-    max_steps)``: :func:`march_bonsai.build_renderer`, K1 on a CUDA
-    ``device`` and its plain version on the CPU; a batched uniform renders
-    all its views in one call."""
-    return march_bonsai.build_renderer(vol_u8, device)
+    max_steps, srgb=True)``: the eager exact frame
+    (:func:`march_bonsai.render_frame`), K1 on a CUDA ``device`` and its
+    plain version on the CPU; a batched uniform renders all its views in
+    one call. Sharded paths stay eager: their NCCL collectives are not
+    captured in a CUDA graph (:func:`march_bonsai.build_renderer` is the
+    single-device renderer that replays one)."""
+    pack = march_bonsai.volume_tensor(vol_u8, device)
+
+    def render(pk, camera_uniform, width, height, max_steps=MAX_STEPS_BONSAI, srgb=True):
+        return march_bonsai.render_frame(pk, camera_uniform, width, height, max_steps, srgb)
+
+    return render, pack
 
 
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
