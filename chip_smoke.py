@@ -118,7 +118,11 @@ Phases, each reported on its own lines:
      1920x1080, the fast frame at I=256 and I=512, the hybrid at I=512 / budget 128 (and its
      escalated route at I=768), at I=1024 / budget 64 (and its functional
      builder's degraded flag), the xor frame at 1280x720 (3 poses x 2
-     times), the trig raster at 512^2 (with Context.update), present with
+     times), the compiled field frame (march_field.FieldRenderer, which
+     bench_field times) at 512^2 around Camera.xor(1.0) for the trig field
+     with emission and the noise field with xor shading (3 poses x 2
+     times each, one key each), the trig raster at 512^2 (with
+     Context.update), present with
      its three filters, config 4's orbit (a second pass) and config-5
      batches 1 and 2: one capture per static key; every replay, at 3 poses
      of which the fast frame's dominant axis and marching sign change,
@@ -128,8 +132,8 @@ Phases, each reported on its own lines:
      a fast one, K34 + K5 + K2 in a hybrid one, K7 in xor, K8 + K1 in a
      config-5 batch); each renderer's graph pool (MiB);
   (phases 4h-4k and 4n run after phase 5, in the order 4h, 4n, 4i, 4j, 4k,
-  so that phase 5 times the frames in the process state of the earlier
-  phases)
+  then phase 6, so that phase 5 times the frames in the process state of
+  the earlier phases)
   4h. multi-device (vokselis_torch.parallel.sharding) over an NCCL process
      group of world size 1 (one card), the (views 1, tiles 1) mesh:
      render_views_sharded of 64 orbit views at 512^2 (config 5's views)
@@ -194,6 +198,16 @@ Phases, each reported on its own lines:
      the dense-stress frame's K1 device time, entry-point frame, skip share
      and bound; config 4's exact and hybrid frames at 1920x1080, the poses
      in turn, and K1's device time there.
+  6. the port's bench entry points, each in a process of its own with its
+     own time limit: python -m vokselis_torch.bench (bench.py's flagship
+     invocation: the exact frame, fast at I=256, the hybrid at OPPOINT.json's
+     operating point and the flagship's error against the oracle), whose one
+     stdout line must carry exactly the keys of bench.py's branch that
+     applies, the hybrid headlining only within 1e-3, mean_err (and
+     exact_mean_err) <= 1e-3 and every *_ms finite and above 0, printed
+     beside phase 5's replayed exact and hybrid frames; python -m
+     vokselis_torch.tools.multichip_bench --json at world 1 (NCCL, one
+     card), rows A and B with the JAX tool's keys.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and ``{"ok": true, "device": {...}}``. Any failed check or
@@ -311,6 +325,18 @@ VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-3
 # phase 4h's timing rounds: a 64-view batch takes ~20-30 ms batched and
 # ~70-125 ms view by view, a 1024^2 frame ~1.5
 MESH_BATCH_ROUNDS, MESH_FRAME_ROUNDS = 25, 60
+# phase 6: the bench line's keys in each of bench.py's branches (bench.py:476-504;
+# the default rows time the hybrid, so the exact branch carries its numbers),
+# multichip_bench's rows at world 1, and each tool's time limit
+BENCH_KEYS_HYBRID = ["metric", "value", "unit", "vs_baseline", "p50_ms", "mean_err",
+                     "hybrid_budget", "exact_mrays", "exact_p50_ms", "exact_mean_err"]
+BENCH_KEYS_EXACT = ["metric", "value", "unit", "vs_baseline", "p50_ms", "mean_err",
+                    "hybrid_mrays", "hybrid_p50_ms", "hybrid_mean_err", "hybrid_budget"]
+MULTICHIP_ROWS = [
+    ("views_weak_scaling", 1,
+     ["mode", "chips", "views", "ms_per_batch", "mrays_s", "weak_efficiency"]),
+    ("frame_row_sharded", 1, ["mode", "chips", "ms_per_frame", "mrays_s", "speedup"])]
+BENCH_TIMEOUT_S, MULTICHIP_TIMEOUT_S = 180, 120
 # phase 5's config-5 rounds (the batch against the per-view loop) and the
 # batch steps in its CUDA graph
 C5_ROUNDS, C5_GRAPH_STEPS = 9, 5
@@ -2597,6 +2623,22 @@ def main() -> int:
     calls = [(lambda u=u, t=t: pipe.render(u, t, xw, xh),
               lambda u=u, t=t: mf.render_field(u, t, xw, xh)) for u in xps for t in times]
     hold(f"xor {xw}x{xh} (3 poses x 2 times)", pipe.compiled, 1, calls, K7=1)
+    # the compiled field frame (FieldRenderer: render_field_pallas's jit, which
+    # bench_field times) at 512^2 around Camera.xor(1.0): the trig field with
+    # emission (quantize off) and the noise field with xor shading (analytic
+    # normals), 3 poses x t = 0, 1.7 each, one key each
+    field_r = mf.FieldRenderer(dev)
+    fps = poses_at(FIELD_RES, FIELD_RES, [dict(zoom=3.0, pitch=-0.5, yaw=y)
+                                          for y in (1.0, 2.0, 4.0)], target=(0.0, 0.0, 0.0))
+    calls = []
+    for kw in (dict(field="trig", shading="emission", quantize=False),
+               dict(field="noise", shading="xor", grad="analytic")):
+        field_r(fps[0], 0.0, FIELD_RES, FIELD_RES, **kw)
+        calls += [(lambda u=u, t=t, kw=kw: field_r(u, t, FIELD_RES, FIELD_RES, **kw),
+                   lambda u=u, t=t, kw=kw: mf.render_field(u, t, FIELD_RES, FIELD_RES, **kw))
+                  for u in fps for t in (0.0, 1.7)]
+    hold(f"field frame {FIELD_RES}^2 (trig emission + noise xor, 3 poses x 2 times)",
+         field_r.compiled, 2, calls, K7=1)
     # the trig raster at 512^2 and Context.update
     tctx2 = Context(FIELD_RES, FIELD_RES, backbuffer_resolution=(FIELD_RES, FIELD_RES),
                     device="cuda")
@@ -2673,7 +2715,7 @@ def main() -> int:
                                                   device=dev))) for b in (1, 2)]
     hold(f"config 5 batch step ({VIEWS} views {VIEW_RES}^2 + K8 {VOL5}^3)", batch64.compiled,
          1, calls, K8=1, K1=1)
-    del er, fr, hr, hr_op, pipe, tdemo, tctx2, pr, hdrs, calls, frender, fpack
+    del er, fr, hr, hr_op, pipe, field_r, tdemo, tctx2, pr, hdrs, calls, frender, fpack
     print(f"phase 4n json {json.dumps(compiled_rows)}", flush=True)
     print(f"phase 4n compiled frames: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -2839,6 +2881,55 @@ def main() -> int:
           f"--frames 3 without a tty on the card: exit 0 in {viewer_s:.1f} s; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del sctx, saved, hdr, hdr_cpu
+
+    # -- phase 6: the port's bench entry points, each in a process of its own:
+    # vokselis_torch.bench (bench.py's flagship invocation and its default
+    # rows) and vokselis_torch.tools.multichip_bench at world 1. A non-zero
+    # exit, a timeout or a line that does not parse fails the run ---------
+    t_phase = time.perf_counter()
+
+    def tool(args, timeout):
+        """``python -m args`` from the checkout's root: its stdout lines, its
+        stderr printed under this phase."""
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+                              text=True, timeout=timeout)
+        for line in proc.stderr.splitlines():
+            print(f"phase 6 {args[0]} stderr: {line}", flush=True)
+        check(proc.returncode == 0, f"python -m {' '.join(args)} exited {proc.returncode}")
+        return proc.stdout.splitlines()
+
+    t0 = time.perf_counter()
+    out = tool(["vokselis_torch.bench"], BENCH_TIMEOUT_S)
+    bench_s = time.perf_counter() - t0
+    check(len(out) == 1, f"vokselis_torch.bench printed {len(out)} stdout lines, not one")
+    line = json.loads(out[0])
+    # bench.py:476-504: the hybrid headlines only when its error is within 1e-3;
+    # the default rows always time the hybrid, so the exact branch carries it
+    if "exact_mrays" in line:
+        check(list(line) == BENCH_KEYS_HYBRID and line["mean_err"] <= HYBRID_CONTRACT
+              and line["exact_mean_err"] <= HYBRID_CONTRACT, f"the bench line {line}")
+    else:
+        check(list(line) == BENCH_KEYS_EXACT and line["hybrid_mean_err"] > HYBRID_CONTRACT
+              and line["mean_err"] <= HYBRID_CONTRACT, f"the bench line {line}")
+    bench_ms = {k: v for k, v in line.items() if k.endswith("_ms")}
+    check(all(math.isfinite(v) and v > 0 for v in bench_ms.values()),
+          f"the bench line's times {bench_ms}")
+    t0 = time.perf_counter()
+    out = tool(["vokselis_torch.tools.multichip_bench", "--json"], MULTICHIP_TIMEOUT_S)
+    multichip_s = time.perf_counter() - t0
+    rows = [json.loads(x) for x in out if x.startswith("{")]
+    check([(r["mode"], r["chips"], list(r)) for r in rows] == MULTICHIP_ROWS
+          and all(math.isfinite(r["mrays_s"]) and r["mrays_s"] > 0 for r in rows)
+          and rows[0]["weak_efficiency"] == 1.0 and rows[1]["speedup"] == 1.0,
+          f"multichip_bench's world-1 rows {rows}")
+    print(f"phase 6 bench ({card}): python -m vokselis_torch.bench exit 0 in {bench_s:.1f} s, "
+          f"line {json.dumps(line)}; beside phase 5 (replayed, one call between CUDA events, "
+          f"median): exact demo frame (update + render + present) "
+          f"{frames_ms['exact']['replay']:.4f} ms, hybrid renderer call I={II_HYBRID} budget "
+          f"{BUDGET_OP} {hyb_rows[II_HYBRID]['whole hybrid frame (renderer call)']:.4f} ms, K1 "
+          f"device {k1_dev:.4f} ms", flush=True)
+    print(f"phase 6 multichip_bench ({card}; NCCL world 1): exit 0 in {multichip_s:.1f} s, rows "
+          f"{json.dumps(rows)}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     def entry(name, source, replaces, n_launches, err, dev, call, plain_ms, bound, lib=None):
         """One kernel's line: ``launches`` its wrapper's count on the main

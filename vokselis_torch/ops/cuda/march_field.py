@@ -4,7 +4,8 @@ field) as a hand-written CUDA kernel for Hopper.
 The kernel (``vokselis_torch/csrc/march_field.cu``, with the fields in
 ``csrc/fields.cuh``) replaces the TPU kernel
 ``vokselis_tpu/ops/pallas/march_field.py:_march_kernel``; :func:`render_field`
-is the counterpart of ``render_field_pallas``. Ray generation
+is the counterpart of ``render_field_pallas``, and :class:`FieldRenderer`
+of that function's ``jax.jit``: one CUDA graph per static key. Ray generation
 (:func:`geometry.rays_compute_soa`), the slab test, the per-ray dt and the
 exact bounding-sphere clip with its lattice snap stay torch glue
 (:func:`field_rays`), as the JAX package computes them in XLA; the kernel
@@ -43,6 +44,7 @@ import torch
 
 from vokselis_torch.core import geometry
 from vokselis_torch.core.colors import mix, smoothstep
+from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
 # the shared hash table (hash_table.py), importable from here too
 from vokselis_torch.ops.cuda.hash_table import (  # noqa: F401
@@ -346,3 +348,39 @@ def render_field_plain(camera_uniform, time=0.0, width: int = 1280, height: int 
                                 quantize, max_steps, tile_h, sphere_clip, grad)
     return _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad,
                         return_steps)
+
+
+class FieldRenderer:
+    """The compiled field frame: the counterpart of ``render_field_pallas``
+    as a ``jax.jit`` entry (``vokselis_tpu/ops/pallas/march_field.py:203-214``). A call takes
+    :func:`render_field`'s arguments; on a card it replays one CUDA graph
+    (``compiled``) per static key, JAX's static argnames less ``tile_w`` and
+    ``interpret`` (``width, height, field, shading, dims, quantize,
+    max_steps, tile_h, sphere_clip, grad``, ``grad`` resolved by
+    :func:`default_grad`). The camera uniform's three tensors and the time (a
+    Python float or a 0-d f32 tensor on the device) are the graph's inputs,
+    so a new pose or time replays. On the CPU a call is
+    :func:`render_field`, which is also the eager frame the graphs capture.
+    A uniform on another type of device than ``device`` raises."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.compiled = CompiledFrame("FieldRenderer")
+
+    def __call__(self, camera_uniform, time=0.0, width: int = 1280, height: int = 720,
+                 field: str = "noise", shading: str = "xor", dims: int = 256,
+                 quantize: bool = True, max_steps: int = MAX_STEPS_COMPUTE,
+                 tile_h: int = DEFAULT_TILE_H, sphere_clip: bool = True,
+                 grad: str | None = None):
+        if camera_uniform.inv_proj.device.type != self.device.type:
+            raise ValueError(f"FieldRenderer({self.device}) got a uniform on "
+                             f"{camera_uniform.inv_proj.device}")
+        grad = default_grad() if grad is None else grad
+        key = (width, height, field, shading, dims, bool(quantize), max_steps, tile_h,
+               bool(sphere_clip), grad)
+
+        def fn(u, t):
+            return render_field(u, t, width, height, field, shading, dims, quantize, max_steps,
+                                tile_h, sphere_clip, grad)
+
+        return self.compiled(key, fn, (camera_uniform, time))
