@@ -48,7 +48,11 @@ Phases, each reported on its own lines:
      tile row) over single tiles and tile pairs with parked ids and the last
      tile row's first and last units, both transfer modes: bitwise, every
      other pixel unchanged, and the guard bands around the frame's planes
-     unwritten;
+     unwritten; then a real pose for the partial last tile row: the first
+     pose of the hybrid's 72-pose grid (tools/cpu_minisweep.py:67-69) at
+     1920x1080, I=1024, budget 128, whose selection holds a unit there,
+     K2 at it bitwise its plain version in both transfer modes (or, where
+     no pose of the grid selects one, that printed);
   3d. K7 (the field march) against its plain version at 512^2, Camera.xor:
      the xor demo's fbm field with analytic and fd normals, the trig field
      with emission and the bitwise xor field, at t = 0 and 1.7, sphere clip
@@ -138,11 +142,22 @@ Phases, each reported on its own lines:
      group of world size 1 (one card), the (views 1, tiles 1) mesh:
      render_views_sharded of 64 orbit views at 512^2 (config 5's views)
      gathered, render_frame_tiled at 1024^2 (bench pose) and
-     multi_view_step, K1 once each; every view bitwise equal to the
-     single-device batched render and to single-view K1 calls on the same
-     uniforms, the frame to a K1 call, overflow 0; the sharded batch's and
-     frame's times beside the single-device ones (the batch also beside
-     the views one by one);
+     multi_view_step; every view bitwise equal to the single-device
+     batched render and to single-view K1 calls on the same uniforms, the
+     frame to a K1 call, overflow 0. The compiled steps (one CUDA graph per
+     key, NCCL collectives inside): render_views_sharded gathered and not,
+     multi_view_step with a stable renderer (3 batches of views each),
+     render_frame_tiled with a stable ray renderer (3 poses at 1024^2) and
+     ViewsBatch(mesh=...) at config 5's full width (batches 1, 2, 0): one
+     capture per key, each replay bitwise its eager step and the
+     single-device result (ViewsBatch without a mesh), no host sync, and
+     in one replay's device trace K1 (and K8) once and every device copy of
+     the eager step, NCCL's all-gather among them, as a graph node; the
+     graph pools. A second group (no backend named) gives an equal mesh on
+     new groups: each entry's first call captures again and the first
+     group's keys are gone. The sharded batch's and frame's times, replayed
+     and eager, beside the single-device ones (the batch also beside the
+     views one by one, the frame beside its parts);
   4i. hot reload of K7: XorDemo at 512^2 on a copy of march_field.cu and its
      headers in a temporary directory, Context(watch=True), the watcher
      driven by poll_once: an edited shading constant rebuilds (nvcc) into a
@@ -696,7 +711,7 @@ def main() -> int:
 
     from common import orbit_events
     from vokselis_torch.core import geometry
-    from vokselis_torch.core.camera import Camera
+    from vokselis_torch.core.camera import Camera, CameraUniform
     from vokselis_torch import native
     from vokselis_torch.engine import profiler
     from vokselis_torch.engine.context import Context, Presenter
@@ -1156,6 +1171,65 @@ def main() -> int:
     for width, height in k2_frames:
         k2_checks(width, height)
     del k2_inputs
+
+    # K2 on the partial last tile row (1080 = 33 x 32 + 24) at a real pose:
+    # the first pose of the hybrid's 72-pose grid (tools/cpu_minisweep.py:67-69)
+    # at config 4's frame, I=1024, budget 128, whose selection holds a unit
+    # there, the pose's own fast frame and selection held against K2's plain
+    # version; the degenerate poses (K1's route) select nothing
+    kw_, kh_ = orbit_model.WIDTH, orbit_model.HEIGHT
+    kty, ktx = cdiv(kh_, 32), cdiv(kw_, 32)
+    k_dims = int(vol_bonsai.shape[0])
+    k_pair = hy._pair_mode(k_dims, kw_, kh_)
+    k_tpu = 2 if k_pair else 1
+    k_units = kty * ktx // k_tpu
+    t0 = time.perf_counter()
+    searched, found = [], None
+    for zoom, pitch, i in itertools.product((0.6, 1.0, 1.6), (0.5, -0.35, 1.2), range(8)):
+        u = Camera(zoom=zoom, pitch=pitch, yaw=2 * math.pi * i / 8, target=(0.5, 0.5, 0.5),
+                   aspect=kw_ / kh_).uniform(dev)
+        if shear_warp.pose_hint(u, kw_, kh_, II_HYBRID, k_dims)[2]:
+            continue
+        rgb_s, stats_s = shear_warp._render_fast(packs, u, kw_, kh_, II_HYBRID, False,
+                                                 return_aux="stats")
+        ids_s = hy.select_units(hy.score_tiles(stats_s, kty, ktx), kty * ktx,
+                                hy.DEFAULT_BUDGET, hy.DEFAULT_THRESH, k_pair)
+        last = sorted(x for x in set(ids_s.tolist()) - {k_units} if x * k_tpu // ktx == kty - 1)
+        searched.append(f"{zoom}/{pitch}/{i}")
+        if last:
+            found = (f"{zoom}/{pitch}/{i}", u, rgb_s, ids_s, last)
+            break
+    search_s = time.perf_counter() - t0
+    if found is None:
+        print(f"phase 3c K2 partial last tile row at a real pose ({card}): none of the "
+              f"{len(searched)} non-degenerate poses of the 72-pose grid at {kw_}x{kh_}, "
+              f"I={II_HYBRID}, budget {hy.DEFAULT_BUDGET} selects a unit in the last tile row "
+              f"(row {kty - 1}, {kh_ - 32 * (kty - 1)} pixel rows); the forced edge units above "
+              f"stand alone ({search_s:.1f} s)", flush=True)
+    else:
+        name_s, u, rgb_s, ids_s, last = found
+        mask = hy.unit_pixel_mask(ids_s, k_tpu, kw_, kh_)
+        for fast in (False, True):
+            base_k, base_p = rgb_s.clone(), rgb_s.clone()
+            mb.render_bonsai_tiles_into(vol_bonsai, base_k, u, ids_s, kw_, kh_, k_tpu, fast)
+            mb.render_bonsai_tiles_into_plain(vol_bonsai, base_p, u, ids_s, kw_, kh_, k_tpu,
+                                              fast)
+            torch.cuda.synchronize()
+            d2 = float((base_k - base_p).abs().max())
+            kept = torch.equal(base_k[:, ~mask], rgb_s[:, ~mask])
+            row_changed = int((base_k != rgb_s)[:, 32 * (kty - 1):].any(dim=0).sum())
+            print(f"phase 3c K2 partial last tile row at a real pose ({card}): pose "
+                  f"zoom/pitch/yaw-index {name_s} (after {len(searched)} non-degenerate poses "
+                  f"of the 72-pose grid, {search_s:.1f} s) at {kw_}x{kh_}, I={II_HYBRID}, "
+                  f"budget {hy.DEFAULT_BUDGET}, {'pairs' if k_pair else 'tiles'}: "
+                  f"{len(set(ids_s.tolist()) - {k_units})} units selected, in the last tile row "
+                  f"(row {kty - 1}, {kh_ - 32 * (kty - 1)} pixel rows) {last}; "
+                  f"{'polynomial' if fast else 'cosine'} palette: max {d2:.3e} vs plain, other "
+                  f"pixels unchanged {kept}, pixels changed in the last tile row {row_changed}",
+                  flush=True)
+            check(d2 == 0.0 and kept, f"K2 disagrees with plain at pose {name_s} (fast {fast})")
+            worst["K2"] = max(worst["K2"], d2)
+        del base_k, base_p, rgb_s, mask
 
     # -- phase 3d: K7, K9 and K8 against their plain versions --------------
     xor_u = Camera.xor(1.0).uniform(dev)
@@ -2346,8 +2420,90 @@ def main() -> int:
     # -- phase 4h: multi-device at full width (NCCL, world size 1) ----------
     # the machine has one card: a process group of one rank, the (1, 1)
     # mesh; the code is the one that runs at any world size (gloo on the CPU
-    # in tests/test_torch_parallel.py)
+    # in tests/test_torch_parallel.py). The sharded entries are compiled
+    # steps: their first call with a key (warm-up + capture) counts K1 twice
+    # in the wrappers, multi_view_step with its default renderer runs the
+    # eager step (K1 once)
     import torch.distributed as dist
+
+    def pool_mib(compiled):
+        pool = tuple(compiled.pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool) / 2 ** 20
+
+    from collections import Counter
+
+    def device_events(fn):
+        """``fn()``'s device events in a torch.profiler trace, by name."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+    def graph_work(eager, replay, own):
+        """One eager step's and one replay's device work: the path kernels in
+        each, the eager step's NCCL collectives (their "nccl:" ranges on the
+        device) and device copies, and the replay's device copies less its
+        ``own`` (the inputs' copies into the graph and the outputs' copies
+        out): what is left are the graph's copy nodes (at world 1 NCCL's
+        all-gather is one cudaMemcpyAsync, captured as a node; its in-place
+        all-reduce runs nothing)."""
+        ev_e, ev_r = device_events(eager), device_events(replay)
+
+        def kernels(ev):
+            return {k: sum(n for name, n in ev.items() if re.search(rf"(?<!\w){v}(?!\w)", name))
+                    for k, v in KERNEL_NAMES.items()}
+
+        def copies(ev):  # device-to-device: an upload from the host is no graph node
+            return sum(n for name, n in ev.items() if "memcpy" in name.lower()
+                       and not re.search(r"htod|dtoh", name.lower()))
+
+        return {"kernels": kernels(ev_r), "eager_kernels": kernels(ev_e),
+                "collectives": sorted(n for n in ev_e.elements() if n.startswith("nccl:")),
+                "eager_copies": copies(ev_e), "graph_copies": copies(ev_r) - own,
+                "replay_events": dict(Counter(k[:48] for k in ev_r.elements()))}
+
+    def orbit_batch(offset):
+        """Config 5's orbit of VIEWS views, turned by ``offset`` in yaw."""
+        return CameraUniform.stack(
+            Camera(zoom=1.0, pitch=0.5, yaw=2.0 * math.pi * i / VIEWS + offset,
+                   target=(0.5, 0.5, 0.5), aspect=1.0).uniform(dev) for i in range(VIEWS))
+
+    sharded_rows = {}
+
+    def hold_sharded(name, compiled, keys, calls, work, collectives, **kernels):
+        """``calls``: (replay, eager, single-device) triples, each key
+        captured already. Every replay bitwise its eager step and the
+        single-device result, free of host syncs; ``keys`` captures; one
+        replay's trace runs ``kernels`` once and the eager step's copies,
+        NCCL's among them, as graph nodes; the eager step's collectives are
+        ``collectives``."""
+        got = [synced(replay) for replay, _, _ in calls]
+        eager_eq = sum(bitwise(g[0][0], eager()) for g, (_, eager, _) in zip(got, calls))
+        single_eq = sum(bitwise(g[0][0], single()) for g, (_, _, single) in zip(got, calls))
+        syncs = [g[1] for g in got]
+        del got
+        row = {"replays": len(calls), "bitwise_eager": eager_eq, "bitwise_single": single_eq,
+               "host_syncs": max(syncs), "captures": compiled.captures, "keys": keys,
+               "pool_mib": pool_mib(compiled), **work}
+        sharded_rows[name] = row
+        print(f"phase 4h replays {name} ({card}): captures {compiled.captures} for {keys} "
+              f"keys; {len(calls)} replays bitwise the eager step {eager_eq}/{len(calls)} and "
+              f"the single-device result {single_eq}/{len(calls)}, host syncs per replay "
+              f"{syncs}; one replay on the device {work['kernels']}, graph copy nodes "
+              f"{work['graph_copies']} (the replay's device events {work['replay_events']}); "
+              f"the eager step's collectives {work['collectives']}, device copies "
+              f"{work['eager_copies']}; graph pool {row['pool_mib']:.1f} MiB", flush=True)
+        check(eager_eq == single_eq == len(calls) and max(syncs) == 0
+              and compiled.captures == keys and work["kernels"] == only(**kernels)
+              and work["eager_kernels"] == only(**kernels)
+              and work["graph_copies"] == work["eager_copies"]
+              and work["collectives"] == collectives,
+              f"compiled sharded step {name}: {row}")
 
     t_phase = time.perf_counter()
     torch.cuda.set_device(dev)
@@ -2374,8 +2530,9 @@ def main() -> int:
             torch.cuda.synchronize()
             path_s = time.perf_counter() - t0
             mesh_launches = launches()
-            check(mesh_launches == only(K1=3),
-                  f"multi-device path launched {mesh_launches}, not K1 x 3 (views, frame, step)")
+            check(mesh_launches == only(K1=5),
+                  f"multi-device path launched {mesh_launches}, not K1 x 5 (views and frame: "
+                  f"warm-up + capture each; the default renderer's step eagerly)")
             # the views against the single-device batched render and single-view
             # K1 calls on the same uniforms; the frame against a K1 call
             batched = render(pack, cams, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI)
@@ -2395,14 +2552,85 @@ def main() -> int:
                         for im in views_img)
             check(bool(torch.isfinite(views_img).all()) and v_lit > 0.01,
                   f"a sharded view is not finite or shows nothing (least lit {v_lit:.4f})")
+            del singles, step_img
+
+            # the replays: each entry's graph (the first calls above captured
+            # the gathered views' and the frame's; the local views' and the
+            # mesh's config-5 batch capture here) at three inputs
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            batches = [cams, orbit_batch(0.05), orbit_batch(0.1)]
+            sharding.render_views_sharded(mesh, render, pack, cams, VIEW_RES, VIEW_RES,
+                                          max_steps=MAX_STEPS_BONSAI)
+            t0 = time.perf_counter()
+            batch_mesh = ViewsBatch(n_views=VIEWS, view_res=VIEW_RES, dims=VOL5, mesh=mesh)
+            batch_mesh(0)
+            torch.cuda.synchronize()
+            batch_mesh_s = time.perf_counter() - t0
+
+            def views_calls(gather):
+                return [(lambda b=b: sharding.render_views_sharded(
+                             mesh, render, pack, b, VIEW_RES, VIEW_RES,
+                             max_steps=MAX_STEPS_BONSAI, gather=gather),
+                         lambda b=b: sharding.views_sharded_step(
+                             mesh, render, pack, b, VIEW_RES, VIEW_RES,
+                             max_steps=MAX_STEPS_BONSAI, gather=gather),
+                         lambda b=b: render(pack, b, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI))
+                        for b in batches]
+
+            for gather in (True, False):
+                calls = views_calls(gather)
+                hold_sharded(f"render_views_sharded gather={gather} ({VIEWS} views "
+                             f"{VIEW_RES}^2)", sharding.VIEWS_STEPS, 2, calls,
+                             graph_work(calls[0][1], calls[0][0], 3 + 1),
+                             ["nccl:_all_gather_base"] if gather else [], K1=1)
+            calls = [(lambda: sharding.multi_view_step(
+                          mesh, None, VIEWS, VIEW_RES, VIEW_RES, max_steps=MAX_STEPS_BONSAI,
+                          gather=True, renderer=(render, pack)),
+                      lambda: sharding.views_sharded_step(
+                          mesh, render, pack, cams, VIEW_RES, VIEW_RES,
+                          max_steps=MAX_STEPS_BONSAI, gather=True),
+                      lambda: batched)] * 3
+            hold_sharded(f"multi_view_step, a stable renderer ({VIEWS} views {VIEW_RES}^2; the "
+                         f"gathered views' key)", sharding.VIEWS_STEPS, 2, calls,
+                         graph_work(calls[0][1], calls[0][0], 3 + 1), ["nccl:_all_gather_base"],
+                         K1=1)
+            tiled_poses = [Camera(target=(0.5, 0.5, 0.5), aspect=1.0, **kw).uniform(dev)
+                           for kw in COMPILED_POSES.values()]
+            calls = [(lambda u=u: sharding.render_frame_tiled(
+                          mesh, None, u, RES, RES, max_steps=MAX_STEPS_BONSAI,
+                          renderer=ray_renderer, with_overflow=True),
+                      lambda u=u: sharding.frame_tiled_step(
+                          mesh, *ray_renderer, u, RES, RES, MAX_STEPS_BONSAI, True),
+                      lambda u=u: (mb.render_bonsai_rays_cuda(
+                          vol_bonsai, *geometry.rays_fragment_soa(u, RES, RES)), zero))
+                     for u in tiled_poses]
+            hold_sharded(f"render_frame_tiled, a stable renderer ({RES}^2, 3 poses)",
+                         sharding.TILED_STEPS, 1, calls,
+                         graph_work(calls[0][1], calls[0][0], 3 + 2), ["nccl:_all_gather_base"],
+                         K1=1)
+
+            def t5(b):
+                return torch.full((), 0.3 * b, dtype=torch.float32, device=dev)
+
+            calls = [(lambda b=b: batch_mesh(b), lambda b=b: batch_mesh.step(t5(b)),
+                      lambda b=b: batch64(b)) for b in (1, 2, 0)]
+            hold_sharded(f"ViewsBatch(mesh=...) (K8 {VOL5}^3 + {VIEWS} views {VIEW_RES}^2, "
+                         f"{batch_mesh.max_steps} steps, batches 1, 2, 0; the first call "
+                         f"{batch_mesh_s:.2f} s)", batch_mesh.compiled, 1, calls,
+                         graph_work(calls[0][1], calls[0][0], 1 + 2), [], K8=1, K1=1)
+            del calls
+
             # times, each a median of CUDA-event walls over rounds that call the
-            # compared functions in turn: the sharded batch against the
-            # single-device batch and the same views one by one; the
-            # row-sharded frame against one K1 frame with its rays, and its
-            # parts (rays, the band's march, the all-gather, the overflow
-            # all-reduce)
+            # compared functions in turn: the sharded batch (replayed, and its
+            # eager step) against the single-device batch and the same views
+            # one by one; the row-sharded frame (replayed, and its eager step)
+            # against one K1 frame with its rays, and its parts (rays, the
+            # band's march, the all-gather, the overflow all-reduce)
             pair_ms = interleaved_ms({
                 "sharded": lambda: sharding.render_views_sharded(
+                    mesh, render, pack, cams, VIEW_RES, VIEW_RES, max_steps=MAX_STEPS_BONSAI,
+                    gather=True),
+                "sharded_eager": lambda: sharding.views_sharded_step(
                     mesh, render, pack, cams, VIEW_RES, VIEW_RES, max_steps=MAX_STEPS_BONSAI,
                     gather=True),
                 "single": lambda: render(pack, cams, VIEW_RES, VIEW_RES, MAX_STEPS_BONSAI),
@@ -2419,6 +2647,8 @@ def main() -> int:
                 "tiled": lambda: sharding.render_frame_tiled(
                     mesh, None, bench_u, RES, RES, max_steps=MAX_STEPS_BONSAI,
                     renderer=ray_renderer),
+                "tiled_eager": lambda: sharding.frame_tiled_step(
+                    mesh, *ray_renderer, bench_u, RES, RES, MAX_STEPS_BONSAI),
                 "single": lambda: mb.render_bonsai_rays_cuda(
                     vol_bonsai, *geometry.rays_fragment_soa(bench_u, RES, RES)),
                 "rays": lambda: geometry.rays_fragment_soa(bench_u, RES, RES),
@@ -2427,48 +2657,92 @@ def main() -> int:
                 "all_gather": lambda: sharding._all_gather(frame_k1, group),
                 "all_reduce": all_reduce,
             }, MESH_FRAME_ROUNDS, torch)
+            # the rounds replayed the keys held, but for the frame without its
+            # overflow count, a key of its own
+            check(sharding.VIEWS_STEPS.captures == 2 and sharding.TILED_STEPS.captures == 2,
+                  f"phase 4h's timing rounds: captures {sharding.VIEWS_STEPS.captures} (views), "
+                  f"{sharding.TILED_STEPS.captures} (frame), not 2 and 2")
+            first_groups = sharding.mesh_groups(mesh)
             default_group_ok = None
         finally:
             dist.destroy_process_group()
         # a group made with no backend named (its get_backend() is
         # "undefined"; it carries NCCL on a machine with a card) gives a mesh
-        # on the card too
+        # on the card too; the first group's graphs are never replayed on it:
+        # each entry's first call captures again (the new mesh compares
+        # equal to the old one, the keys hold the groups) and the old keys go
         dist.init_process_group(init_method=f"file://{tmp}/store_default", world_size=1,
                                 rank=0)
         try:
             dmesh = sharding.make_mesh(1, 1, device=dev)
             check(sharding.mesh_device(dmesh) == dev,
                   f"default-backend mesh on {sharding.mesh_device(dmesh)}")
-            check(torch.equal(sharding.render_frame_tiled(
-                dmesh, None, bench_u, RES, RES, max_steps=MAX_STEPS_BONSAI,
-                renderer=ray_renderer), frame_k1),
-                "the default-backend row-sharded frame differs from K1's")
+            frames = (sharding.VIEWS_STEPS, sharding.TILED_STEPS, batch_mesh.compiled)
+            before = [f.captures for f in frames]
+            regroup = []
+            for _ in range(2):  # the first call captures, the second replays
+                regroup.append((
+                    sharding.render_frame_tiled(dmesh, None, bench_u, RES, RES,
+                                                max_steps=MAX_STEPS_BONSAI,
+                                                renderer=ray_renderer),
+                    sharding.render_views_sharded(dmesh, render, pack, cams, VIEW_RES,
+                                                  VIEW_RES, max_steps=MAX_STEPS_BONSAI,
+                                                  gather=True),
+                    sharding.multi_view_step(dmesh, None, VIEWS, VIEW_RES, VIEW_RES,
+                                             max_steps=MAX_STEPS_BONSAI, gather=True,
+                                             renderer=(render, pack)),
+                    batch_mesh(0)))  # made on the first mesh: its groups resolve anew
+            new_groups = sharding.mesh_groups(dmesh)
+            recaptures = [f.captures - b for f, b in zip(frames, before)]
+            key_groups = ([k[0][0] for k in sharding.VIEWS_STEPS.keys()]
+                          + [k[0][0] for k in sharding.TILED_STEPS.keys()]
+                          + [k[0][-1] for k in batch_mesh.compiled.keys()])
+            want5 = batch64(0)
+            regroup_ok = all(
+                torch.equal(f, frame_k1) and torch.equal(v, batched) and torch.equal(s_, batched)
+                and bitwise(b5, want5) for f, v, s_, b5 in regroup)
+            check(dmesh == mesh and new_groups != first_groups,
+                  "the default-backend mesh should equal the first one on new groups")
+            check(recaptures == [1, 1, 1] and all(g == new_groups for g in key_groups)
+                  and len(key_groups) == 3,
+                  f"after a new group: captures {recaptures}, keys' groups {len(key_groups)} "
+                  f"(new: {[g == new_groups for g in key_groups]})")
+            check(regroup_ok, "the new group's frames differ from the first group's")
             default_group_ok = dist.get_backend()
+            del regroup, want5
         finally:
+            sharding.clear_steps()
             dist.destroy_process_group()
-    del views_img, step_img, singles, batched
+    del views_img, batched, batch_mesh, frames
     shard_ms, single_ms, loop_ms = pair_ms["sharded"], pair_ms["single"], pair_ms["loop"]
     tiled_ms, one_frame_ms = frame_ms["tiled"], frame_ms["single"]
     parts = {k: frame_ms[k] for k in ("rays", "march", "all_gather", "all_reduce")}
-    mesh_times = {"views_sharded_ms": shard_ms, "views_single_ms": single_ms,
-                  "views_loop_ms": loop_ms,
-                  "frame_tiled_ms": tiled_ms, "frame_single_ms": one_frame_ms,
-                  "frame_parts_ms": parts}
+    mesh_times = {"views_sharded_ms": shard_ms, "views_sharded_eager_ms": pair_ms["sharded_eager"],
+                  "views_single_ms": single_ms, "views_loop_ms": loop_ms,
+                  "frame_tiled_ms": tiled_ms, "frame_tiled_eager_ms": frame_ms["tiled_eager"],
+                  "frame_single_ms": one_frame_ms, "frame_parts_ms": parts}
     print(f"phase 4h multi-device ({card}; NCCL world 1, mesh (views 1, tiles 1)): "
           f"render_views_sharded {VIEWS} orbit views {VIEW_RES}^2 gathered, render_frame_tiled "
-          f"{RES}^2 bench pose, multi_view_step {VIEWS} views in {path_s:.2f} s, launches "
+          f"{RES}^2 bench pose, multi_view_step {VIEWS} views in {path_s:.2f} s (first calls: "
+          f"two captures and one eager step), launches "
           f"{mesh_launches}; the views bitwise equal to the single-device batched render and "
           f"to single-view K1 calls, the step to the views, the frame to a K1 call, overflow "
           f"{int(ovf)}, least lit view {v_lit:.4f}; a default-backend group "
-          f"(get_backend() {default_group_ok!r}) meshes on {dev} and its frame is K1's; "
-          f"medians of {MESH_BATCH_ROUNDS} interleaved rounds: sharded batch {shard_ms:.3f} ms "
+          f"(get_backend() {default_group_ok!r}) meshes on {dev}, equal to the first mesh, and "
+          f"each entry captures again on its groups (captures {recaptures}), its frames the "
+          f"first group's; "
+          f"medians of {MESH_BATCH_ROUNDS} interleaved rounds: sharded batch replayed "
+          f"{shard_ms:.3f} ms, eager {pair_ms['sharded_eager']:.3f} ms, "
           f"vs the single-device batch {single_ms:.3f} ms ({shard_ms / single_ms:.3f}x) and "
           f"{VIEWS} views one by one {loop_ms:.3f} ms; "
-          f"of {MESH_FRAME_ROUNDS}: row-sharded frame {tiled_ms:.4f} ms vs one K1 frame with "
+          f"of {MESH_FRAME_ROUNDS}: row-sharded frame replayed {tiled_ms:.4f} ms, eager "
+          f"{frame_ms['tiled_eager']:.4f} ms, vs one K1 frame with "
           f"its rays {one_frame_ms:.4f} ms ({tiled_ms / one_frame_ms:.3f}x); its parts rays "
           f"{parts['rays']:.4f}, march {parts['march']:.4f}, all_gather {parts['all_gather']:.4f}, "
           f"all_reduce {parts['all_reduce']:.4f} ms (sum {sum(parts.values()):.4f}); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phase 4h json {json.dumps({'times_ms': mesh_times, 'replays': sharded_rows})}",
+          flush=True)
 
     # -- phase 4n: compiled frames (engine/compiled.py) ---------------------
     # every entry's first call captures one CUDA graph per static key, later
@@ -2520,11 +2794,6 @@ def main() -> int:
 
     def poses_at(w, h, kws=COMPILED_POSES.values(), target=(0.5, 0.5, 0.5)):
         return [Camera(target=target, aspect=w / h, **kw).uniform(dev) for kw in kws]
-
-    def pool_mib(compiled):
-        pool = tuple(compiled.pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool) / 2 ** 20
 
     compiled_rows = {}
 

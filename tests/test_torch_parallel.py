@@ -11,6 +11,11 @@ uniforms (the cameras are host numpy code in both packages), held within
 1e-5, the tolerance tests/test_parallel.py:30-64 allows between a sharded
 and an unsharded render.
 
+Each rank also runs the eager steps (``views_sharded_step``,
+``frame_tiled_step``), which the cached entries (``render_views_sharded``,
+``render_frame_tiled`` and ``multi_view_step`` with a stable renderer) must
+return bitwise; off the card each entry records its key and runs the step.
+
 The spawned children import this module to find :func:`_rank_main`; JAX is
 imported only inside the tests, so the children never load it.
 """
@@ -42,7 +47,9 @@ def _rank_main(rank, world, views, tiles, tmp):
         dev = sharding.mesh_device(mesh)
         vol = get_bonsai(SIZE)
         render, pack = sharding.build_default_renderer(vol, dev)
+        rays = sharding.build_ray_renderer(vol, dev, with_overflow=True)
         cams = sharding.orbit_camera_batch(VIEWS, device=dev)
+        cam = Camera.bonsai(1.0).uniform(dev)
         out = {
             "local": sharding.render_views_sharded(mesh, render, pack, cams, SIZE, SIZE,
                                                    max_steps=STEPS),
@@ -53,6 +60,21 @@ def _rank_main(rank, world, views, tiles, tmp):
             "tiled": sharding.render_frame_tiled(mesh, vol, Camera.bonsai(1.0).uniform(dev),
                                                  width=SIZE, height=SIZE, max_steps=STEPS,
                                                  with_overflow=True),
+            "step_cached": sharding.multi_view_step(mesh, vol, n_views=VIEWS, width=SIZE,
+                                                    height=SIZE, max_steps=4, gather=True,
+                                                    renderer=(render, pack)),
+            "tiled_cached": sharding.render_frame_tiled(mesh, None, cam, width=SIZE, height=SIZE,
+                                                        max_steps=STEPS, renderer=rays,
+                                                        with_overflow=True),
+            "local_eager": sharding.views_sharded_step(mesh, render, pack, cams, SIZE, SIZE,
+                                                       max_steps=STEPS),
+            "gathered_eager": sharding.views_sharded_step(mesh, render, pack, cams, SIZE, SIZE,
+                                                          max_steps=STEPS, gather=True),
+            "step_eager": sharding.views_sharded_step(mesh, render, pack, cams, SIZE, SIZE,
+                                                      max_steps=4, gather=True),
+            "tiled_eager": sharding.frame_tiled_step(mesh, *rays, cam, SIZE, SIZE,
+                                                     max_steps=STEPS, with_overflow=True),
+            "keys": (len(sharding.VIEWS_STEPS.keys()), len(sharding.TILED_STEPS.keys())),
             "single": torch.stack([render(pack, c, SIZE, SIZE, STEPS) for c in cams]),
             "frame": render(pack, Camera.bonsai(1.0).uniform(dev), SIZE, SIZE, STEPS),
             "views_rank": mesh.get_local_rank("views"),
@@ -96,6 +118,20 @@ def jax_frames():
     }
 
 
+def _same_as_eager(out):
+    """The cached entries return their eager steps bitwise: 3 views keys
+    (local, gathered, the stable-renderer multi_view_step) and 1 tiled key
+    (renderer=None records none)."""
+    assert torch.equal(out["local"], out["local_eager"])
+    assert torch.equal(out["gathered"], out["gathered_eager"])
+    assert torch.equal(out["step_cached"], out["step_eager"])
+    assert torch.equal(out["step"], out["step_eager"])
+    for got, want in zip(out["tiled_cached"], out["tiled_eager"]):
+        assert torch.equal(got, want)
+    assert torch.equal(out["tiled"][0], out["tiled_eager"][0])
+    assert out["keys"] == (3, 1)
+
+
 def _close(port, ref):
     port = port.numpy() if isinstance(port, torch.Tensor) else port
     assert port.shape == ref.shape
@@ -108,7 +144,8 @@ def test_world8_views_sharded_matches_jax(tmp_path, jax_frames):
     """(views=8, tiles=1): each rank holds its one view, equal to the
     unsharded render through the same pair; gathered, every rank holds all
     8 views, within 1e-5 of JAX's render_views_sharded; the frame sharded
-    over tiles=1 is JAX's render_frame_tiled."""
+    over tiles=1 is JAX's render_frame_tiled; every cached entry is its
+    eager step bitwise."""
     outs = _spawn(tmp_path, views=8, tiles=1)
     for r, out in enumerate(outs):
         assert out["views_rank"] == r and out["tiles_rank"] == 0
@@ -120,6 +157,7 @@ def test_world8_views_sharded_matches_jax(tmp_path, jax_frames):
         img, ovf = out["tiled"]
         _close(img, jax_frames["tiled"][1])
         assert int(ovf) == 0
+        _same_as_eager(out)
 
 
 def test_world4_views_and_tiles_match_jax(tmp_path, jax_frames):
@@ -127,7 +165,7 @@ def test_world4_views_and_tiles_match_jax(tmp_path, jax_frames):
     views; gathered views, multi_view_step and the row-sharded frame (two
     bands of 8 rows) match JAX's within 1e-5 on every rank; the overflow
     count is 0 (K1 has no window); the banded frame is bitwise the
-    unsharded one."""
+    unsharded one; every cached entry is its eager step bitwise."""
     outs = _spawn(tmp_path, views=2, tiles=2)
     for r, out in enumerate(outs):
         vr, tr = divmod(r, 2)
@@ -140,6 +178,7 @@ def test_world4_views_and_tiles_match_jax(tmp_path, jax_frames):
         _close(img, jax_frames["tiled"][2])
         assert int(ovf) == 0
         assert torch.equal(img, out["frame"])  # the bands are the whole frame's rows
+        _same_as_eager(out)
 
 
 def test_mesh_checks_world_size(tmp_path):

@@ -26,6 +26,9 @@ captures. A graph bakes in the addresses of the tensors it reads beyond its
 inputs (a volume, packs, tables): the caller names them, the graph keeps
 their :func:`stamp`, and a key captured under another stamp (another volume,
 or one written in place) is captured again. Every graph of one CompiledFrame shares one memory pool.
+A CompiledFrame made with ``maxsize`` holds at most that many keys, as
+``functools.lru_cache(maxsize=...)`` around a ``jax.jit`` does: a new key
+evicts the least recently used one, and its graph with it.
 
 On any device but a card a call runs the eager function and records the
 key only: that is the device the caller asked for. A call made while a graph
@@ -34,6 +37,8 @@ records it, as a jitted function called inside another one is inlined.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import torch
 
@@ -122,13 +127,15 @@ class CompiledFrame:
     """The trace cache of one renderer's entries (see the module's text).
     ``name`` names the renderer in errors; ``captures`` counts the graphs
     captured on a card, and off the card the keys recorded; ``pool`` is the
-    graphs' shared memory pool, made at the first capture."""
+    graphs' shared memory pool, made at the first capture; ``maxsize``, if
+    given, bounds the keys held (the least recently used goes first)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, maxsize: int | None = None):
         self.name = name
+        self.maxsize = maxsize
         self.pool = None
         self.captures = 0
-        self._entries: dict = {}
+        self._entries: OrderedDict = OrderedDict()
 
     def keys(self) -> list:
         """The keys held: ``(static key, input signatures)``."""
@@ -138,6 +145,20 @@ class CompiledFrame:
         """Drop every graph (after a kernel library is swapped: a graph keeps
         the old kernel's function)."""
         self._entries.clear()
+
+    def drop(self, stale) -> None:
+        """Drop the graph of every key whose static key ``stale`` accepts."""
+        for full in [full for full in self._entries if stale(full[0])]:
+            del self._entries[full]
+
+    def _keep(self, full, entry) -> None:
+        """Hold ``entry`` as the newest key, evicting the least recently used
+        beyond ``maxsize``."""
+        self._entries[full] = entry
+        self._entries.move_to_end(full)
+        self.captures += 1
+        while self.maxsize is not None and len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)
 
     @torch.no_grad()
     def __call__(self, key: tuple, fn, inputs: tuple, reads=()):
@@ -155,14 +176,17 @@ class CompiledFrame:
                              f"{sorted(map(str, devices))}")
         on_card = bool(devices) and next(iter(devices)).type == "cuda"
         if not on_card:
-            if full not in self._entries:
-                self._entries[full] = None
-                self.captures += 1
-            return fn(*inputs)
+            out = fn(*inputs)
+            if full in self._entries:
+                self._entries.move_to_end(full)
+            else:
+                self._keep(full, None)
+            return out
         if torch.cuda.is_current_stream_capturing():
             return fn(*inputs)
         entry, now = self._entries.get(full), stamp(reads)
         if entry is not None and entry.stamp == now:
+            self._entries.move_to_end(full)
             return entry.replay(inputs)
         return self._capture(full, fn, inputs, now, next(iter(devices)))
 
@@ -190,6 +214,5 @@ class CompiledFrame:
             except Exception as e:
                 raise RuntimeError(f"{self.name}: capturing the frame of key {full} into a "
                                    f"CUDA graph failed: {e}") from e
-        self._entries[full] = _Entry(graph, static, outputs, stamp_)
-        self.captures += 1
+        self._keep(full, _Entry(graph, static, outputs, stamp_))
         return out

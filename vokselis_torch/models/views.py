@@ -12,8 +12,10 @@ JAX package's ``vmap`` of its render. The step uploads nothing from the host
 (:meth:`ViewsBatch.step` is the eager step), t copied into the graph's 0-d
 input. With a ``mesh``
 (:func:`vokselis_torch.parallel.make_mesh`) the views are sharded over its
-'views' dimension (:func:`vokselis_torch.parallel.render_views_sharded`), as
-``bench.py`` shards them over the JAX mesh. The TPU's slab-layout repack has
+'views' dimension (:func:`vokselis_torch.parallel.sharding.views_sharded_step`),
+as ``bench.py`` shards them over the JAX mesh, and the step replays the same
+way: one graph per key, the key holding the mesh's process groups, with the
+all-gather's NCCL collective inside it. The TPU's slab-layout repack has
 no counterpart: K1 reads the volume as it is. This module renders and
 returns frames; it times nothing.
 """
@@ -28,9 +30,11 @@ from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.ops.cuda.genvol import generate_density_u8
 from vokselis_torch.parallel.sharding import (
     build_default_renderer,
+    destroyed,
     mesh_device,
+    mesh_groups,
     orbit_camera_batch,
-    render_views_sharded,
+    views_sharded_step,
 )
 
 N_VIEWS = 64
@@ -68,16 +72,17 @@ class ViewsBatch:
         render, pack = build_default_renderer(vol, self.device)
         res, steps = self.view_res, self.max_steps
         if self.mesh is not None:
-            return vol, render_views_sharded(self.mesh, render, pack, self.cams, res, res,
-                                             max_steps=steps)
+            return vol, views_sharded_step(self.mesh, render, pack, self.cams, res, res,
+                                           max_steps=steps)
         return vol, render(pack, self.cams, res, res, steps)
 
     def __call__(self, b=0):
-        """Batch step ``b`` (t = 0.3 b): :meth:`step`, replayed from its CUDA
-        graph on a card without a mesh (sharded steps stay eager: their
-        collectives are not captured)."""
+        """Batch step ``b`` (t = 0.3 b): :meth:`step`, replayed on a card from
+        its CUDA graph, with or without a mesh (the key then holds the mesh's
+        process groups, and a key of a destroyed group is dropped)."""
         t = torch.full((), 0.3 * b, dtype=torch.float32, device=self.device)
+        key = ("step", self.n_views, self.view_res, self.dims)
         if self.mesh is not None:
-            return self.step(t)
-        return self.compiled(("step", self.n_views, self.view_res, self.dims), self.step, (t,),
-                             reads=self.cams)
+            self.compiled.drop(lambda k: destroyed(k[-1]))
+            key += (mesh_groups(self.mesh),)
+        return self.compiled(key, self.step, (t,), reads=self.cams)

@@ -19,7 +19,11 @@ the slope between 1 and 5 calls. ``--cpu`` runs a gloo group of ``--devices``
 processes (default 8) on the CPU at 48^2, 2 views per process, 16 steps,
 the 32^3 bonsai, each time the fastest of 3 calls. The world of each row is
 a process group of its size over the first processes (ranks 0 .. c-1); the
-rows run the unchanged renderers of ``vokselis_torch.parallel.sharding``.
+rows time the compiled steps of ``vokselis_torch.parallel.sharding``, as the
+JAX tool times its jitted ones: each process builds its renderer pairs once,
+so on a card each row's first call captures its step, NCCL collectives
+inside, into one CUDA graph (one capture per key, which the row checks), and
+the timed calls replay it; on the CPU every call runs the eager step.
 The processes start through ``torch.multiprocessing.spawn`` and meet
 through ``file://`` stores in a temporary directory. A line per row goes to
 stdout, and with ``--json`` one JSON object per row after them.
@@ -87,6 +91,17 @@ def _time_call(fn, on_card: bool, n_hi: int = 5, repeats: int = 3) -> float:
     return float(np.median(slopes))
 
 
+def _time_row(steps, fn, on_card: bool) -> float:
+    """:func:`_time_call` of a row's compiled step ``fn``, whose cache is
+    ``steps``: the row holds one key (one capture on a card)."""
+    before = steps.captures
+    sec = _time_call(fn, on_card)
+    if steps.captures != before + 1:
+        raise RuntimeError(f"multichip_bench: {steps.name} captured {steps.captures - before} "
+                           f"times in one row, not once")
+    return sec
+
+
 def _sizes(args, on_card: bool) -> dict:
     return {"width": args.width or (512 if on_card else 48),
             "height": args.height or (512 if on_card else 48),
@@ -119,15 +134,19 @@ def _rank_main(rank: int, cfg: dict, tmp: str):
         try:
             mesh = sharding.make_mesh(views=c, tiles=1, device=dev)
             cams = sharding.orbit_camera_batch(c * cfg["views"], device=dev)
-            secs["A"][c] = _time_call(
+            secs["A"][c] = _time_row(
+                sharding.VIEWS_STEPS,
                 lambda: sharding.render_views_sharded(mesh, render, pack, cams, w, h,
                                                       max_steps=steps), on_card)
             if h % c == 0:
                 mesh = sharding.make_mesh(views=1, tiles=c, device=dev)
-                secs["B"][c] = _time_call(
+                secs["B"][c] = _time_row(
+                    sharding.TILED_STEPS,
                     lambda: sharding.render_frame_tiled(mesh, vol, cam, w, h, max_steps=steps,
                                                         renderer=ray_renderer), on_card)
         finally:
+            # NCCL keeps a communicator until the graphs of its collectives are gone
+            sharding.clear_steps()
             dist.destroy_process_group()
     if rank == 0:
         with open(os.path.join(tmp, "secs.json"), "w") as f:
@@ -138,7 +157,9 @@ def _world(args) -> tuple:
     """(world size, on a card, the first stderr line)."""
     if args.cpu:
         world = 8 if args.devices is None else args.devices
-        return world, False, f"device: cpu (no card), a gloo world of {world} processes"
+        return world, False, (f"device: cpu (no card), a gloo world of {world} processes; each "
+                              f"row runs its compiled step eagerly (off the card nothing is "
+                              f"captured)")
     if not torch.cuda.is_available():
         raise RuntimeError("multichip_bench: no CUDA card (torch.cuda.is_available() is False); "
                            "--cpu runs a gloo world on the CPU")
@@ -151,7 +172,8 @@ def _world(args) -> tuple:
                            f"card(s)")
     return world, True, (f"device: {card_line(torch.device('cuda', 0))}; NCCL, one process per "
                          f"card: this machine has {cards} card(s), so worlds above {cards} "
-                         f"are not measured here")
+                         f"are not measured here; each row times its compiled step's "
+                         f"replays (one CUDA graph, its collectives inside)")
 
 
 def run(argv=None) -> list:
