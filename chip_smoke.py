@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--png frame.png]
+    python3 chip_smoke.py [--png frame.png] [--hot-reload-repeats N]
 
 Phases, each reported on its own lines:
   1. device: the card, as nvidia-smi names it, with its power limit;
@@ -164,7 +164,12 @@ Phases, each reported on its own lines:
      new library, drops the frame's graph and changes the replayed frame; a
      syntax error returns nvcc's diagnostics and the next frame is bitwise
      the last good one; the restored source gives the unedited K7 frame
-     bitwise; rebuild seconds;
+     bitwise; rebuild seconds. K7 once a frame: three frames capture (K7 in
+     the warm-up, from the trace); the kept frame replays, its K7 counted
+     from the replayed graph's own kernel nodes (read through the CUDA
+     driver), which its trace must match unless CUPTI returned the trace
+     with no device record at all (--hot-reload-repeats N runs the sequence
+     N times in a row);
   4j. scene state: save after 2 exact frames at 1024^2, orbit 2 more,
      restore, and the next frame (a replay) is bitwise the saved one; profiler.trace
      around one exact frame names K1's kernel; present(filter="quadratic"
@@ -222,7 +227,20 @@ Phases, each reported on its own lines:
      exact_mean_err) <= 1e-3 and every *_ms finite and above 0, printed
      beside phase 5's replayed exact and hybrid frames; python -m
      vokselis_torch.tools.multichip_bench --json at world 1 (NCCL, one
-     card), rows A and B with the JAX tool's keys.
+     card), rows A and B with the JAX tool's keys. Then the hybrid's
+     measuring tools, side by side, each in a process of its own with its
+     own time limit, at reduced settings that keep the widths (1024^2,
+     I=1024): hybrid_operating_point (budgets 0, 64, 128, one repeat: the
+     JAX tool's keys and the card's, every ms finite and > 0, the bench
+     pose's error at 64 equal to the bench line's hybrid mean_err), and in
+     this process one traced replay of its timed frame per budget (K2 0
+     times at budget 0, once above: from the graph's kernel nodes, the
+     trace matching unless empty); residual_decay at two poses (the oracle
+     curve <= the actual one at every budget, both the total at 0);
+     fast_error_report at I=256 (its means within 1.25x of
+     PARITY_REPORT.md:56-59); dense_stress_probe at the bench pose (every
+     error finite); contact_sheet at 256^2 a cell (16 K1 frames, the PNG
+     written and 2 x 8 cells).
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and ``{"ok": true, "device": {...}}``. Any failed check or
@@ -352,6 +370,12 @@ MULTICHIP_ROWS = [
      ["mode", "chips", "views", "ms_per_batch", "mrays_s", "weak_efficiency"]),
     ("frame_row_sharded", 1, ["mode", "chips", "ms_per_frame", "mrays_s", "speedup"])]
 BENCH_TIMEOUT_S, MULTICHIP_TIMEOUT_S = 180, 120
+# the hybrid tools' JSON (tools/hybrid_operating_point.py:202-210, and the
+# card's nvidia-smi line), the tools' time limit and their reduced settings
+OPPOINT_KEYS = ["operating_point", "fit", "drift_sentinel", "ladder", "note", "card"]
+TOOLS_TIMEOUT_S = 240
+TOOL_BUDGETS = (0, 64, 128)
+DECAY_POSES, DECAY_BUDGETS = ("bench", "z1.6-diag"), (0, 16, 64, 128)
 # phase 5's config-5 rounds (the batch against the per-view loop) and the
 # batch steps in its CUDA graph
 C5_ROUNDS, C5_GRAPH_STEPS = 9, 5
@@ -690,7 +714,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--png", default=None,
                         help="also write the exact main path's final frame here")
+    parser.add_argument("--hot-reload-repeats", type=int, default=1,
+                        help="run phase 4i's sequence this many times in a row, each held "
+                             "to K7 once a frame")
     args = parser.parse_args()
+    reload_repeats = args.hot_reload_repeats  # later phases rebind args
     t_start = time.perf_counter()
 
     # torch.profiler's own setting for a program with CUDA graphs
@@ -735,7 +763,7 @@ def main() -> int:
     from vokselis_torch.ops.present import present, to_uint8
     from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
     from vokselis_torch.parallel import sharding
-    from vokselis_torch.tools import hybrid_sweep
+    from vokselis_torch.tools import hybrid_operating_point, hybrid_sweep
     from vokselis_torch.tools import warp_check
     from vokselis_torch.utils.grid import cdiv
     from vokselis_torch.volume.io import dense_stress, get_bonsai
@@ -765,6 +793,24 @@ def main() -> int:
         name in a torch.profiler trace (replayed graphs' included)."""
         out, counts = profiler.kernel_launches(fn, list(KERNEL_NAMES.values()))
         return out, {k: counts[v] for k, v in KERNEL_NAMES.items()}
+
+    def replayed(fn, compiled, name):
+        """``fn()``, which replays the most recently used graph of the
+        CompiledFrame ``compiled`` once: its result, the kernels of that
+        replay counted from the graph's own kernel nodes (read through the
+        CUDA driver), and whether its trace came back with no device record
+        at all. A trace that holds records must count the same kernels."""
+        captures = compiled.captures
+        out, events = profiler.device_events(fn)
+        check(compiled.captures == captures, f"{name} captured a graph, not replayed one")
+        nodes = profiler.graph_kernels(compiled.graph(compiled.keys()[-1]),
+                                       list(KERNEL_NAMES.values()))
+        nodes = {k: nodes[v] for k, v in KERNEL_NAMES.items()}
+        on_trace = profiler.count_kernels(events, list(KERNEL_NAMES.values()))
+        on_trace = {k: on_trace[v] for k, v in KERNEL_NAMES.items()}
+        check(not events or on_trace == nodes,
+              f"{name}: its trace counted {on_trace}, its graph's kernel nodes {nodes}")
+        return out, nodes, not events
 
     def wrapped(counts):
         """The kernels whose wrapper counted a launch (a compiled frame's
@@ -2991,77 +3037,118 @@ def main() -> int:
     # -- phase 4i: hot reload of K7 on the card ------------------------------
     # a copy of march_field.cu and its headers; the repository's csrc is never
     # edited. The watcher is driven with poll_once (its thread is stopped so
-    # that it cannot take an edit first)
+    # that it cannot take an edit first). Three of the four frames capture
+    # their library's graph (K7 runs once, in the warm-up), the fourth (kept,
+    # after a failed build) replays the last good one: its K7 is counted
+    # from that graph's own kernel nodes, read through the CUDA driver, and
+    # its trace must agree unless the trace came back with no device record
+    # at all (CUPTI has returned such a session for this replay, never for a
+    # capture; --hot-reload-repeats counts them); the frame, bitwise
+    # the changed one, which the graph's output buffer never held before,
+    # proves that the replay ran
+    def hot_reload():
+        """Phase 4i's sequence once: ``(the builds' CompileResults, the
+        kernels on the device per frame, the wrappers' counts, the frames
+        whose trace held no device record, the watched files)``."""
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "march_field.cu")
+            shutil.copy(mf.SOURCE, src)
+            for header in kbuild.included_headers(mf.SOURCE):
+                shutil.copy(header, tmp)
+            original = open(src).read()
+
+            def edit(text):
+                with open(src, "w") as f:
+                    f.write(text)
+                st = os.stat(src)
+                os.utime(src, (st.st_atime, st.st_mtime + 2))
+
+            rctx = Context(FIELD_RES, FIELD_RES, camera=XorDemo.default_camera(1.0),
+                           backbuffer_resolution=(FIELD_RES, FIELD_RES), watch=True,
+                           device="cuda")
+            check(rctx.watcher._thread is not None and rctx.watcher._thread.is_alive(),
+                  "Context(watch=True) runs no watcher thread")
+            demo = XorDemo.init(rctx, source=src)
+            rctx.watcher.stop()
+            watched = sorted(os.path.basename(p) for p in rctx.watcher.registry)
+            per_frame, unrecorded = {}, []
+
+            def xor_frame(name):
+                if name == "kept":  # the last good library's graph, replayed
+                    _, on_device, empty = replayed(lambda: demo.render(rctx),
+                                                   demo.pipeline.compiled, "the kept frame")
+                else:
+                    _, events = profiler.device_events(lambda: demo.render(rctx))
+                    counts = profiler.count_kernels(events, list(KERNEL_NAMES.values()))
+                    on_device = {k: counts[v] for k, v in KERNEL_NAMES.items()}
+                    empty = not events
+                if empty:
+                    unrecorded.append(name)
+                per_frame[name] = on_device
+                return rctx.render_backbuffer.texture.clone()
+
+            reset_launches()
+            base, lib0 = xor_frame("base"), demo.pipeline.lib
+            edited = original.replace("const float v = val * 0.5f;",
+                                      "const float v = val * 0.75f;")
+            check(edited != original, "the shading constant to edit is not in march_field.cu")
+            # a comment unique to this run: its library is never one an earlier run
+            # built, so the rebuild's seconds are nvcc's
+            edited += f"// hot-reload edit {os.getpid()} {time.time_ns()}\n"
+            edit(edited)
+            (res_edit,) = rctx.watcher.poll_once()
+            check(res_edit.ok and demo.pipeline.lib is res_edit.compiled
+                  and res_edit.compiled._name != lib0._name,
+                  f"the edit did not load a new library: {res_edit.error[-500:]}")
+            changed = xor_frame("changed")
+            check(not torch.equal(changed, base), "the edited constant did not change the frame")
+            edit(edited + "\nthis is not C++ ][\n")
+            (res_bad,) = rctx.watcher.poll_once()
+            check(not res_bad.ok and "error" in res_bad.error
+                  and demo.pipeline.lib is res_edit.compiled,
+                  "a syntax error did not return nvcc's diagnostics")
+            kept = xor_frame("kept")
+            check(torch.equal(kept, changed),
+                  "after a failed build the frame is not the last good one")
+            edit(original)
+            (res_back,) = rctx.watcher.poll_once()
+            restored = xor_frame("restored")
+            torch.cuda.synchronize()
+            wrappers = launches()
+            check(res_back.ok and torch.equal(restored, base),
+                  "the restored source's frame differs")
+            unedited = mf.render_field(rctx.camera_uniform, demo.gen_time, FIELD_RES, FIELD_RES)
+            check(torch.equal(restored, unedited),
+                  "the restored frame is not the unedited K7 frame")
+        return (res_edit, res_bad, res_back), per_frame, wrappers, unrecorded, watched
+
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "march_field.cu")
-        shutil.copy(mf.SOURCE, src)
-        for header in kbuild.included_headers(mf.SOURCE):
-            shutil.copy(header, tmp)
-        original = open(src).read()
-
-        def edit(text):
-            with open(src, "w") as f:
-                f.write(text)
-            st = os.stat(src)
-            os.utime(src, (st.st_atime, st.st_mtime + 2))
-
-        rctx = Context(FIELD_RES, FIELD_RES, camera=XorDemo.default_camera(1.0),
-                       backbuffer_resolution=(FIELD_RES, FIELD_RES), watch=True, device="cuda")
-        check(rctx.watcher._thread is not None and rctx.watcher._thread.is_alive(),
-              "Context(watch=True) runs no watcher thread")
-        demo = XorDemo.init(rctx, source=src)
-        rctx.watcher.stop()
-        watched = sorted(os.path.basename(p) for p in rctx.watcher.registry)
-
-        reload_traced = only()
-
-        def xor_frame():
-            _, on_device = traced(lambda: demo.render(rctx))
-            for k, v in on_device.items():
-                reload_traced[k] += v
-            return rctx.render_backbuffer.texture.clone()
-
-        reset_launches()
-        base, lib0 = xor_frame(), demo.pipeline.lib
-        edited = original.replace("const float v = val * 0.5f;", "const float v = val * 0.75f;")
-        check(edited != original, "the shading constant to edit is not in march_field.cu")
-        # a comment unique to this run: its library is never one an earlier run
-        # built, so the rebuild's seconds are nvcc's
-        edited += f"// hot-reload edit {os.getpid()} {time.time_ns()}\n"
-        edit(edited)
-        (res_edit,) = rctx.watcher.poll_once()
-        check(res_edit.ok and demo.pipeline.lib is res_edit.compiled
-              and res_edit.compiled._name != lib0._name,
-              f"the edit did not load a new library: {res_edit.error[-500:]}")
-        changed = xor_frame()
-        check(not torch.equal(changed, base), "the edited constant did not change the frame")
-        edit(edited + "\nthis is not C++ ][\n")
-        (res_bad,) = rctx.watcher.poll_once()
-        check(not res_bad.ok and "error" in res_bad.error
-              and demo.pipeline.lib is res_edit.compiled,
-              "a syntax error did not return nvcc's diagnostics")
-        kept = xor_frame()
-        check(torch.equal(kept, changed), "after a failed build the frame is not the last good one")
-        edit(original)
-        (res_back,) = rctx.watcher.poll_once()
-        restored = xor_frame()
-        torch.cuda.synchronize()
-        reload_launches = launches()
-        check(res_back.ok and torch.equal(restored, base), "the restored source's frame differs")
-        unedited = mf.render_field(rctx.camera_uniform, demo.gen_time, FIELD_RES, FIELD_RES)
-        check(torch.equal(restored, unedited), "the restored frame is not the unedited K7 frame")
-        path_check("the hot reload path", reload_traced, reload_launches, K7=4)
-        diag = next((ln.strip() for ln in res_bad.error.splitlines() if "error" in ln), "")
+    empty_traces = []
+    for rep in range(reload_repeats):
+        (res_edit, res_bad, res_back), by_frame, reload_launches, unrecorded, watched = \
+            hot_reload()
+        reload_traced = {k: sum(f[k] for f in by_frame.values()) for k in KERNEL_NAMES}
+        k7_frames = {name: f["K7"] for name, f in by_frame.items()}
+        check(list(k7_frames.values()) == [1, 1, 1, 1],
+              f"the hot reload path (repetition {rep}) launched K7 {k7_frames} times on the "
+              f"device, not once a frame")
+        path_check(f"the hot reload path (repetition {rep})", reload_traced, reload_launches,
+                   K7=4)
+        empty_traces += [(rep, name) for name in unrecorded]
+    if reload_repeats > 1:
+        print(f"phase 4i repetitions ({card}): {reload_repeats} in a row, K7 4 times "
+              f"in each (once a frame); traces with no device record (repetition, frame): "
+              f"{empty_traces}", flush=True)
+    diag = next((ln.strip() for ln in res_bad.error.splitlines() if "error" in ln), "")
     print(f"phase 4i hot reload ({card}; XorDemo {FIELD_RES}^2 on a copy of march_field.cu, "
           f"watching {watched}): edit rebuild {res_edit.seconds:.2f} s -> "
           f"{os.path.basename(res_edit.compiled._name)}, frame changed; syntax error "
-          f"{res_bad.seconds:.2f} s, diagnostics \"{diag[:160]}\", frame kept bitwise; restore "
-          f"{res_back.seconds:.2f} s (its library built before), frame bitwise the unedited "
-          f"K7 frame (each library's frames a graph of its own); launches on the device "
-          f"{reload_traced} (wrappers {reload_launches}); phase "
-          f"{time.perf_counter() - t_phase:.1f} s",
-          flush=True)
+          f"{res_bad.seconds:.2f} s, diagnostics \"{diag[:160]}\", frame kept bitwise (a "
+          f"replay); restore {res_back.seconds:.2f} s (its library built before), frame bitwise "
+          f"the unedited K7 frame (each library's frames a graph of its own); K7 on the device "
+          f"per frame {k7_frames} (the replay's from its graph's kernel nodes), traces with no "
+          f"device record {unrecorded}; launches on the device {reload_traced} (wrappers "
+          f"{reload_launches}); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     reload_s = {"edit": res_edit.seconds, "syntax_error": res_bad.seconds,
                 "restore": res_back.seconds}
 
@@ -3157,11 +3244,12 @@ def main() -> int:
     # exit, a timeout or a line that does not parse fails the run ---------
     t_phase = time.perf_counter()
 
-    def tool(args, timeout):
-        """``python -m args`` from the checkout's root: its stdout lines, its
-        stderr printed under this phase."""
+    def tool(args, timeout, env=None):
+        """``python -m args`` from the checkout's root (``env`` added to the
+        environment): its stdout lines, its stderr printed under this
+        phase."""
         proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
-                              text=True, timeout=timeout)
+                              text=True, timeout=timeout, env={**os.environ, **(env or {})})
         for line in proc.stderr.splitlines():
             print(f"phase 6 {args[0]} stderr: {line}", flush=True)
         check(proc.returncode == 0, f"python -m {' '.join(args)} exited {proc.returncode}")
@@ -3199,6 +3287,88 @@ def main() -> int:
           f"device {k1_dev:.4f} ms", flush=True)
     print(f"phase 6 multichip_bench ({card}; NCCL world 1): exit 0 in {multichip_s:.1f} s, rows "
           f"{json.dumps(rows)}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # the hybrid's measuring tools, side by side, each in a process of its own
+    t0 = time.perf_counter()
+    tools_dir = tempfile.mkdtemp(prefix="vokselis-tools-")
+    tool_runs = {
+        "hybrid_operating_point": (
+            ["--ii", str(II_HYBRID), "--budgets", ",".join(map(str, TOOL_BUDGETS)),
+             "--out", os.path.join(tools_dir, "oppoint.json"), "--out-dir", tools_dir],
+            {"VOK_OPPOINT_REPEATS": "1"}),
+        "residual_decay": (
+            ["--ii", str(II_HYBRID), "--poses", ",".join(DECAY_POSES), "--budgets",
+             ",".join(map(str, DECAY_BUDGETS)), "--out-dir", tools_dir], None),
+        "fast_error_report": (["--ii", "256"], None),
+        "dense_stress_probe": (["--poses", "bench", "--out-dir", tools_dir], None),
+        "contact_sheet": ([os.path.join(tools_dir, "sheet.png")], None),
+    }
+    with ThreadPoolExecutor(len(tool_runs)) as pool:
+        futures = {k: pool.submit(tool, [f"vokselis_torch.tools.{k}", *a], TOOLS_TIMEOUT_S, e)
+                   for k, (a, e) in tool_runs.items()}
+        tool_out = {k: f.result() for k, f in futures.items()}
+    tools_s = time.perf_counter() - t0
+    with open(os.path.join(tools_dir, "oppoint.json")) as f:
+        op = json.load(f)
+    check(json.loads(tool_out["hybrid_operating_point"][-1]) == op,
+          "hybrid_operating_point's last line is not its JSON")
+    ladder = {r["budget"]: r for r in op["ladder"]}
+    op_ms = [m for r in op["ladder"] for m in [r["ms"], *r["ms_reps"]]]
+    op_ms += [op["drift_sentinel"]["end_ms"]]
+    bench_hyb_err = line["mean_err"] if "exact_mrays" in line else line["hybrid_mean_err"]
+    check(list(op) == OPPOINT_KEYS and sorted(ladder) == sorted(TOOL_BUDGETS)
+          and all(math.isfinite(m) and m > 0 for m in op_ms)
+          and line["hybrid_budget"] == 64
+          and ladder[64]["errs"]["bench"] == bench_hyb_err,
+          f"hybrid_operating_point: keys {list(op)}, ladder {op['ladder']}, the bench's "
+          f"hybrid error {bench_hyb_err} at budget {line['hybrid_budget']}")
+    # its timed frame, replayed once a budget here under a trace: K2 as the budget says
+    bench_u1 = Camera.bonsai(1.0).uniform(dev)
+    op_launches, op_unrecorded = {}, []
+    for b in TOOL_BUDGETS:
+        hyb_b = hy.HybridBonsaiRenderer(vol_bonsai, dev, intermediate=II_HYBRID, budget=b)
+        frame_b = hybrid_operating_point.replay_frame(hyb_b, bench_u1, RES)
+        frame_b()  # the capture
+        _, op_launches[b], empty = replayed(frame_b, hyb_b.compiled, f"the budget-{b} frame")
+        if empty:
+            op_unrecorded.append(b)
+        del hyb_b, frame_b
+    check(all(op_launches[b] == only(K34=1, K5=1, K2=int(b > 0)) for b in TOOL_BUDGETS),
+          f"the ladder's replayed frames launched {op_launches}")
+    with open(os.path.join(tools_dir, f"residual_decay_{II_HYBRID}.json")) as f:
+        decay = json.load(f)
+    check(list(decay) == list(DECAY_POSES) and all(
+        [p["budget"] for p in r["curve"]] == list(DECAY_BUDGETS)
+        and all(p["oracle"] <= p["actual"] for p in r["curve"])
+        and r["curve"][0]["oracle"] == r["curve"][0]["actual"] == r["total_fast_err"]
+        for r in decay.values()), f"residual_decay's curves {decay}")
+    fast_rows = [ln.split("|")[1:-1] for ln in tool_out["fast_error_report"]
+                 if ln.startswith("| 256 | ") and ln.count("|") == 6]
+    fast_means = {r[1].strip(): float(r[2]) for r in fast_rows}
+    check(sorted(fast_means) == sorted(FAST_ERR[256]) and all(
+        fast_means[k] <= FAST_ERR_SLACK * FAST_ERR[256][k][0] for k in fast_means),
+        f"fast_error_report's I=256 means {fast_means} against 1.25x {FAST_ERR[256]}")
+    with open(os.path.join(tools_dir, "dense_stress.json")) as f:
+        dense_tool = json.load(f)
+    check(all(math.isfinite(dense_tool[k]) for k in dense_tool if k.endswith("_err"))
+          and all(math.isfinite(dense_tool[k]) and dense_tool[k] > 0
+                  for k in ("exact_ms", "fast_ms", "hybrid_ms")),
+          f"dense_stress_probe {dense_tool}")
+    sheet = read_png(os.path.join(tools_dir, "sheet.png"))
+    check(sum(" done" in ln for ln in tool_out["contact_sheet"]) == 16
+          and sheet.shape[:2] == (2 * 256, 8 * 256) and sheet.max() > 0,
+          f"contact_sheet: {sheet.shape}")
+    shutil.rmtree(tools_dir)
+    print(f"phase 6 hybrid tools ({card}; side by side in {tools_s:.1f} s, processes of their "
+          f"own): hybrid_operating_point I={II_HYBRID} budgets {list(TOOL_BUDGETS)}, one repeat: "
+          f"ms {[ladder[b]['ms'] for b in TOOL_BUDGETS]}, bench-pose error at 64 "
+          f"{ladder[64]['errs']['bench']} (the bench line's {bench_hyb_err}), fit "
+          f"{op['fit']}, choice {(op['operating_point'] or {}).get('budget')} ({op['note']}); "
+          f"its frames replayed here: K2 {[op_launches[b]['K2'] for b in TOOL_BUDGETS]} (graph "
+          f"nodes; traces with no device record at budgets {op_unrecorded}); "
+          f"residual_decay {json.dumps(decay)}; fast_error_report I=256 means {fast_means}; "
+          f"dense_stress_probe {json.dumps(dense_tool)}; contact_sheet {sheet.shape}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
     def entry(name, source, replaces, n_launches, err, dev, call, plain_ms, bound, lib=None):
         """One kernel's line: ``launches`` its wrapper's count on the main

@@ -180,3 +180,63 @@ def test_profiler_trace_writes_a_chrome_trace(tmp_path, capsys):
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
     assert f"profiler trace written to {prof.trace_path}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name, kernel, want", [
+    ("_ZN12_GLOBAL__N_118march_field_kernelEPKfS1_", "march_field_kernel", True),
+    ("_ZN12_GLOBAL__N_116composite_kernelEPKf", "composite_kernel", True),
+    ("_ZN12_GLOBAL__N_125resample_composite_kernelEPKf", "composite_kernel", False),
+    ("_ZN12_GLOBAL__N_125resample_composite_kernelEPKf", "resample_composite_kernel", True),
+    ("_ZN12_GLOBAL__N_117warp_stats_kernelILb1EEvPKf", "warp_stats_kernel", True),
+    ("_ZN12_GLOBAL__N_117warp_stats_kernelILb1EEvPKf", "warp_kernel", False),
+    ("march_bonsai_kernel", "march_bonsai_kernel", True),
+    ("march_bonsai_kernel_v2", "march_bonsai_kernel", False),
+])
+def test_kernel_name_matches(name, kernel, want):
+    """A graph node's function name, as the driver gives it (mangled), is
+    matched to a kernel by its Itanium source name, never by a substring
+    (composite_kernel is inside resample_composite_kernel)."""
+    from vokselis_torch.engine.profiler import kernel_name_matches
+
+    assert kernel_name_matches(name, kernel) is want
+
+
+def test_count_kernels_from_trace_names():
+    """count_kernels reads demangled trace names with word boundaries; the
+    CPU's trace has no device event, so kernel_launches counts 0."""
+    from vokselis_torch.engine.profiler import count_kernels, kernel_launches
+
+    names = ["void (anonymous namespace)::resample_composite_kernel(float const*)",
+             "void (anonymous namespace)::composite_kernel(float const*)",
+             "void (anonymous namespace)::warp_stats_kernel<true>(float const*)",
+             "Memcpy DtoD (Device -> Device)"]
+    assert count_kernels(names, ["composite_kernel", "resample_composite_kernel",
+                                 "warp_stats_kernel", "warp_kernel"]) == {
+        "composite_kernel": 1, "resample_composite_kernel": 1, "warp_stats_kernel": 1,
+        "warp_kernel": 0}
+    out, counts = kernel_launches(lambda: torch.ones(4).sum(), ["march_bonsai_kernel"])
+    assert float(out) == 4.0 and counts == {"march_bonsai_kernel": 0}
+
+
+@pytest.mark.gpu
+def test_graph_kernels_count_a_replay_on_gpu():
+    """The kernel nodes of a compiled field frame's graph, read through the
+    CUDA driver: K7 once and no other port kernel, the count a replay's
+    trace gives when it holds records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from vokselis_torch.core.camera import Camera
+    from vokselis_torch.engine.profiler import graph_kernels, kernel_launches
+    from vokselis_torch.ops.cuda.march_field import FieldRenderer
+
+    names = ["march_field_kernel", "march_bonsai_kernel", "warp_kernel"]
+    r = FieldRenderer("cuda")
+    u = Camera.xor(1.0).uniform("cuda")
+    first = r(u, 0.0, 128, 128)
+    graph = r.compiled.graph(r.compiled.keys()[-1])
+    assert graph_kernels(graph, names) == {"march_field_kernel": 1, "march_bonsai_kernel": 0,
+                                           "warp_kernel": 0}
+    replay, counts = kernel_launches(lambda: r(u, 0.0, 128, 128), names)
+    assert torch.equal(replay, first) and r.compiled.captures == 1
+    assert counts in ({"march_field_kernel": 1, "march_bonsai_kernel": 0, "warp_kernel": 0},
+                      dict.fromkeys(names, 0))

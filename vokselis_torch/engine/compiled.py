@@ -141,6 +141,12 @@ class CompiledFrame:
         """The keys held: ``(static key, input signatures)``."""
         return list(self._entries)
 
+    def graph(self, full):
+        """The ``torch.cuda.CUDAGraph`` of the key ``full`` (one of
+        :meth:`keys`; the last is the most recently used), captured with
+        ``keep_graph=True``."""
+        return self._entries[full].graph
+
     def clear(self) -> None:
         """Drop every graph (after a kernel library is swapped: a graph keeps
         the old kernel's function)."""
@@ -202,7 +208,9 @@ class CompiledFrame:
             _outputs(out, lambda t: t.record_stream(current))
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
+            # the graph itself is kept beside its executable: the kernels a
+            # replay launches can be read from it (profiler.graph_kernels)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
                 with torch.cuda.graph(graph, pool=self.pool):
                     mode = torch.cuda.get_sync_debug_mode()
@@ -211,6 +219,7 @@ class CompiledFrame:
                         outputs = fn(*static)
                     finally:
                         torch.cuda.set_sync_debug_mode(mode)
+                graph.instantiate()
             except Exception as e:
                 raise RuntimeError(f"{self.name}: capturing the frame of key {full} into a "
                                    f"CUDA graph failed: {e}") from e

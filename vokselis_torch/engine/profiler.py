@@ -16,11 +16,16 @@
 - :func:`kernel_launches` counts the kernels a call ran on the card by
   name, from such a trace: a replayed CUDA graph calls no launch wrapper,
   so its kernels are counted here.
+- :func:`graph_kernels` counts the kernel nodes of a captured CUDA graph by
+  name, read through the CUDA driver: what each replay of it launches,
+  whatever a trace recorded. CUPTI has returned a session with no device
+  record at all (not even its uncaptured copies) around a graph replay.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
 import re
 import tempfile
@@ -127,11 +132,11 @@ def trace(logdir: str | None = None):
     print(f"profiler trace written to {prof.trace_path}")
 
 
-def kernel_launches(fn, names):
-    """Run ``fn()`` under ``torch.profiler`` and count the device kernels
-    whose name is one of ``names`` (``__global__`` function names), those
-    of replayed CUDA graphs included. Returns ``(fn's result, {name:
-    launches})``; without a card every count is 0."""
+def device_events(fn):
+    """Run ``fn()`` under ``torch.profiler`` (CPU and, with a card, CUDA
+    activities; the card synchronized before the trace ends) and return
+    ``(fn's result, [the names of the trace's device events])``: kernels,
+    those of replayed CUDA graphs included, and copies."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -139,11 +144,114 @@ def kernel_launches(fn, names):
         out = fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def count_kernels(event_names, names) -> dict:
+    """``{name: events}``: how many of ``event_names`` (a trace's demangled
+    device event names) are each ``__global__`` function of ``names``."""
     pattern = re.compile(r"(?<!\w)(" + "|".join(map(re.escape, names)) + r")(?!\w)")
     counts = dict.fromkeys(names, 0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = pattern.search(e.name)
-            if m:
-                counts[m.group(1)] += 1
-    return out, counts
+    for e in event_names:
+        m = pattern.search(e)
+        if m:
+            counts[m.group(1)] += 1
+    return counts
+
+
+def kernel_launches(fn, names):
+    """Run ``fn()`` under ``torch.profiler`` and count the device kernels
+    whose name is one of ``names`` (``__global__`` function names), those
+    of replayed CUDA graphs included. Returns ``(fn's result, {name:
+    launches})``; without a card every count is 0."""
+    out, events = device_events(fn)
+    return out, count_kernels(events, names)
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """The driver's CUDA_KERNEL_NODE_PARAMS_v2."""
+
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x", "block_y",
+                                     "block_z", "shared_mem")] + [
+        ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+_CU_GRAPH_NODE_TYPE_GRAPH = 6
+
+
+def _driver():
+    cu = ctypes.CDLL("libcuda.so.1")
+    for f in ("cuGraphGetNodes", "cuGraphNodeGetType", "cuGraphKernelNodeGetParams_v2",
+              "cuFuncGetName", "cuKernelGetName", "cuGraphChildGraphNodeGetGraph"):
+        getattr(cu, f).restype = ctypes.c_int
+    return cu
+
+
+def _check(res: int, what: str) -> None:
+    if res != 0:
+        raise RuntimeError(f"{what} failed: CUresult {res}")
+
+
+def _node_names(cu, graph) -> list:
+    """The function names of ``graph``'s kernel nodes (a ``CUgraph``), child
+    graphs' included, as the driver gives them (mangled)."""
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        _check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+        if kind.value == _CU_GRAPH_NODE_TYPE_GRAPH:
+            child = ctypes.c_void_p()
+            _check(cu.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node), ctypes.byref(child)),
+                   "cuGraphChildGraphNodeGetGraph")
+            names += _node_names(cu, child)
+        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        p = _KernelNodeParams()
+        _check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
+               "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if p.func:
+            _check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)), "cuFuncGetName")
+        else:
+            _check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
+                   "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def kernel_name_matches(name: str, kernel: str) -> bool:
+    """Whether the function name ``name`` (plain, or mangled as the driver
+    gives it) is the ``__global__`` function ``kernel``: the name itself, or
+    an Itanium source name, the identifier after its length (``18march_field_
+    kernel`` in ``_ZN12_GLOBAL__N_118march_field_kernelE...``, where the
+    length's digits follow another name's)."""
+    if name == kernel:
+        return True
+    for m in re.finditer(r"\d+", name):
+        digits, end = m.group(), m.end()
+        if any(name[end:end + int(digits[i:])] == kernel for i in range(len(digits))):
+            return True
+    return False
+
+
+def graph_kernels(graph, names):
+    """Count the kernel nodes of the captured ``torch.cuda.CUDAGraph``
+    ``graph`` (made with ``keep_graph=True``) whose function is one of
+    ``names``: the kernels each replay launches, read from the graph itself
+    through the CUDA driver (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``,
+    ``cuFuncGetName``). Returns ``{name: nodes}``."""
+    counts = dict.fromkeys(names, 0)
+    for node in _node_names(_driver(), ctypes.c_void_p(graph.raw_cuda_graph())):
+        for k in names:
+            if kernel_name_matches(node, k):
+                counts[k] += 1
+    return counts

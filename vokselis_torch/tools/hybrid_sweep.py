@@ -25,6 +25,7 @@ import torch
 from vokselis_torch.core.camera import Camera
 from vokselis_torch.ops.cuda.march_bonsai import BonsaiRenderer
 from vokselis_torch.ops.hybrid import HybridBonsaiRenderer
+from vokselis_torch.tools.common import add_device_arg, device_of
 from vokselis_torch.volume.io import get_bonsai
 
 ZOOMS = (0.6, 1.0, 1.6)
@@ -77,13 +78,12 @@ def sweep(device, size: int, intermediate: int, budget: int, vol=None,
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu")
+    add_device_arg(parser)
     parser.add_argument("--size", type=int, default=1024, help="frame side, pixels")
     parser.add_argument("--ii", type=int, default=1024, help="intermediate I")
     parser.add_argument("--budget", type=int, default=64, help="re-march budget, tiles")
     args = parser.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        parser.error("--device cuda needs a CUDA card (use --device cpu)")
+    device_of(parser, args)
     t0 = time.perf_counter()
     _, s = sweep(args.device, args.size, args.ii, args.budget)
     print(f"sweep ({s['poses']} poses, {args.size}^2, I={args.ii}, budget "

@@ -62,14 +62,20 @@ class Sizes:
     budget: int = 128
 
 
+def smi_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``'s
+    first line: the card's name and power limit."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
 def card_line(device) -> str:
     """The card as ``nvidia-smi`` names it, with its power limit."""
     if device.type != "cuda":
         return f"{device} (no card)"
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    return f"{torch.cuda.get_device_name(device)} (nvidia-smi: {smi.splitlines()[0]})"
+    return f"{torch.cuda.get_device_name(device)} (nvidia-smi: {smi_line()})"
 
 
 def compare(name, got, want, limit: float, channels: int = 3) -> dict:
