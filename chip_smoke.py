@@ -31,7 +31,7 @@ Phases, each reported on its own lines:
   3b. K3, K4 (low-degree transfer), K4b (K4's exact-transfer mode) and K6
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
-     directions: K3 within one bf16 ulp of the value and mean <= 1e-6, K4
+     directions: K3 bitwise (it rounds as the TPU kernel does), K4
      and K4b max <= 1e-4, K6 bitwise (max <= 1e-6) at 1024^2, 1920x1080
      (config 4's frame, partial tiles) and 1001x563 (width and pixel count
      not multiples of 4), each at I=512 and I=1024 with 3 and 4 channels
@@ -39,7 +39,7 @@ Phases, each reported on its own lines:
      frames' slab stage) at I=512 and I=1024, the bench and eye-inside
      poses, and at I=64 (tiles whose windows exceed the shared capacity),
      both directions and transfers: bitwise equal to the K3 -> K4 kernel
-     pair and within 1e-4 of its plain version, its device count of windows
+     pair and to its plain version, its device count of windows
      over capacity equal to the window rule's;
   3c. K5 (the stats warp) against its plain version at phase 3b's frames
      and intermediates: rgb bitwise, STAT_OVF/EXT/PEAK exact,
@@ -89,7 +89,9 @@ Phases, each reported on its own lines:
   4e. the hybrid at the reference's operating point (I=1024, budget 64)
      against the port's K1 frame: the bench pose and the 72-pose sweep
      (vokselis_torch/tools/hybrid_sweep.py), every pose's mean |d| over rgb
-     <= 1e-3, the hybrid's contract;
+     <= 1e-3, the hybrid's contract; then the steep class (zoom 1, pitch
+     1.2, 8 yaws) at budgets 64 and 128: each yaw's mean against K1 and its
+     tiles above the hybrid's threshold beside the units selected (printed);
   4l. config 4 (run after 4e): vokselis_torch/models/orbit.BonsaiOrbit, the
      8-pose orbit at 1920x1080 (bench.py:229-309), exact (K1) and hybrid
      (I=1024, budget 2 x 64) at every pose: K34, K5 and K2 once per
@@ -275,6 +277,7 @@ K4_TOL = 1e-4  # tests/test_pallas.py:394, tests/test_fast.py:165
 K6_TOL = 1e-6
 HYBRID_CONTRACT = 1e-3  # per-pose mean |hybrid - exact| over rgb (ROADMAP north star)
 BUDGET_OP = 64  # the hybrid's operating point with II_HYBRID (OPPOINT.json)
+STEEP_BUDGETS = (64, 128)  # phase 4e's steep-class line
 # K4's 1e-4 through sRGB's steepest slope (12.92): the fast frame vs plain
 FAST_FRAME_TOL = 2e-3
 # PARITY_REPORT.md:56-63, the fast frame at I=256 and I=512 vs the exact
@@ -297,7 +300,12 @@ OPS_K1_STEP = 86  # march_bonsai.cu: 41 trilinear + 27 transfer + 11 composite +
 # floors for the lower taps, whose cell decides the skip, + 7 advance (the
 # cell index is integer work, uncounted as the tap addresses are)
 OPS_SKIP_STEP = 16
-OPS_K3_TEXEL = 13  # shear_resample.cu: 2 floors, 2 fractions, 3 lerps
+# shear_resample.cu: a resampled sample's 6 multiplies and 3 adds (the bf16
+# roundings are conversions, uncounted); a position's two hat weights, a
+# floor, c0 + 1, two differences, two 1 - |.| and two clamps, which the
+# function needs once per slab and row (pos_v) or column (pos_u)
+OPS_K3_SAMPLE = 9
+OPS_HAT_POS = 8
 OPS_K4_SAMPLE = 73  # low-degree: 9 smoothstep, 2 + 48 palette, 5 alpha, 9 composite
 OPS_K4B_SAMPLE = 41  # exact: 9 smoothstep, 3 x 6 palette (one cosf), 5 alpha, 9 composite
 # the fused kernel: K3's resample for every sample K4 reads, K4's (K4b's)
@@ -703,13 +711,6 @@ def rgb_err(a, b):
     return float(d.max()), float(d.mean())
 
 
-def bf16_ulp(x, torch):
-    """One bf16 ulp of each value of ``x`` (0 where x is 0)."""
-    _, exp = torch.frexp(x.float())
-    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x, dtype=torch.float32),
-                                                exp - 8))
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--png", default=None,
@@ -792,6 +793,18 @@ def main() -> int:
         """``fn()``'s result and the kernels it ran on the card, counted by
         name in a torch.profiler trace (replayed graphs' included)."""
         out, counts = profiler.kernel_launches(fn, list(KERNEL_NAMES.values()))
+        return out, {k: counts[v] for k, v in KERNEL_NAMES.items()}
+
+    def traced_replays(fn):
+        """:func:`traced` for a ``fn`` that only replays captured graphs (it
+        calls no wrapper and captures nothing), traced again, at most three
+        times, when CUPTI hands back a trace with no device record at all
+        (phase 4i's lost K7 record; phase 4h's graph_work)."""
+        for _ in range(3):
+            out, events = profiler.device_events(fn)
+            if events:
+                break
+        counts = profiler.count_kernels(events, list(KERNEL_NAMES.values()))
         return out, {k: counts[v] for k, v in KERNEL_NAMES.items()}
 
     def replayed(fn, compiled, name):
@@ -1045,10 +1058,10 @@ def main() -> int:
                 mx = float(d34.max())
                 print(f"phase 3b K34 vs the K3 -> K4 pair and plain {label} I={ii} sgn "
                       f"{int(sgn[0]):+d} {transfer}: bitwise equal to the pair {equal}; vs plain "
-                      f"max {mx:.3e} mean {float(d34.mean()):.3e} (tol {K4_TOL:g}), "
+                      f"max {mx:.3e} mean {float(d34.mean()):.3e} (held bitwise), "
                       f"bitwise-equal texels "
                       f"{float((fused == plain).all(dim=0).float().mean()):.6f}", flush=True)
-                check(equal and mx <= K4_TOL, f"K34 disagrees at {label} I={ii} sgn "
+                check(equal and mx == 0.0, f"K34 disagrees at {label} I={ii} sgn "
                       f"{int(sgn[0])} {transfer}")
                 worst["K34"] = max(worst["K34"], mx)
         stats = window_stats(geo)
@@ -1066,14 +1079,12 @@ def main() -> int:
         stack_p = sr.resample_slabs_plain(packs[0], geo.m, geo.pos_u, geo.pos_v, geo.occ_k)
         torch.cuda.synchronize()
         d3 = (stack.float() - stack_p.float()).abs()
-        over = int((d3 > bf16_ulp(stack_p, torch)).sum())
         mx, mean = float(d3.max()), float(d3.mean())
         same = float((stack == stack_p).float().mean())
         print(f"phase 3b K3 vs plain bench I={ii} stack {tuple(stack.shape)}: max "
-              f"{mx:.3e} mean {mean:.3e} (tol 1 bf16 ulp / 1e-06), texels over 1 ulp "
-              f"{over}, bitwise-equal {same:.6f}, hot slabs "
+              f"{mx:.3e} mean {mean:.3e} (held bitwise), bitwise-equal {same:.6f}, hot slabs "
               f"{int(geo.occ_k.sum())}/{geo.occ_k.numel()}", flush=True)
-        check(over == 0 and mean <= 1e-6, f"K3 disagrees with plain at I={ii}")
+        check(mx == 0.0, f"K3 disagrees with plain at I={ii}")
         worst["K3"] = max(worst["K3"], mx)
         for sgn in (geo.sgn, -geo.sgn):
             for transfer in sr.TRANSFERS:
@@ -1500,6 +1511,37 @@ def main() -> int:
           f"{sweep['routes']}, {time.perf_counter() - t0:.1f} s", flush=True)
     check(sweep["over"] == 0, f"{sweep['over']} sweep poses beyond the hybrid's contract: "
           f"{[r['pose'] for r in sweep_recs if r['mean'] > HYBRID_CONTRACT]}")
+    # the steep class (zoom 1, pitch 1.2), whose error floor the sweep sets:
+    # per yaw the mean against K1 and the tiles scoring above the threshold
+    # beside the units the budget selects (a pair unit is two tiles)
+    steep = [cam for key, cam in hybrid_sweep.poses() if key.startswith("1.0/1.2/")]
+    steep_u = [cam.uniform(dev) for cam in steep]
+    steep_exact = [exact_r(u, RES, RES) for u in steep_u]
+    ny_s = nx_s = cdiv(RES, 32)
+    for budget in STEEP_BUDGETS:
+        hyb_s = hy.HybridBonsaiRenderer(vol_bonsai, dev, intermediate=II_HYBRID, budget=budget)
+        pair = hy._pair_mode(hyb_s.dims, RES, RES)
+        means, above, units = [], [], []
+        for u, ex in zip(steep_u, steep_exact):
+            mode, ii_s, b_s = hyb_s.route(u, RES, RES)
+            means.append(float((hyb_s(u, RES, RES) - ex)[..., :3].abs().mean()))
+            if mode in ("hybrid", "escalated"):
+                _, st = shear_warp._render_fast(hyb_s.packs, u, RES, RES, ii_s, False,
+                                                return_aux="stats")
+                scores = hy.score_tiles(st, ny_s, nx_s)
+                ids = hy.select_units(scores, ny_s * nx_s, b_s, hyb_s.thresh, pair)
+                above.append(int((scores > hyb_s.thresh).sum()))
+                units.append(int((ids < ny_s * nx_s // (2 if pair else 1)).sum()))
+            else:
+                above.append(None)
+                units.append(None)
+        print(f"phase 4e steep z1.0 pitch 1.2, 8 yaws, {RES}^2, I={II_HYBRID}, budget {budget} "
+              f"({'pairs' if pair else 'tiles'}; {card}): mean vs exact K1 "
+              f"[{', '.join(f'{m:.4e}' for m in means)}], worst {max(means):.4e}; tiles above "
+              f"{hy.DEFAULT_THRESH:g} {above} vs units selected {units}", flush=True)
+        check(all(math.isfinite(m) for m in means), "a steep frame's error is not finite")
+        del hyb_s
+    del steep_exact
 
     # -- phase 4l: config 4, the 1080p orbit (models/orbit.py) --------------
     # exact and hybrid (I=1024, budget 2 x 64) at every pose of bench.py's
@@ -1903,7 +1945,8 @@ def main() -> int:
             shaded = shaded_samples(st_ii, g_ii.sgn, g_ii.irho, g_ii.occ_rb, transfer, torch)
             bound = bound_ms(texels * 2 + live_slabs * 2 * ii * 4 + ii * ii * 4
                              + gp_ii + g_ii.occ_rb.numel() + 8 + 4 * ii * ii * 4,
-                             samples * OPS_K3_TEXEL + shaded * OPS_SHADE[transfer])
+                             samples * OPS_K3_SAMPLE + live_slabs * 2 * ii * OPS_HAT_POS
+                             + shaded * OPS_SHADE[transfer])
             k34[(ii, transfer)] = {
                 "device": device_ms(lambda: sr.resample_composite(*args), torch),
                 "call": median_ms(lambda: sr.resample_composite(*args), n, torch),
@@ -1935,7 +1978,8 @@ def main() -> int:
               f"one call {pr['pair call']:.4f} ms; bound {b[0]:.4f} ms ({b[1]}; bytes "
               f"{b[2]:.4f} ms: {row['texels']} pack texels tapped in {row['live slabs']} "
               f"slabs; operations {b[3]:.4f} ms: {row['samples']} resampled x "
-              f"{OPS_K3_TEXEL} + {row['shaded']} above 0.1 x {OPS_SHADE[transfer]}), "
+              f"{OPS_K3_SAMPLE} + {row['live slabs']} x {2 * ii} positions x {OPS_HAT_POS} + "
+              f"{row['shaded']} above 0.1 x {OPS_SHADE[transfer]}), "
               f"{row['device'] / b[0]:.1f}x its bound; mean window "
               f"{win_stats[('bench', ii)][0]:.1f} texels", flush=True)
     print(f"phase 5 K34 plain torch (I={II}, lowdeg): {k34p_ms:.4f} ms; K6 vs grid_sample K6, "
@@ -2165,7 +2209,7 @@ def main() -> int:
                         k1_sampled * OPS_K1_STEP + k1_skipped * OPS_SKIP_STEP)
     hot = int(geo.occ_k.sum())
     k3_bound = bound_ms(hot * d * d * 2 + 2 * gp * II * 4 + gp + 4 + gp * II * II * 2,
-                        hot * II * II * OPS_K3_TEXEL)
+                        hot * (II * II * OPS_K3_SAMPLE + 2 * II * OPS_HAT_POS))
     k4_samples = int(k4_count.sum())
     k4_bound = bound_ms(k4_samples * 2 + II * II * 4 + geo.occ_rb.numel() + 8
                         + 4 * II * II * 4, k4_samples * OPS_K4_SAMPLE)
@@ -2497,8 +2541,15 @@ def main() -> int:
         ``own`` (the inputs' copies into the graph and the outputs' copies
         out): what is left are the graph's copy nodes (at world 1 NCCL's
         all-gather is one cudaMemcpyAsync, captured as a node; its in-place
-        all-reduce runs nothing)."""
-        ev_e, ev_r = device_events(eager), device_events(replay)
+        all-reduce runs nothing). CUPTI now and then hands back a trace with
+        no device record at all (as traced_replays): a replay, which calls no
+        wrapper and captures nothing, is then traced again, at most three
+        times."""
+        ev_e = device_events(eager)
+        for _ in range(3):
+            ev_r = device_events(replay)
+            if ev_r:
+                break
 
         def kernels(ev):
             return {k: sum(n for name, n in ev.items() if re.search(rf"(?<!\w){v}(?!\w)", name))
@@ -2853,7 +2904,7 @@ def main() -> int:
         equal = sum(bitwise(g[0][0], w) for g, w in zip(got, want))
         syncs = [g[1] for g in got]
         del got, want
-        _, on_device = traced(lambda: [replay() for replay, _ in calls])
+        _, on_device = traced_replays(lambda: [replay() for replay, _ in calls])
         row = {"replays": len(calls), "bitwise": equal, "host_syncs": max(syncs),
                "captures": compiled.captures, "keys": keys, "device_launches": on_device,
                "pool_mib": pool_mib(compiled)}

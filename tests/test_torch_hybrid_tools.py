@@ -449,7 +449,7 @@ def test_tools_import_nothing_of_jax_nor_tools():
         "vokselis_torch.tools.fit_budget_slope, "
         "vokselis_torch.tools.residual_decay, vokselis_torch.tools.fast_error_report, "
         "vokselis_torch.tools.dense_stress_probe, vokselis_torch.tools.kernel_bench, "
-        "vokselis_torch.tools.contact_sheet\n"
+        "vokselis_torch.tools.contact_sheet, vokselis_torch.tools.make_goldens\n"
         "bad = [m for m in sys.modules if m.startswith(('vokselis_tpu', 'jax', 'bench', 'tools'))"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -8,12 +8,15 @@
 //   sum_dv sum_du wv[k,dv,i] * volm[k,dv,du] * wu[k,du,u],
 // hat weights max(0, 1 - |pos - col|) over cols [0, D-1]: a bilinear sample of
 // the slab at (pos_v[k,i], pos_u[k,u]) that is zero outside [0, D-1]. The TPU
-// ran it as two hat-weight matmuls on the MXU (bf16 weights, bf16 partial
-// product); here one thread per (k, i, u), u fastest, gathers the four taps
-// from the bf16 slab and lerps in float32, then rounds to bf16 once:
-//   f = pos - floor(pos); a tap outside [0, D-1] reads 0;
-//   top = a00 + (a01 - a00) * fu; bot = a10 + (a11 - a10) * fu;
-//   val = top + (bot - top) * fv.
+// ran it as two hat-weight matmuls on the MXU; here one thread per (k, i, u),
+// u fastest, gathers the four taps from the bf16 slab and rounds as those
+// matmuls round, so that K3 is bit for bit the TPU kernel:
+//   c0 = floor(pos), c1 = c0 + 1; w_c = bf16(max(0, 1 - |pos - c|)) (not
+//   1 - frac and frac: a different float); a tap outside [0, D-1] reads 0;
+//   top = bf16(a00 * wu0 + a01 * wu1); bot = bf16(a10 * wu0 + a11 * wu1);
+//   val = bf16(top * wv0 + bot * wv1).
+// Each product of a bf16 tap and a bf16 weight is exact in float32, so each
+// sum rounds once, as the MXU's float32 accumulation does.
 // Rows k >= G (padding, pos = -1e6) and slabs whose occupancy gate is 0 are
 // written as exact zeros, so a reader that ignores the gates still sees what
 // the TPU kernel wrote (shear_resample.py:169-173).
@@ -50,8 +53,8 @@
 // resample_composite_kernel replaces the pair K3 -> K4 (the JAX package's
 // shear_resample.py:resample_composite, which chains the two TPU kernels).
 // It computes composite(resample_slabs(...)) bit for bit: each sample K4
-// would read is resampled in place with K3's taps, range tests and lerps,
-// rounded to bf16 and widened back (what the stack held), then composited
+// would read is resampled in place with K3's taps, range tests, weights and
+// roundings, widened back from bf16 (what the stack held), then composited
 // with K4's operations in K4's order; the (gp, I, I) bf16 stack (134 MB at
 // I=512, 537 MB at I=1024) never reaches device memory. Design:
 //   - one CTA of 256 threads per tile of 8 intermediate rows (one occ_rb row
@@ -68,23 +71,29 @@
 //   - pos_u and pos_v are affine per slab, so a tile's taps in slab k lie in
 //     the rectangle spanned by its first and last row and column (clamped
 //     into [0, D-1] in float, columns widened to 16-byte groups). cp.async
-//     streams the windows and positions of RC_GROUP slabs at a time into
-//     shared memory, one group ahead of the composite (double-buffered). A
-//     window over RC_WIN_CAP texels (eye-inside poses, coarse intermediates)
-//     is not staged: its taps come from the pack through __ldg, the same
-//     bf16, and the tile is counted in *over;
-//   - a group's taps and lerps are independent of alpha and run first; then
-//     only a sample above 0.1 at a texel below alpha 0.95 is shaded: in the
-//     pair a sample <= 0.1 adds an exact zero and K4 stops at 0.95, so the
-//     kernel shades fewer samples than K4 and gives the same bits;
+//     streams the windows of RC_GROUP slabs at a time into shared memory,
+//     one group ahead of the composite (double-buffered). A window over
+//     RC_WIN_CAP texels (eye-inside poses, coarse intermediates) is not
+//     staged: its taps come from the pack through __ldg, the same bf16, and
+//     the tile is counted in *over;
+//   - a tap's hat weights and index depend on its slab and on its row or
+//     its column alone, so they are made once per tile, slab and row or
+//     column (RC_ROWS + RC_COLS entries a slab), one group ahead, into a
+//     double-buffered table in shared memory; a texel reads its two entries;
+//   - a group's taps and weighted sums are independent of alpha and run
+//     first; then only a sample above 0.1 at a texel below alpha 0.95 is
+//     shaded: in the pair a sample <= 0.1 adds an exact zero and K4 stops at
+//     0.95, so the kernel shades fewer samples than K4 and gives the same
+//     bits;
 //   - the CTA stops when no texel of the tile is below alpha 0.95
 //     (__syncthreads_or).
 // No tensor cores: a sample is a 4-tap gather, not a dot product; the TPU's
 // hat-weight matmuls on the MXU existed because Mosaic cannot gather. What
 // bounds it: the larger of the bytes it must move (the pack texels that
 // its composited samples tap, positions, irho and the planes written) and
-// 13 float operations a resampled sample plus K4's 73 (K4b's 41) a shaded
-// one; at I=512 and the bench pose both are a few microseconds
+// the float operations: 9 a resampled sample (6 multiplies, 3 adds), 8 a
+// position's two weights (once per live slab, row and column), K4's 73
+// (K4b's 41) a shaded sample; at I=512 and the bench pose both are a few microseconds
 // (chip_smoke.py prints them). What holds it above that is the serial
 // walk, one barrier pair per group of slabs, over up to ~150
 // live slabs in the tiles that never saturate.
@@ -110,6 +119,7 @@ constexpr int RC_ROWS = 8;  // fused kernel: tile rows (one occ_rb row block at 
 constexpr int RC_COLS = RC_THREADS / RC_ROWS;  // fused kernel: tile columns, one texel a thread
 constexpr int RC_WIN_CAP = 2048;  // bf16 elements of a slab window in shared memory (4 KB)
 constexpr int RC_GROUP = 4;  // fused kernel: slabs a pipeline stage holds
+constexpr int RC_TAPS = RC_ROWS + RC_COLS;  // fused kernel: tap-table entries a slab
 
 constexpr float TAU = 6.28318f;  // shaders/raycast_naive.wgsl:70, not 2*pi
 constexpr float INV_SMOOTH_SPAN = (float)(1.0 / (1.2 - 0.10));  // smoothstep(0.10, 1.2, .)
@@ -138,11 +148,24 @@ __device__ __forceinline__ float horner(const float (&c)[N], float u) {
   return acc;
 }
 
-// Bilinear taps of one position over cols [0, d-1] (hi = d - 1): the
-// fraction, the first tap's index and whether each tap is inside. The range
-// tests run in float, so a far-off position never reaches an int cast.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The TPU kernel's hat weight of column col at pos: max(0, 1 - |pos - col|)
+// in float32 in that order, rounded to bf16 (shear_resample.py:131-133). A
+// NaN passes through, as torch.clamp_min passes it.
+__device__ __forceinline__ float hat(float pos, float col) {
+  const float w = 1.0f - fabsf(pos - col);
+  return round_bf16(w < 0.0f ? 0.0f : w);
+}
+
+// Bilinear taps of one position over cols [0, d-1] (hi = d - 1): the two
+// taps' hat weights, the first tap's index and whether each tap is inside.
+// The range tests run in float, so a far-off position never reaches an int
+// cast.
 struct Taps {
-  float f;
+  float w0, w1;
   int i0;
   bool ok0, ok1;
 };
@@ -150,18 +173,43 @@ struct Taps {
 __device__ __forceinline__ Taps taps_of(float pos, float hi) {
   const float p0 = floorf(pos);
   Taps t;
-  t.f = pos - p0;
+  t.w0 = hat(pos, p0);
+  t.w1 = hat(pos, p0 + 1.0f);
   t.ok0 = p0 >= 0.0f && p0 <= hi;
   t.ok1 = p0 >= -1.0f && p0 <= hi - 1.0f;
   t.i0 = (t.ok0 || t.ok1) ? (int)p0 : 0;
   return t;
 }
 
-__device__ __forceinline__ float bilerp(float a00, float a01, float a10, float a11, float fu,
-                                        float fv) {
-  const float top = a00 + (a01 - a00) * fu;
-  const float bot = a10 + (a11 - a10) * fu;
-  return top + (bot - top) * fv;
+// One resampled value from its four taps (0 outside the slab), rounded as
+// the TPU kernel's two hat-weight matmuls round (shear_resample.py:135-167):
+// each tap row's sum along u to bf16, then the sum along v. A bf16 tap times
+// a bf16 weight is exact in float32, so each sum rounds once; the caller
+// rounds the result to bf16.
+__device__ __forceinline__ float resample_value(float a00, float a01, float a10, float a11,
+                                                const Taps& tu, const Taps& tv) {
+  const float top = round_bf16(a00 * tu.w0 + a01 * tu.w1);
+  const float bot = round_bf16(a10 * tu.w0 + a11 * tu.w1);
+  return top * tv.w0 + bot * tv.w1;
+}
+
+// A tap-table entry of the fused kernel: the two bf16 hat weights, then the
+// first tap's index + 1 (>= 0) with ok0 and ok1 in bits 16 and 17. The
+// weights are bf16 already, so the entry gives back the same floats.
+__device__ __forceinline__ uint2 pack_taps(const Taps& t) {
+  const unsigned w = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(t.w0)) |
+                     ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(t.w1)) << 16);
+  return make_uint2(w, (unsigned)(t.i0 + 1) | (t.ok0 ? 1u << 16 : 0u) | (t.ok1 ? 1u << 17 : 0u));
+}
+
+__device__ __forceinline__ Taps unpack_taps(uint2 e) {
+  Taps t;
+  t.w0 = __uint_as_float(e.x << 16);
+  t.w1 = __uint_as_float(e.x & 0xffff0000u);
+  t.i0 = (int)(e.y & 0xffffu) - 1;
+  t.ok0 = (e.y >> 16) & 1u;
+  t.ok1 = (e.y >> 17) & 1u;
+  return t;
 }
 
 __device__ __forceinline__ float tap(const __nv_bfloat16* __restrict__ slab, int d,
@@ -221,10 +269,10 @@ __global__ void __launch_bounds__(RS_BLOCK)
     const float hi = (float)(d - 1);
     const Taps tv = taps_of(__ldg(pos_v + (size_t)k * iv + i), hi);
     const Taps tu = taps_of(__ldg(pos_u + (size_t)k * iu + u), hi);
-    val = bilerp(tap(slab, d, tv.ok0 && tu.ok0, tv.i0, tu.i0),
-                 tap(slab, d, tv.ok0 && tu.ok1, tv.i0, tu.i0 + 1),
-                 tap(slab, d, tv.ok1 && tu.ok0, tv.i0 + 1, tu.i0),
-                 tap(slab, d, tv.ok1 && tu.ok1, tv.i0 + 1, tu.i0 + 1), tu.f, tv.f);
+    val = resample_value(tap(slab, d, tv.ok0 && tu.ok0, tv.i0, tu.i0),
+                         tap(slab, d, tv.ok0 && tu.ok1, tv.i0, tu.i0 + 1),
+                         tap(slab, d, tv.ok1 && tu.ok0, tv.i0 + 1, tu.i0),
+                         tap(slab, d, tv.ok1 && tu.ok1, tv.i0 + 1, tu.i0 + 1), tu, tv);
   }
   out[((size_t)k * iv + i) * iu + u] = __float2bfloat16_rn(val);
 }
@@ -287,12 +335,9 @@ __device__ __forceinline__ int clamp_index(float x, float hi) {
   return (int)fminf(fmaxf(x, 0.0f), hi);
 }
 
-// one slab's slot of a fused-kernel pipeline stage: pos_v of the tile's 8
-// rows, pos_u of its 32 columns, the slab's window; a stage holds RC_GROUP
-// slots
-constexpr int RC_POS_U_OFF = RC_ROWS * 4;
-constexpr int RC_WIN_OFF = RC_POS_U_OFF + RC_COLS * 4;
-constexpr int RC_SLOT = RC_WIN_OFF + RC_WIN_CAP * 2;
+// one slab's slot of a fused-kernel pipeline stage, its window; a stage
+// holds RC_GROUP slots
+constexpr int RC_SLOT = RC_WIN_CAP * 2;
 constexpr int RC_STAGE = RC_GROUP * RC_SLOT;
 static_assert(RC_SLOT % 16 == 0, "slot alignment");
 
@@ -309,6 +354,8 @@ __global__ void __launch_bounds__(RC_THREADS)
   short4* wins = (short4*)(smem + 2 * RC_STAGE);  // per live slab, marching order
   int* slabs = (int*)(wins + gp);
   __shared__ int warp_live[RC_THREADS / 32];
+  // per group parity, slab of the group and tile row (then column): its taps
+  __shared__ uint2 tap_tab[2][RC_GROUP * RC_TAPS];
   __shared__ int n_live, n_over;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -368,8 +415,8 @@ __global__ void __launch_bounds__(RC_THREADS)
     atomicAdd(over + 1, n_over);
   }
 
-  // 2. stream groups of RC_GROUP live slabs (positions and windows) into
-  // shared memory, one group ahead of the composite
+  // 2. stream groups of RC_GROUP live slabs' windows into shared memory,
+  // one group ahead of the composite
   const int n_groups = (n + RC_GROUP - 1) / RC_GROUP;
   auto issue = [&](int grp) {
     unsigned char* stage = smem + (grp & 1) * RC_STAGE;
@@ -380,27 +427,31 @@ __global__ void __launch_bounds__(RC_THREADS)
       const int k = slabs[first + sl];
       const short4 w = wins[first + sl];
       const int chunks = w.w / 8;
-      const int n_pos = RC_ROWS / 4 + RC_COLS / 4;
-      const int total = n_pos + w.y * chunks;
-      for (int q = tid; q < total; q += RC_THREADS) {
-        if (q < RC_ROWS / 4) {
-          cp_async16(st + 16 * q, pos_v + (size_t)k * iv + i0 + 4 * q);
-        } else if (q < n_pos) {
-          const int c = 4 * (q - RC_ROWS / 4);
-          if (c0 + c < iu)
-            cp_async16(st + RC_POS_U_OFF + 4 * c, pos_u + (size_t)k * iu + c0 + c);
-        } else {
-          const int e = q - n_pos, row = e / chunks, ch = e - row * chunks;
-          cp_async16(st + RC_WIN_OFF + 16 * e,
-                     vol + ((size_t)k * d + w.x + row) * d + w.z + 8 * ch);
-        }
+      for (int e = tid; e < w.y * chunks; e += RC_THREADS) {
+        const int row = e / chunks, ch = e - row * chunks;
+        cp_async16(st + 16 * e, vol + ((size_t)k * d + w.x + row) * d + w.z + 8 * ch);
       }
     }
     cp_async_commit();
   };
+  // and their tap tables: thread tid < RC_GROUP * RC_TAPS loads one slab's
+  // position of one tile row or column before the group ahead composites
+  // (its latency hidden there) and writes its entry after
+  const int tab_sl = tid / RC_TAPS, tab_q = tid - tab_sl * RC_TAPS;
+  auto load_pos = [&](int grp) -> float {
+    if (tab_sl >= RC_GROUP || grp * RC_GROUP + tab_sl >= n) return 0.0f;
+    const int k = slabs[grp * RC_GROUP + tab_sl];
+    if (tab_q < RC_ROWS) return __ldg(pos_v + (size_t)k * iv + i0 + tab_q);
+    const int uq = c0 + tab_q - RC_ROWS;
+    return uq < iu ? __ldg(pos_u + (size_t)k * iu + uq) : 0.0f;
+  };
+  auto store_taps = [&](int grp, float pos) {
+    if (tab_sl < RC_GROUP && grp * RC_GROUP + tab_sl < n)
+      tap_tab[grp & 1][tid] = pack_taps(taps_of(pos, hi));
+  };
 
   // 3. composite: each thread holds one texel. A group's samples do not
-  // depend on alpha, so their taps are read and lerped first (independent
+  // depend on alpha, so their taps are read and weighted first (independent
   // work across slabs); then, slab after slab, only a sample above 0.1 at a
   // texel still below alpha 0.95 is shaded and composited. In the pair, a
   // sample <= 0.1 (bf16, so <= 0.0996) has transfer 0 and alpha exactly 0
@@ -412,16 +463,21 @@ __global__ void __launch_bounds__(RC_THREADS)
   const size_t px = (size_t)(i0 + row) * iu + u;
   const float rho = col_ok ? __ldg(irho + px) : 0.0f;
   float r = 0.0f, gg = 0.0f, b = 0.0f, a = 0.0f;
-  if (n_groups > 0) issue(0);
+  if (n_groups > 0) {
+    issue(0);
+    store_taps(0, load_pos(0));
+  }
   for (int grp = 0; grp < n_groups; ++grp) {
     if (grp + 1 < n_groups) {
       issue(grp + 1);
     } else {
       cp_async_commit();
     }
+    const float next_pos = load_pos(grp + 1);
     cp_async_wait<1>();
     __syncthreads();
     const unsigned char* stage = smem + (grp & 1) * RC_STAGE;
+    const uint2* tab = tap_tab[grp & 1];
     const int first = grp * RC_GROUP;
     const int count = min(RC_GROUP, n - first);
     bool alive = false;
@@ -430,17 +486,16 @@ __global__ void __launch_bounds__(RC_THREADS)
 #pragma unroll
       for (int sl = 0; sl < RC_GROUP; ++sl) {
         if (sl < count) {
-          const unsigned char* st = stage + sl * RC_SLOT;
-          const __nv_bfloat16* win = (const __nv_bfloat16*)(st + RC_WIN_OFF);
+          const __nv_bfloat16* win = (const __nv_bfloat16*)(stage + sl * RC_SLOT);
           const short4 w = wins[first + sl];
           const __nv_bfloat16* slab = vol + (size_t)slabs[first + sl] * d * d;
-          const Taps tu = taps_of(((const float*)(st + RC_POS_U_OFF))[col], hi);
-          const Taps tv = taps_of(((const float*)st)[row], hi);
-          const float val = bilerp(
+          const Taps tu = unpack_taps(tab[sl * RC_TAPS + RC_ROWS + col]);
+          const Taps tv = unpack_taps(tab[sl * RC_TAPS + row]);
+          const float val = resample_value(
               win_tap(win, w, slab, d, tv.ok0 && tu.ok0, tv.i0, tu.i0),
               win_tap(win, w, slab, d, tv.ok0 && tu.ok1, tv.i0, tu.i0 + 1),
               win_tap(win, w, slab, d, tv.ok1 && tu.ok0, tv.i0 + 1, tu.i0),
-              win_tap(win, w, slab, d, tv.ok1 && tu.ok1, tv.i0 + 1, tu.i0 + 1), tu.f, tv.f);
+              win_tap(win, w, slab, d, tv.ok1 && tu.ok1, tv.i0 + 1, tu.i0 + 1), tu, tv);
           // the stack between K3 and K4 held the sample in bf16
           sv[sl] = __bfloat162float(__float2bfloat16_rn(val));
         }
@@ -452,8 +507,11 @@ __global__ void __launch_bounds__(RC_THREADS)
       }
       alive = a < 0.95f;
     }
+    // the table grp + 1 reads was last read by group grp - 1, before the
+    // barrier that ended it
+    store_taps(grp + 1, next_pos);
     // stop once no texel of the tile is below alpha 0.95; the barrier
-    // also frees this stage for group grp + 2
+    // also frees this stage for group grp + 2 and shows grp + 1 its table
     if (!__syncthreads_or(alive)) break;
   }
   cp_async_wait<0>();

@@ -140,23 +140,44 @@ def resample_slabs(packs, m, pos_u, pos_v, occ=None):
     return out
 
 
+def _hat(pos, col):
+    """The TPU kernel's hat weight of column ``col`` at ``pos``,
+    max(0, 1 - |pos - col|) in float32 in that order, rounded to bf16
+    (shear_resample.py:131-133) and widened back."""
+    return torch.clamp_min(1.0 - torch.abs(pos - col), 0.0).to(torch.bfloat16).float()
+
+
 def _taps(pos, d):
     """Bilinear taps of positions ``pos`` over cols [0, d-1], zero outside:
     (index of the first tap, clamped for the gather), (index of the second),
-    first valid, second valid, fraction. The kernel's float-side tests."""
+    first valid, second valid, and the two taps' hat weights (:func:`_hat`
+    of floor(pos) and floor(pos) + 1). The kernel's float-side tests."""
     p0 = torch.floor(pos)
-    frac = pos - p0
     ok0 = (p0 >= 0.0) & (p0 <= d - 1.0)
     ok1 = (p0 >= -1.0) & (p0 <= d - 2.0)
     i0 = torch.where(ok0 | ok1, p0, 0.0).long()
-    return i0.clamp(0, d - 1), (i0 + 1).clamp(0, d - 1), ok0, ok1, frac
+    return (i0.clamp(0, d - 1), (i0 + 1).clamp(0, d - 1), ok0, ok1,
+            (_hat(pos, p0), _hat(pos, p0 + 1.0)))
+
+
+def sample(a00, a01, a10, a11, wu, wv):
+    """One resampled value from its four taps (float32, 0 outside the slab)
+    and the hat weights ``wu`` = (wu0, wu1) and ``wv`` = (wv0, wv1), rounded
+    as the TPU kernel's two matmuls round (shear_resample.py:135-167): each
+    tap row's sum along u to bf16, then the sum along v to bf16. A bf16 tap
+    times a bf16 weight is exact in float32, so each sum rounds once.
+    Returns the bf16 value."""
+    top = (a00 * wu[0] + a01 * wu[1]).to(torch.bfloat16).float()
+    bot = (a10 * wu[0] + a11 * wu[1]).to(torch.bfloat16).float()
+    return (top * wv[0] + bot * wv[1]).to(torch.bfloat16)
 
 
 @torch.no_grad()
 def resample_slabs_plain(packs, m, pos_u, pos_v, occ=None):
     """Plain torch version of K3, the same float32 operations in the same
-    order: per slab, the four taps (0 outside the slab), two lerps along u,
-    one along v, rounded to bf16 once."""
+    order: per slab, the four taps (0 outside the slab) and :func:`sample`
+    (bf16 hat weights, one bf16 rounding along u, one along v), which is
+    bit for bit the TPU kernel's hat-weight matmuls."""
     _check_resample(packs, m, pos_u, pos_v, occ)
     n_packs, g, d, _ = packs.shape
     gp, iu = pos_u.shape
@@ -164,8 +185,8 @@ def resample_slabs_plain(packs, m, pos_u, pos_v, occ=None):
     volm = packs.index_select(0, m.clamp(0, n_packs - 1).long())[0]
     out = torch.zeros((gp, iv, iu), dtype=torch.bfloat16, device=packs.device)
     for k in range(min(g, gp)):
-        v0, v1, v0ok, v1ok, fv = _taps(pos_v[k], d)
-        u0, u1, u0ok, u1ok, fu = _taps(pos_u[k], d)
+        v0, v1, v0ok, v1ok, wv = _taps(pos_v[k], d)
+        u0, u1, u0ok, u1ok, wu = _taps(pos_u[k], d)
         row0 = volm[k].index_select(0, v0)
         row1 = volm[k].index_select(0, v1)
 
@@ -173,11 +194,9 @@ def resample_slabs_plain(packs, m, pos_u, pos_v, occ=None):
             vals = row.index_select(1, cols).float()
             return torch.where(vok[:, None] & uok[None, :], vals, 0.0)
 
-        a00, a01 = tap(row0, u0, v0ok, u0ok), tap(row0, u1, v0ok, u1ok)
-        a10, a11 = tap(row1, u0, v1ok, u0ok), tap(row1, u1, v1ok, u1ok)
-        top = a00 + (a01 - a00) * fu[None, :]
-        bot = a10 + (a11 - a10) * fu[None, :]
-        out[k] = (top + (bot - top) * fv[:, None]).to(torch.bfloat16)
+        out[k] = sample(tap(row0, u0, v0ok, u0ok), tap(row0, u1, v0ok, u1ok),
+                        tap(row1, u0, v1ok, u0ok), tap(row1, u1, v1ok, u1ok),
+                        [w[None, :] for w in wu], [w[:, None] for w in wv])
     if occ is not None:
         out = torch.where(occ[:, None, None], out, 0.0)
     return out
