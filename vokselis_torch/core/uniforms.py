@@ -14,14 +14,28 @@ import numpy as np
 import torch
 
 
+def _count(name: str, n: int = 1) -> None:
+    """:func:`vokselis_torch.engine.profiler.count`, which replaces this
+    function at its first call: the engine package imports this module, so
+    it cannot be imported here at the top, and an import in every upload
+    would cost more than the count."""
+    global _count
+    from vokselis_torch.engine.profiler import count as _count
+
+    _count(name, n)
+
+
 def upload(x, device, dtype=torch.float32) -> torch.Tensor:
     """Host values (a number, a sequence, a numpy array) as a new tensor of
     ``dtype`` on ``device``, without a synchronizing copy: for a card they
     are staged in pinned memory and copied ``non_blocking``, and the
     caching host allocator keeps the staging block until the copy has run
-    (each call stages its own block). Other devices get a plain copy."""
+    (each call stages its own block). Other devices get a plain copy.
+    Counted as ``uploads`` and ``upload_bytes`` (:func:`engine.profiler.count`)."""
     device = torch.device(device)
     host = torch.tensor(np.asarray(x), dtype=dtype)
+    _count("uploads")
+    _count("upload_bytes", host.nbytes)
     if device.type != "cuda":
         return host.to(device)
     return host.pin_memory().to(device, non_blocking=True)

@@ -43,6 +43,7 @@ from collections import OrderedDict
 import torch
 
 from vokselis_torch.core.camera import CameraUniform
+from vokselis_torch.engine.profiler import span
 
 # Python numbers among the inputs become 0-d tensors of this dtype in a graph
 SCALAR_DTYPE = torch.float32
@@ -116,11 +117,14 @@ class _Entry:
     def __init__(self, graph, inputs, outputs, stamp_):
         self.graph, self.inputs, self.outputs, self.stamp = graph, inputs, outputs, stamp_
 
-    def replay(self, inputs):
-        for static, x in zip(self.inputs, inputs):
-            _copy_into(static, x)
-        self.graph.replay()
-        return _outputs(self.outputs, torch.Tensor.clone)
+    def replay(self, inputs, name):
+        with span("compiled.copy_in", name):
+            for static, x in zip(self.inputs, inputs):
+                _copy_into(static, x)
+        with span("compiled.replay", name):
+            self.graph.replay()
+        with span("compiled.copy_out", name):
+            return _outputs(self.outputs, torch.Tensor.clone)
 
 
 class CompiledFrame:
@@ -167,14 +171,18 @@ class CompiledFrame:
             self._entries.popitem(last=False)
 
     @torch.no_grad()
-    def __call__(self, key: tuple, fn, inputs: tuple, reads=()):
+    def __call__(self, key: tuple, fn, inputs: tuple, reads=(), id: int | None = None):
         """``fn(*inputs)``, replayed on a card from the graph of ``key``.
         ``inputs``: tensors and camera uniforms on one device, and Python
         numbers (0-d float32 static inputs in the graph); a call whose
         inputs hold no tensor runs ``fn`` off the card. ``fn`` returns a
         tensor or a tuple of tensors and reads nothing that changes from
         call to call but its inputs and ``reads`` (tensors, or tuples of
-        them, whose :func:`stamp` the graph keeps)."""
+        them, whose :func:`stamp` the graph keeps). On a card the call is
+        the span ``compiled.call/<name>`` (:func:`engine.profiler.span`,
+        of the frame or batch ``id``), holding ``compiled.copy_in``,
+        ``compiled.replay`` and ``compiled.copy_out`` or, for a new key,
+        ``compiled.capture``."""
         full = (key, tuple(_signature(x) for x in inputs))
         devices = {t.device for t in _tensors(inputs)}
         if len(devices) > 1:
@@ -190,14 +198,15 @@ class CompiledFrame:
             return out
         if torch.cuda.is_current_stream_capturing():
             return fn(*inputs)
-        entry, now = self._entries.get(full), stamp(reads)
-        if entry is not None and entry.stamp == now:
-            self._entries.move_to_end(full)
-            return entry.replay(inputs)
-        return self._capture(full, fn, inputs, now, next(iter(devices)))
+        with span("compiled.call", self.name, id):
+            entry, now = self._entries.get(full), stamp(reads)
+            if entry is not None and entry.stamp == now:
+                self._entries.move_to_end(full)
+                return entry.replay(inputs, self.name)
+            return self._capture(full, fn, inputs, now, next(iter(devices)))
 
     def _capture(self, full, fn, inputs, stamp_, dev):
-        with torch.cuda.device(dev):
+        with span("compiled.capture", self.name), torch.cuda.device(dev):
             current = torch.cuda.current_stream()
             static = tuple(_static(x, dev) for x in inputs)
             side = torch.cuda.Stream()

@@ -36,6 +36,7 @@ from vokselis_torch.core.config import DEFAULT_RESOLUTION, EngineConfig
 from vokselis_torch.core.uniforms import GlobalUniform
 from vokselis_torch.engine.compiler import KernelCompiler
 from vokselis_torch.engine.input import Input
+from vokselis_torch.engine.profiler import span
 from vokselis_torch.engine.reload import Watcher
 from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.ops.present import FILTERS, present, to_uint8
@@ -154,22 +155,25 @@ class Context:
 
     # --- per-frame state (context.rs:225-236) ----------------------------
     def update(self, time_delta: float | None = None, time: float | None = None):
-        if time is None:
-            time = _time.perf_counter() - self._start_time
-        if time_delta is None:
-            time_delta = 1.0 / 60.0
-        self.global_uniform = self.global_uniform.with_(
-            time=time,
-            time_delta=time_delta,
-            frame=self.frame,
-            resolution=(float(self.render_backbuffer.width),
-                        float(self.render_backbuffer.height)),
-        )
-        self.global_uniform = self.input.process_position(self.global_uniform)
-        if self.camera.updated:
-            self.camera_uniform = self.camera.uniform(self.device)
-            self.camera.updated = False
-        self.frame += 1
+        with span("context.update"):
+            if time is None:
+                time = _time.perf_counter() - self._start_time
+            if time_delta is None:
+                time_delta = 1.0 / 60.0
+            with span("uniforms.global"):
+                self.global_uniform = self.global_uniform.with_(
+                    time=time,
+                    time_delta=time_delta,
+                    frame=self.frame,
+                    resolution=(float(self.render_backbuffer.width),
+                                float(self.render_backbuffer.height)),
+                )
+                self.global_uniform = self.input.process_position(self.global_uniform)
+            if self.camera.updated:
+                with span("uniforms.camera"):
+                    self.camera_uniform = self.camera.uniform(self.device)
+                self.camera.updated = False
+            self.frame += 1
 
     # --- resize (context.rs:238-249): window resizes; backbuffer doesn't --
     def resize(self, width: int, height: int):

@@ -27,7 +27,7 @@ from typing import Iterable
 
 from vokselis_torch.core.camera import Camera
 from vokselis_torch.engine.context import Context, renderer_info
-from vokselis_torch.engine.profiler import FrameCounter
+from vokselis_torch.engine.profiler import FrameCounter, span
 from vokselis_torch.media.recorder import Recorder
 
 
@@ -127,13 +127,14 @@ def run(
             pass
 
         # -- frame (lib.rs:75-79, 178-200) ---------------------------------
-        dt = frame_counter.record()
-        ctx.update(time_delta=frame_counter.time_delta())
-        demo.update(ctx)
-        demo.render(ctx)
-        ctx.render()
-        if recorder.is_recording:
-            recorder.record(ctx.capture_frame())
+        with span("loop.frame", id=frame_idx):
+            frame_counter.record()
+            ctx.update(time_delta=frame_counter.time_delta())
+            demo.update(ctx)
+            demo.render(ctx)
+            ctx.render()
+            if recorder.is_recording:
+                recorder.record(ctx.capture_frame())
         frame_idx += 1
 
     recorder.close()

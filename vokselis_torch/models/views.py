@@ -85,4 +85,4 @@ class ViewsBatch:
         if self.mesh is not None:
             self.compiled.drop(lambda k: destroyed(k[-1]))
             key += (mesh_groups(self.mesh),)
-        return self.compiled(key, self.step, (t,), reads=self.cams)
+        return self.compiled(key, self.step, (t,), reads=self.cams, id=b)
