@@ -3,10 +3,10 @@
 
 On the CPU the frame loop runs a small seeded volume through the exact
 renderer's plain version: the frame spans nest as the loop does, self time
-never exceeds a span's time, a frame uploads 10 host values with a dragged
-camera and 7 with a still one, nothing is kept or counted without a
-recording, and under a ``torch.profiler`` session the spans are ranges of
-the trace nested in ``loop.frame``.
+never exceeds a span's time, a frame sends one record (the global uniform's
+words, after the camera's with a dragged camera), nothing is kept or
+counted without a recording, and under a ``torch.profiler`` session the
+spans are ranges of the trace nested in ``loop.frame``.
 
 Tests marked ``gpu`` need a CUDA card and skip without one: a replayed
 compiled frame's spans, K1 starting inside its replay's range, and no
@@ -30,8 +30,9 @@ from vokselis_torch.models.bonsai import BonsaiDemo
 from vokselis_torch.ops.cuda.march_bonsai import BonsaiRenderer
 
 W = H = 24
-FRAME_SPANS = ("loop.frame", "context.update", "uniforms.global", "uniforms.camera")
-GLOBAL_BYTES = 4 + 4 + 4 + 8 + 12 + 8 + 4  # time, dt, frame, resolution; pos step, mouse, pressed
+FRAME_SPANS = ("loop.frame", "context.update", "uniforms.global", "uniforms.camera",
+               "uniforms.send")
+GLOBAL_BYTES = 12 + 4 + 8 + 8 + 4 + 4 + 4  # pos, frame, resolution, mouse, pressed, time, dt
 CAMERA_BYTES = 16 + 64 + 64  # view_position, proj_view, inv_proj
 
 
@@ -89,6 +90,7 @@ def test_frame_spans_nest_as_the_loop_does():
     assert spans["context.update"]["parent"] == "loop.frame"
     assert spans["uniforms.global"]["parent"] == "context.update"
     assert spans["uniforms.camera"]["parent"] == "context.update"
+    assert spans["uniforms.send"]["parent"] == "context.update"
     for key, s in spans.items():
         assert 0.0 <= s["self_s"] <= s["total_s"], key
         assert 0.0 < s["p95_s"] <= s["total_s"], key
@@ -100,12 +102,12 @@ def test_frame_spans_nest_as_the_loop_does():
 
 
 @pytest.mark.parametrize("drag, uploads, nbytes", [
-    (True, 10, GLOBAL_BYTES + CAMERA_BYTES),
-    (False, 7, GLOBAL_BYTES),
+    (True, 1, GLOBAL_BYTES + CAMERA_BYTES),
+    (False, 1, GLOBAL_BYTES),
 ])
 def test_uploads_a_frame(drag, uploads, nbytes):
-    """The global uniform's 7 uploads every frame (4 in ``with_``, 3 in
-    ``process_position``), and the camera's 3 when a drag dirtied it."""
+    """One record a frame: the global uniform's 11 words, after the
+    camera's 36 when a drag dirtied it."""
     rec = _run("cpu", 4, drag=drag)
     snap = rec.snapshot()
     assert snap["counters"] == {"uploads": 4 * uploads, "upload_bytes": 4 * nbytes}
@@ -261,7 +263,7 @@ def test_no_device_event_bears_a_span_name_on_gpu(cuda_device, record):
                 run(demo, frames=4, events=_events(4, True), context=ctx, quiet=True)
                 torch.cuda.synchronize()
     events = prof.events()
-    names = {"loop.frame", "context.update", "uniforms.global", "uniforms.camera"}
+    names = set(FRAME_SPANS)
     names |= {f"compiled.{s}/{n}" for s in ("call", "copy_in", "replay", "copy_out", "capture")
               for n in ("BonsaiRenderer", "Presenter")}
     host = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}

@@ -16,10 +16,10 @@ hold:
 
 Matrices are built on the host in numpy (row-major: ``clip = proj_view @
 [p, 1]``) and handed to the device once per camera change as a
-:class:`CameraUniform` of float32 tensors, uploaded without a synchronizing
-copy. :meth:`Camera.uniform` also attaches the host arrays as ``host_np``
-(the JAX package's host mirrors), so that host-side pose classification
-reads no device value.
+:class:`CameraUniform` of float32 tensors, views of one record sent
+without a synchronizing copy. :meth:`Camera.uniform` also attaches the host
+arrays as ``host_np`` (the JAX package's host mirrors), so that host-side
+pose classification reads no device value.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from vokselis_torch.core.uniforms import upload
+from vokselis_torch.core.uniforms import send
 
 ZFAR = 100.0
 ZNEAR = 0.1
@@ -38,6 +38,8 @@ FOVY = math.pi / 2.0
 UP = (0.0, 1.0, 0.0)
 
 _EPS32 = float(np.finfo(np.float32).eps)
+CAMERA_SHAPES = ((4,), (4, 4), (4, 4))  # view_position, proj_view, inv_proj
+CAMERA_WORDS = sum(math.prod(s) for s in CAMERA_SHAPES)
 
 
 def look_at_rh(eye, target, up):
@@ -82,6 +84,20 @@ def perspective_rh(fovy: float, aspect: float, znear: float, zfar: float):
     return m
 
 
+def _packed(shapes) -> tuple:
+    """``(shape, strides, offset)`` of contiguous arrays of ``shapes`` laid
+    one after another in a block of words."""
+    out, o = [], 0
+    for shape in shapes:
+        shape = tuple(shape)
+        out.append((shape, tuple(math.prod(shape[i + 1:]) for i in range(len(shape))), o))
+        o += math.prod(shape)
+    return tuple(out)
+
+
+_CAMERA_VIEWS = _packed(CAMERA_SHAPES)
+
+
 @dataclass
 class CameraUniform:
     """Device-side camera payload (mirrors CameraUniform, src/camera.rs:7-21):
@@ -107,11 +123,19 @@ class CameraUniform:
 
     @classmethod
     def from_numpy(cls, view_position, proj_view, inv_proj, device):
-        """Upload host arrays (e.g. another renderer's camera state, one view
-        or a stacked batch) as the float32 payload on ``device``, without a
-        synchronizing copy (:func:`vokselis_torch.core.uniforms.upload`)."""
-        return cls(*(upload(np.asarray(x, np.float32), device)
-                     for x in (view_position, proj_view, inv_proj)))
+        """Host arrays (e.g. another renderer's camera state, one view or a
+        stacked batch) as the float32 payload on ``device``: one record sent
+        without a synchronizing copy (:func:`vokselis_torch.core.uniforms.send`)."""
+        arrays = [np.asarray(x) for x in (view_position, proj_view, inv_proj)]
+        return cls.from_block(send(arrays, device), [a.shape for a in arrays])
+
+    @classmethod
+    def from_block(cls, block, shapes=CAMERA_SHAPES):
+        """The uniform whose three tensors are views of ``block``'s first
+        words, one after another, in ``shapes`` (each one ``as_strided``)."""
+        base = block.storage_offset()
+        views = _CAMERA_VIEWS if shapes is CAMERA_SHAPES else _packed(shapes)
+        return cls(*(block.as_strided(shape, strides, base + o) for shape, strides, o in views))
 
     @classmethod
     def stack(cls, uniforms):
@@ -219,17 +243,23 @@ class Camera:
         proj = perspective_rh(FOVY, self.aspect, ZNEAR, ZFAR)
         return (proj.astype(np.float64) @ view.astype(np.float64)).astype(np.float32)
 
-    def uniform(self, device) -> CameraUniform:
-        """This pose's :class:`CameraUniform` on ``device``, with its host
-        mirrors ``host_np`` attached."""
+    def host_uniform(self) -> tuple:
+        """This pose's ``(view_position, proj_view, inv_proj)`` as float32
+        numpy arrays."""
         pv = self.build_projection_view_matrix()
         inv = np.linalg.inv(pv.astype(np.float64)).astype(np.float32)
         vp = np.asarray(
             [self.eye[0], self.eye[1], self.eye[2], 1.0], np.float32
         )
-        u = CameraUniform.from_numpy(vp, pv, inv, device)
+        return vp, pv, inv
+
+    def uniform(self, device) -> CameraUniform:
+        """This pose's :class:`CameraUniform` on ``device``, with its host
+        mirrors ``host_np`` attached."""
+        host = self.host_uniform()
+        u = CameraUniform.from_numpy(*host, device)
         # host mirrors: pose_hint reads these instead of the device
-        u.host_np = (vp, pv, inv)
+        u.host_np = host
         return u
 
     # convenience: the reference per-demo poses

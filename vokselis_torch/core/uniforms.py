@@ -1,23 +1,36 @@
 """Per-frame global uniform state (mirrors Uniform, src/context/global_ubo.rs:52-119).
 
 In the reference this is a 48-byte UBO re-uploaded every frame
-(src/context/global_ubo.rs:47-49). Here it is a dataclass of small tensors on
-the render device, rebuilt by :meth:`GlobalUniform.with_` each frame. Host
-values reach a card through :func:`upload`, which never makes the host wait.
+(src/context/global_ubo.rs:47-49). Here it is a set of small tensors on the
+render device, views of one block of 32-bit words (made when first read),
+with a host mirror of those words: :meth:`GlobalUniform.with_` writes a
+frame's values into a copy of the mirror and :func:`send` copies the words
+to the device in one go, never making the host wait for a copy to finish.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
-
 import numpy as np
 import torch
+
+# the global uniform's words: (field, offset, words, uint32)
+GLOBAL_LAYOUT = (
+    ("pos", 0, 3, False),
+    ("frame", 3, 1, True),
+    ("resolution", 4, 2, False),
+    ("mouse", 6, 2, False),
+    ("mouse_pressed", 8, 1, True),
+    ("time", 9, 1, False),
+    ("time_delta", 10, 1, False),
+)
+GLOBAL_WORDS = 11
+_FIELDS = {f[0]: f for f in GLOBAL_LAYOUT}
 
 
 def _count(name: str, n: int = 1) -> None:
     """:func:`vokselis_torch.engine.profiler.count`, which replaces this
     function at its first call: the engine package imports this module, so
-    it cannot be imported here at the top, and an import in every upload
+    it cannot be imported here at the top, and an import in every send
     would cost more than the count."""
     global _count
     from vokselis_torch.engine.profiler import count as _count
@@ -25,31 +38,61 @@ def _count(name: str, n: int = 1) -> None:
     _count(name, n)
 
 
-def upload(x, device, dtype=torch.float32) -> torch.Tensor:
-    """Host values (a number, a sequence, a numpy array) as a new tensor of
-    ``dtype`` on ``device``, without a synchronizing copy: for a card they
-    are staged in pinned memory and copied ``non_blocking``, and the
-    caching host allocator keeps the staging block until the copy has run
-    (each call stages its own block). Other devices get a plain copy.
-    Counted as ``uploads`` and ``upload_bytes`` (:func:`engine.profiler.count`)."""
+def send(parts, device) -> torch.Tensor:
+    """One float32 block on ``device`` holding ``parts`` (arrays, or what
+    ``np.asarray`` takes) flattened one after another: float32 parts by
+    their bits (numpy copies a dtype to itself byte for byte), others cast
+    to float32. For a card the words are written through a numpy view into
+    a pinned host block and copied ``non_blocking`` (the caching host
+    allocator keeps the block until its copy has run), so the host never
+    waits; on the CPU the host block is the result. Counted as one of
+    ``uploads`` and its bytes as ``upload_bytes`` (:func:`engine.profiler.count`)."""
     device = torch.device(device)
-    host = torch.tensor(np.asarray(x), dtype=dtype)
+    flat = np.concatenate(parts, axis=None)
+    cuda = device.type == "cuda"
+    host = torch.empty(flat.size, dtype=torch.float32, pin_memory=cuda)
+    host.numpy()[:] = flat
     _count("uploads")
     _count("upload_bytes", host.nbytes)
-    if device.type != "cuda":
-        return host.to(device)
-    return host.pin_memory().to(device, non_blocking=True)
+    if device.type == "cpu":
+        return host
+    return host.to(device, non_blocking=cuda)  # one allocation, one copy
 
 
-@dataclass
+def _field(name: str):
+    """A field of :class:`GlobalUniform`: its view of the uniform's block,
+    made when first read (a frame whose kernels read no global field makes
+    none)."""
+    _, o, n, u32 = _FIELDS[name]
+    shape, strides = ((n,), (1,)) if n > 1 else ((), ())
+
+    def get(self) -> torch.Tensor:
+        t = self._fields.get(name)
+        if t is None:
+            block = self._block.view(torch.uint32) if u32 else self._block
+            t = self._fields[name] = block.as_strided(shape, strides, self._base + o)
+        return t
+
+    return property(get)
+
+
 class GlobalUniform:
-    pos: torch.Tensor  # (3,) f32 — user-nudged position (src/utils/input.rs:88-110)
-    frame: torch.Tensor  # () u32
-    resolution: torch.Tensor  # (2,) f32 (width, height)
-    mouse: torch.Tensor  # (2,) f32 NDC, y flipped (src/utils/input.rs:64-75)
-    mouse_pressed: torch.Tensor  # () u32
-    time: torch.Tensor  # () f32 seconds
-    time_delta: torch.Tensor  # () f32 seconds
+    """The global uniform's fields on one device: views of ``block``'s words
+    from ``offset`` on, as :data:`GLOBAL_LAYOUT` places them (each one
+    ``as_strided``, made when first read), with their host copy ``mirror``."""
+
+    pos = _field("pos")  # (3,) f32 — user-nudged position (src/utils/input.rs:88-110)
+    frame = _field("frame")  # () u32
+    resolution = _field("resolution")  # (2,) f32 (width, height)
+    mouse = _field("mouse")  # (2,) f32 NDC, y flipped (src/utils/input.rs:64-75)
+    mouse_pressed = _field("mouse_pressed")  # () u32
+    time = _field("time")  # () f32 seconds
+    time_delta = _field("time_delta")  # () f32 seconds
+
+    def __init__(self, block, mirror, offset: int = 0):
+        self._block, self._base = block, block.storage_offset() + offset
+        self.mirror = mirror
+        self._fields = {}
 
     @classmethod
     def default(cls, device):
@@ -59,41 +102,38 @@ class GlobalUniform:
         engine overwrites it with the real framebuffer size every frame
         (src/context.rs:226-229).
         """
-
-        def f32(v):
-            return upload(v, device)
-
-        def u32(v):
-            return upload(v, device, torch.uint32)
-
-        return cls(
-            pos=f32([0.0, 0.0, 0.0]),
-            frame=u32(0),
-            resolution=f32([1920.0, 780.0]),
-            mouse=f32([0.0, 0.0]),
-            mouse_pressed=u32(0),
-            time=f32(0.0),
-            time_delta=f32(1.0 / 60.0),
-        )
+        mirror = np.zeros(GLOBAL_WORDS, np.float32)
+        mirror[4:6] = (1920.0, 780.0)
+        mirror[10] = 1.0 / 60.0
+        return cls(send([mirror], device), mirror)
 
     @property
     def device(self) -> torch.device:
-        return self.pos.device
+        return self._block.device
+
+    def host(self, name: str) -> np.ndarray:
+        """Field ``name``'s float32 words in the mirror (uint32 fields by
+        their bits)."""
+        _, o, n, _ = _FIELDS[name]
+        return self.mirror[o:o + n]
+
+    def mirrored(self, **kw) -> np.ndarray:
+        """The mirror of the copy :meth:`with_` makes: the given fields'
+        host values written into a copy of this one's."""
+        mirror = self.mirror.copy()
+        for k, v in kw.items():
+            _, o, n, u32 = _FIELDS[k]
+            if u32:
+                mirror.view(np.uint32)[o] = int(v)
+            else:
+                mirror[o:o + n] = v
+        return mirror
 
     def with_(self, **kw) -> "GlobalUniform":
-        """A copy with the given fields replaced: tensors are taken as they
-        are (cast to the field's dtype on this device), host values are
-        uploaded without a synchronizing copy (:func:`upload`)."""
-        conv = {}
-        for k, v in kw.items():
-            dtype = torch.uint32 if k in ("frame", "mouse_pressed") else torch.float32
-            if isinstance(v, torch.Tensor):
-                conv[k] = v.to(device=self.device, dtype=dtype)
-            elif dtype == torch.uint32:
-                conv[k] = upload(int(v), self.device, dtype)
-            else:
-                conv[k] = upload(v, self.device, dtype)
-        return replace(self, **conv)
+        """A copy with the given fields replaced by host values, whose words
+        reach the device as one record (:func:`send`)."""
+        mirror = self.mirrored(**kw)
+        return GlobalUniform(send([mirror], self.device), mirror)
 
     def __str__(self):
         # mirrors the Display impl (src/context/global_ubo.rs:121-143)

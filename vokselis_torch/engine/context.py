@@ -10,7 +10,7 @@ Rebuilds the reference's Context (src/context.rs:38-359) for PyTorch:
   1280x720 regardless of window size, faithfully kept);
 - ``update()`` refreshes the global uniform (time/dt/frame/resolution +
   input, context.rs:225-236) and the camera uniform when dirty
-  (camera.rs:62-71), uploading without a synchronizing copy;
+  (camera.rs:62-71): one record a frame, sent without a synchronizing copy;
 - ``render()`` is the present pass: ACES + sRGB into the window-sized
   display image AND the rgb capture image — one op returning identical
   bytes for both targets (context.rs:251-297), replayed from a CUDA graph
@@ -31,9 +31,9 @@ import time as _time
 import numpy as np
 import torch
 
-from vokselis_torch.core.camera import Camera, CameraUniform
+from vokselis_torch.core.camera import CAMERA_WORDS, Camera, CameraUniform
 from vokselis_torch.core.config import DEFAULT_RESOLUTION, EngineConfig
-from vokselis_torch.core.uniforms import GlobalUniform
+from vokselis_torch.core.uniforms import GlobalUniform, send
 from vokselis_torch.engine.compiler import KernelCompiler
 from vokselis_torch.engine.input import Input
 from vokselis_torch.engine.profiler import span
@@ -160,19 +160,28 @@ class Context:
                 time = _time.perf_counter() - self._start_time
             if time_delta is None:
                 time_delta = 1.0 / 60.0
+            g = self.global_uniform
             with span("uniforms.global"):
-                self.global_uniform = self.global_uniform.with_(
+                mirror = g.mirrored(
                     time=time,
                     time_delta=time_delta,
                     frame=self.frame,
                     resolution=(float(self.render_backbuffer.width),
                                 float(self.render_backbuffer.height)),
+                    **self.input.position_fields(g),
                 )
-                self.global_uniform = self.input.process_position(self.global_uniform)
+            cam = None
             if self.camera.updated:
                 with span("uniforms.camera"):
-                    self.camera_uniform = self.camera.uniform(self.device)
+                    cam = self.camera.host_uniform()
                 self.camera.updated = False
+            # the frame's one record: the camera's words (when dirty), then the globals
+            with span("uniforms.send"):
+                block = send((*cam, mirror) if cam else (mirror,), self.device)
+                if cam:
+                    self.camera_uniform = CameraUniform.from_block(block)
+                    self.camera_uniform.host_np = cam
+                self.global_uniform = GlobalUniform(block, mirror, CAMERA_WORDS if cam else 0)
             self.frame += 1
 
     # --- resize (context.rs:238-249): window resizes; backbuffer doesn't --

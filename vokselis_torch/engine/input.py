@@ -1,7 +1,7 @@
 """Input state (mirrors Input, src/utils/input.rs:9-111).
 
 Tracks held keys (arrows, slash, right-shift, enter, space), left mouse
-button, and NDC mouse position with flipped y; ``process_position`` nudges
+button, and NDC mouse position with flipped y; ``position_fields`` nudges
 the global uniform's ``pos`` by +-0.01 per held key per frame and copies
 mouse state into the uniform (input.rs:88-110).
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from vokselis_torch.core.uniforms import upload
+import numpy as np
 
 MOVE_STEP = 0.01  # input.rs:92-107
 
@@ -57,9 +57,11 @@ class Input:
     def update_mouse_button(self, pressed: bool):
         self.left_mouse_pressed = pressed
 
-    def process_position(self, uniform):
-        """Nudge uniform.pos by held keys, copy mouse state
-        (input.rs:88-110). Returns the updated GlobalUniform."""
+    def position_fields(self, uniform) -> dict:
+        """The fields process_position (input.rs:88-110) replaces, as host
+        values for :meth:`GlobalUniform.mirrored`: ``pos`` nudged by held
+        keys (a float32 add on the uniform's host mirror), the mouse and its
+        button."""
         dx = (MOVE_STEP if self.right_pressed else 0.0) - (
             MOVE_STEP if self.left_pressed else 0.0
         )
@@ -69,9 +71,8 @@ class Input:
         dz = (MOVE_STEP if self.slash_pressed else 0.0) - (
             MOVE_STEP if self.right_shift_pressed else 0.0
         )
-        step = upload([dx, dy, dz], uniform.device)
-        return uniform.with_(
-            pos=uniform.pos + step,
-            mouse=self.mouse,
-            mouse_pressed=1 if self.left_mouse_pressed else 0,
-        )
+        return {
+            "pos": uniform.host("pos") + np.asarray([dx, dy, dz], np.float32),
+            "mouse": self.mouse,
+            "mouse_pressed": 1 if self.left_mouse_pressed else 0,
+        }

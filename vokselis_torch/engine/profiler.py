@@ -170,11 +170,12 @@ class Recording:
         "counters": {name: value}}``: a key is a span's ``name`` or
         ``name/tag``; ``parent`` the key of the span it first opened in (None
         at the top); ``p95_s`` the 95th percentile of its occurrences
-        (``statistics.quantiles``, n=100)."""
+        (``statistics.quantiles``, n=100, inclusive: the exclusive method
+        reaches past the longest occurrence when they are few)."""
         spans = {}
         for key, s in self.spans.items():
             d = s.durations
-            p95 = statistics.quantiles(d, n=100)[94] if len(d) > 1 else d[0]
+            p95 = statistics.quantiles(d, n=100, method="inclusive")[94] if len(d) > 1 else d[0]
             spans[key] = {"n": len(d), "total_s": sum(d) * 1e-9, "self_s": s.self_ns * 1e-9,
                           "p95_s": p95 * 1e-9, "parent": s.parent}
         return {"spans": spans, "counters": dict(self.counters)}
