@@ -1,270 +1,79 @@
-"""Driver of the frame cells: the port's own frame loop, as a user drives it.
+"""Driver of the bonsai frame cells: the frame loop (:mod:`benchmark.loop`)
+over a ``BonsaiDemo`` on the exact renderer, handed the benchmark's seeded
+volume (:mod:`benchmark.reference.standin`).
 
-``vokselis_torch.engine.loop.run`` runs a ``BonsaiDemo`` on the exact
-renderer, handed the benchmark's seeded volume, on a ``Context`` whose
-window and backbuffer are the configuration's size. The loop reads its
-events from this driver's client: at every frame boundary the client waits
-for the previous frame's display image, stamps the host clock, and hands
-the loop the next frame's events from the traffic's generator; one frame
-is in flight, as in an interactive viewer. Frame f's time is the interval
-between stamps f and f + 1.
-
-The first ``warmup_frames`` frames are set-up (they capture every graph
-the path needs); the window then runs for ``seconds``. A traced run also
-records CUDA events and host times around each frame's calls into the
-renderer and the present pass, and after the window profiles
-:data:`PROFILED_FRAMES` frames with ``torch.profiler``.
-
-``correct`` compares a sample of the window's display images, drawn from
-the seed, with the reference's frames of the same poses, worked out again
-from the seed and the event stream.
+The orbit turns about the box's centre. A traced run times K1
+(``march_bonsai_kernel``) against its bound over the profiled frames'
+poses; ``correct`` holds each sampled display image against the
+reference's exact march and present of the same pose.
 """
 
 from __future__ import annotations
 
-import contextlib
-import gc
-import importlib
-import random
-import time
-
 import torch
 
-from benchmark import reduce
-from benchmark.reference import camera, march, present, standin
+from benchmark.loop import FrameLoop
+from benchmark.reference import march, present, standin
 from benchmark.roofline import bound_s, k1
 
-SAMPLED_FRAMES = 8
-PROFILED_FRAMES = 32
-PROFILER_SETTLE_FRAMES = 8  # frames under the profiler before its window opens
 K1_NAME = "march_bonsai_kernel"
+TINY = {"width": 48, "height": 32, "dims": 32}  # the CPU tests' size
+# the control's largest error grows with the pixels compared: at 256^2 and 16
+# frames it clears the limit on every seed tried (0.036-0.217), at 48x32 not
+CONTROL_SIZE = {"width": 256, "height": 256, "dims": 64}
 
 
-class _Marks:
-    """CUDA events around a frame's render and present calls, and the host
-    time at which the present call returned (traced runs only)."""
-
-    def __init__(self):
-        self.on = False
-        self.frames = []  # (before render, after render, after present, host time)
-
-    def event(self):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def before_render(self):
-        if self.on:
-            self.frames.append([self.event()])
-
-    def after_render(self):
-        if self.on:
-            self.frames[-1].append(self.event())
-
-    def after_present(self):
-        if self.on:
-            self.frames[-1] += [self.event(), time.perf_counter()]
-
-
-def _classes(vol, marks, traced):
-    from vokselis_torch.engine.context import Context
-    from vokselis_torch.models.bonsai import BonsaiDemo
-    from vokselis_torch.ops.cuda.march_bonsai import BonsaiRenderer
-
-    class SeededBonsai(BonsaiDemo):
-        """The bonsai demo on the exact renderer over the seeded volume."""
-
-        @classmethod
-        def init(cls, ctx):
-            return cls(BonsaiRenderer(vol, ctx.device), vol)
-
-    if not traced:
-        return Context, SeededBonsai
-
-    from torch.profiler import record_function
-
-    class TracedBonsai(SeededBonsai):
-        def render(self, ctx):
-            marks.before_render()
-            with record_function("demo.render"):
-                super().render(ctx)
-            marks.after_render()
-
-    class TracedContext(Context):
-        def update(self, *args, **kwargs):
-            with record_function("ctx.update"):
-                super().update(*args, **kwargs)
-
-        def render(self):
-            with record_function("ctx.render"):
-                out = super().render()
-            marks.after_present()
-            return out
-
-    return TracedContext, TracedBonsai
-
-
-class FrameLoop:
+class BonsaiLoop(FrameLoop):
     def __init__(self, cfg: dict, mix: dict, seed: int, device="cuda"):
-        self.seed = seed
-        self.device = torch.device(device)
-        self.path = importlib.import_module(f"benchmark.traffic.{mix['kind']}").make(mix, seed)
-        self.width, self.height, self.dims = cfg["width"], cfg["height"], cfg["dims"]
-        self.answers = []  # (frame, display image) sampled from the window
+        super().__init__(cfg, mix, seed, device)
+        self.dims = cfg["dims"]
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def demo(self):
+        from vokselis_torch.models.bonsai import BonsaiDemo
+        from vokselis_torch.ops.cuda.march_bonsai import BonsaiRenderer
 
-    def measure(self, seconds: float, trace: bool, t_start: float) -> dict:
-        """Run the loop: set-up, the window, and with ``trace`` the profiled
-        frames after it. Returns the run's record."""
-        from vokselis_torch.core.camera import Camera
-        from vokselis_torch.engine.loop import run
+        vol = standin.bonsai(self.dims, self.seed, self.device)
 
-        traced = trace and self.device.type == "cuda"
-        marks = _Marks()
-        context_cls, demo_cls = _classes(standin.bonsai(self.dims, self.seed, self.device),
-                                         marks, traced)
-        yaw, pitch, zoom = self.path.start()
-        ctx = context_cls(width=self.width, height=self.height,
-                          camera=Camera(zoom=zoom, pitch=pitch, yaw=yaw, target=(0.5, 0.5, 0.5),
-                                        aspect=self.width / self.height),
-                          backbuffer_resolution=(self.width, self.height), device=self.device)
-        rng = random.Random(self.seed)
-        warm = self.path.warmup
-        stamps, state = [], {"prof": None, "span": None, "window_end": None, "profiled": None}
+        class SeededBonsai(BonsaiDemo):
+            """The bonsai demo on the exact renderer over the seeded volume."""
 
-        def client():
-            f = 0
-            while True:
-                if f > 0:
-                    with _span(traced, "client.wait"):
-                        self._sync()
-                    now = time.perf_counter()
-                    if f == warm:
-                        stamps.append(now)
-                        marks.on = traced
-                    elif f > warm and state["window_end"] is None:
-                        stamps.append(now)
-                        i = f - 1 - warm  # frame f - 1 is done: sample it
-                        if i < SAMPLED_FRAMES:
-                            self.answers.append((f - 1, ctx.display_image))
-                        else:
-                            j = rng.randrange(i + 1)
-                            if j < SAMPLED_FRAMES:
-                                self.answers[j] = (f - 1, ctx.display_image)
-                        if now - stamps[0] >= seconds:
-                            state["window_end"] = f
-                            marks.on = False
-                            if not traced:
-                                break
-                            state["prof"] = _profiler()
-                            state["prof"].start()
-                    if state["window_end"] is not None:
-                        n = f - state["window_end"]
-                        if n == PROFILER_SETTLE_FRAMES:
-                            state["span"] = torch.profiler.record_function(reduce.WINDOW_SPAN)
-                            state["span"].__enter__()
-                            state["profiled"] = f
-                        elif n == PROFILER_SETTLE_FRAMES + PROFILED_FRAMES:
-                            state["span"].__exit__(None, None, None)
-                            state["prof"].stop()
-                            break
-                yield from self.path.events(f)
-                yield None
-                f += 1
-            yield {"type": "key", "key": "esc", "pressed": True}
-            yield None
+            @classmethod
+            def init(cls, ctx):
+                return cls(BonsaiRenderer(vol, ctx.device), vol)
 
-        run(demo_cls, context=ctx, events=client(), quiet=True)
-        rec = {"setup_s": stamps[0] - t_start, "stamps": stamps, "unit": "frame",
-               "attempted": len(stamps) - 1,
-               "memory_peak_bytes": (torch.cuda.max_memory_allocated(self.device)
-                                     if self.device.type == "cuda" else 0)}
-        if traced:
-            self._trace_record(rec, marks, state)
-        return rec
+        return SeededBonsai
 
-    def _trace_record(self, rec, marks, state):
-        spans = {"host_s": [], "render_s": [], "present_s": []}
-        starts = rec["stamps"]
-        for (r0, r1, p1, host_end), s in zip(marks.frames, starts):
-            spans["host_s"].append(host_end - s)
-            spans["render_s"].append(r0.elapsed_time(r1) * 1e-3)
-            spans["present_s"].append(r1.elapsed_time(p1) * 1e-3)
-        rec["spans"] = spans
-        prof = reduce.profile_window(state["prof"].events())
-        rec["profile"] = prof
-        if prof is None:
-            return
-        first = state["profiled"]
-        frames = range(first, first + PROFILED_FRAMES)
-        rec["profile_units"] = PROFILED_FRAMES
-        rec["kernels"] = {"K1": reduce.kernel(prof, K1_NAME)}
-        rec["bounds"] = {"K1": self._k1_bound(frames)}
-
-    def _poses(self, frames):
-        yaw, pitch, zoom = self.path.start()
-        start = camera.Pose(yaw, pitch, zoom, aspect=self.width / self.height)
-        return camera.replay(start, self.path.events, frames)
+    def kernels(self) -> dict:
+        return {"K1": K1_NAME}
 
     def _rays(self, frames):
         """The rays of ``frames``, one after another: (eye (N, 3), dirs (N, 3))."""
         eyes, dirs = [], []
-        for f, (vp, inv) in sorted(self._poses(frames).items()):
+        for f, (vp, inv) in sorted(self.poses(frames).items()):
             e, d = march.rays(torch.from_numpy(vp).to(self.device),
                               torch.from_numpy(inv).to(self.device), self.width, self.height)
             eyes.append(e.expand(d.shape))
             dirs.append(d)
         return torch.cat(eyes), torch.cat(dirs)
 
-    def _k1_bound(self, frames) -> float:
+    def bounds(self, frames) -> dict:
         """Seconds: the sum over ``frames`` of each frame's K1 bound."""
         vol = standin.bonsai(self.dims, self.seed, self.device)
         eye, dirs = self._rays(frames)
         per_frame = march.touched_samples(vol, eye, dirs, march.max_steps(self.dims))
         n_bytes = k1.frame_bytes(self.dims, self.width, self.height)
-        return sum(bound_s(n_bytes, k1.ops(int(n)))
-                   for n in per_frame.reshape(len(frames), -1).sum(dim=1).tolist())
+        return {"K1": sum(bound_s(n_bytes, k1.ops(int(n)))
+                          for n in per_frame.reshape(len(frames), -1).sum(dim=1).tolist())}
 
-    def release(self):
-        """Free the program's state; the sampled display images stay."""
-        gc.collect()
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
-
-    def reference(self, dtype=torch.float32) -> list:
-        """The reference's display images of the sampled frames, in order."""
-        frames = [f for f, _ in self.answers]
-        if not frames:
-            return []
+    def reference_images(self, frames, dtype):
         vol = standin.bonsai(self.dims, self.seed, self.device)
-        order = sorted(set(frames))
-        eye, dirs = self._rays(order)
+        eye, dirs = self._rays(frames)
         hdr = march.march(vol, eye, dirs, march.max_steps(self.dims), dtype)
-        imgs = present.present(hdr).reshape(len(order), self.height, self.width, 4)
-        return [imgs[order.index(f)] for f in frames]
+        return present.present(hdr).reshape(len(frames), self.height, self.width, 4)
 
-    @staticmethod
-    def compare(output, against) -> dict:
-        """The number ``correct`` compares for one display image: the largest
-        absolute difference of any channel of any pixel."""
-        return {"frame_max_err": float((output - against).abs().max())}
-
-    def program_outputs(self) -> list:
-        return [img for _, img in self.answers]
+    def control_answers(self) -> list:
+        return [(f, None) for f in range(0, 1600, 100)]
 
 
-def make(cfg: dict, mix: dict, seed: int, device="cuda") -> FrameLoop:
-    return FrameLoop(cfg, mix, seed, device)
-
-
-def _span(on: bool, name: str):
-    return torch.profiler.record_function(name) if on else contextlib.nullcontext()
-
-
-def _profiler():
-    from torch.profiler import ProfilerActivity, profile
-
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+def make(cfg: dict, mix: dict, seed: int, device="cuda") -> BonsaiLoop:
+    return BonsaiLoop(cfg, mix, seed, device)

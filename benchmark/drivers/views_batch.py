@@ -29,6 +29,8 @@ SAMPLED_BATCHES = 1
 PROFILED_BATCHES = 3
 PROFILER_SETTLE_BATCHES = 2
 K1_NAME, K8_NAME = "march_bonsai_kernel", "gendensity_kernel"
+TINY = {"n_views": 4, "view_res": 16, "dims": 32}  # the CPU tests' size
+CONTROL_SIZE = TINY  # the control's volume misses voxels at this size already
 
 
 class ViewsBatchLoop:
@@ -151,6 +153,11 @@ class ViewsBatchLoop:
 
     def program_outputs(self) -> list:
         return [(vol, views) for _, vol, views in self.answers]
+
+    def control_answers(self) -> list:
+        """Answers (their outputs None) whose reference the control test
+        recomputes in bfloat16 and float32 at :data:`CONTROL_SIZE`."""
+        return [(self.steps.step(k), None, None) for k in (0, 7)]
 
     @staticmethod
     def compare(output, against) -> dict:

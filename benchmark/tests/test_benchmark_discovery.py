@@ -2,8 +2,13 @@
 adding one takes new files and BENCHMARK.json entries, no edit of the
 harness."""
 
+import hashlib
 import json
+import os
+import re
 import shutil
+import subprocess
+import sys
 
 from benchmark.run import ROOT, cell_metrics, load_spec, read_metrics, resolve
 
@@ -42,6 +47,72 @@ def test_new_files_are_found_without_an_edit(tmp_path):
         "frames_done": {"value": 3, "unit": "frames"}}
     e2e = read_metrics(spec, "bonsai-far", False, rec, tmp_path)
     assert e2e["frame_ms"]["value"] == 500.0 and e2e["setup_s"]["value"] == 2.0
+
+
+# a driver that only adds a file: the bonsai loop about another point, at
+# its own CPU test size
+LOW_TARGET_DRIVER = '''"""The bonsai frame loop about a point below the box's centre."""
+
+from benchmark.drivers.frame_loop import CONTROL_SIZE, BonsaiLoop  # noqa: F401
+
+TINY = {"width": 40, "height": 24, "dims": 32}
+
+
+class LowTargetLoop(BonsaiLoop):
+    target = (0.5, 0.45, 0.5)
+
+
+def make(cfg, mix, seed, device="cuda"):
+    return LowTargetLoop(cfg, mix, seed, device)
+'''
+
+
+def _digests(root):
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in root.rglob("*") if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_cell_of_a_new_driver_runs_the_shared_tests(tmp_path):
+    """A cell whose configuration names a new driver passes the shared
+    reference, spec and traffic tests with new files and BENCHMARK.json
+    entries alone."""
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = _digests(tmp_path)
+    bench, cell = tmp_path / "benchmark", "bonsai-low-orbit"
+    (bench / "drivers" / "low_target_loop.py").write_text(LOW_TARGET_DRIVER)
+    cfg = json.loads((bench / "configs" / "bonsai256-exact-1024.json").read_text())
+    cfg["entry"] = "low_target_loop"
+    (bench / "configs" / "bonsai256-low-target.json").write_text(json.dumps(cfg))
+    spec = load_spec(tmp_path)
+    spec["configs"].append({"name": "bonsai256-low-target", "source": "https://example.org",
+                            "file": "benchmark/configs/bonsai256-low-target.json",
+                            "reduced": [], "why": "the orbit about a lower point"})
+    spec["workloads"].append({"name": cell, "config": "bonsai256-low-target",
+                              "traffic": "overview-orbit", "chips": 1, "why": "a lower orbit"})
+    for m in spec["end_to_end"] + spec["per_layer"]:  # the metrics of the frame cells
+        if "bonsai-orbit" in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    # the copy's benchmark first on the path, the repository's port after it
+    env = dict(os.environ, PYTHONDONTWRITEBYTECODE="1",
+               PYTHONPATH=os.pathsep.join([str(tmp_path), str(ROOT)]))
+    tests = [f"benchmark/tests/test_benchmark_{t}.py" for t in ("reference", "spec", "traffic")]
+    out = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                          "-k", cell, "-m", "not gpu", *tests], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    # the program and the control against the reference, the cell's files, and
+    # its traffic twice
+    assert re.search(r"\b5 passed\b", out.stdout), out.stdout[-2000:]
+
+    after = _digests(tmp_path)
+    assert set(after) - set(before) == {"benchmark/drivers/low_target_loop.py",
+                                        "benchmark/configs/bonsai256-low-target.json"}
+    changed = {k for k in before if after.get(k) != before[k]}
+    assert changed == {"BENCHMARK.json"}
 
 
 def test_a_metric_without_a_workloads_list_goes_with_what_it_moves():

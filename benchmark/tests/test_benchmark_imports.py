@@ -36,14 +36,21 @@ def test_the_reference_and_the_counts_import_nothing_of_the_program():
             assert "vokselis_torch" not in _imports(path), path
 
 
+# the port's modules a run reaches, which the drivers import only when they run
+PORT_MODULES = ("vokselis_torch.engine.loop", "vokselis_torch.engine.context",
+                "vokselis_torch.models.bonsai", "vokselis_torch.models.views",
+                "vokselis_torch.ops.cuda.march_bonsai", "vokselis_torch.ops.cuda.genvol")
+
+
 def test_a_run_loads_no_forbidden_module():
+    drivers = sorted(f"benchmark.drivers.{p.stem}" for p in (BENCH / "drivers").glob("*.py")
+                     if p.stem != "__init__")
+    entries = {json.loads((ROOT / c["file"]).read_text())["entry"] for c in load_spec()["configs"]}
+    assert {f"benchmark.drivers.{e}" for e in entries} <= set(drivers)
+    modules = ["benchmark.calibrate", "benchmark.loop", *drivers, *PORT_MODULES]
     code = ("import importlib, sys\n"
             "import benchmark.run as r\n"
-            "for m in ('benchmark.calibrate', 'benchmark.drivers.frame_loop',\n"
-            "          'benchmark.drivers.views_batch', 'vokselis_torch.engine.loop',\n"
-            "          'vokselis_torch.engine.context', 'vokselis_torch.models.bonsai',\n"
-            "          'vokselis_torch.models.views', 'vokselis_torch.ops.cuda.march_bonsai',\n"
-            "          'vokselis_torch.ops.cuda.genvol'):\n"
+            f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "print(r.forbidden_modules())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

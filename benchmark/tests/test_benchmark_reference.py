@@ -5,8 +5,12 @@ counts repeated from shapes.
 These drive the rest of a run (``run.run_cell``: the driver's set-up,
 window and sample, the reference, the comparison against the configuration's
 limits) without the harness's look for a card, on the CPU, where every
-kernel of the port takes its plain version."""
+kernel of the port takes its plain version. Each cell's sizes come from its
+own driver and traffic modules: a driver's ``TINY`` and ``CONTROL_SIZE``
+override its configuration, its ``control_answers()`` names what the control
+recomputes, and a traffic module's ``TINY`` overrides its mix."""
 
+import importlib
 import math
 
 import pytest
@@ -17,15 +21,26 @@ from benchmark.reference import march
 from benchmark.roofline import k1, k8
 
 SPEC = run.load_spec()
-TINY = {"frame_loop": {"width": 48, "height": 32, "dims": 32},
-        "views_batch": {"n_views": 4, "view_res": 16, "dims": 32}}
-TINY_MIX = {"drag_orbit": {"warmup_frames": 3}, "batch_steps": {"warmup_batches": 1}}
 CELLS = [w["name"] for w in SPEC["workloads"]]
+
+
+def _module(kind, name):
+    return importlib.import_module(f"benchmark.{kind}.{name}")
+
+
+def _data(kind, name, attr):
+    """``attr`` of ``benchmark/<kind>/<name>.py``; a module without it fails
+    the test by name."""
+    module = _module(kind, name)
+    if not hasattr(module, attr):
+        pytest.fail(f"benchmark/{kind}/{name}.py defines no {attr}")
+    return getattr(module, attr)
 
 
 def _cell(name):
     cell, cfg, mix = run.resolve(SPEC, name)
-    return cell, dict(cfg, **TINY[cfg["entry"]]), dict(mix, **TINY_MIX[mix["kind"]])
+    return (cell, dict(cfg, **_data("drivers", cfg["entry"], "TINY")),
+            dict(mix, **_data("traffic", mix["kind"], "TINY")))
 
 
 def _run(name, seed=2**31 + 11):
@@ -42,24 +57,22 @@ def test_the_program_agrees_with_the_reference(cell):
     assert "setup_s" in metrics
 
 
-# the control's largest error grows with the pixels compared: at 256^2 and 16
-# frames it clears the limit on every seed tried (0.036-0.217), at 48x32 not
-CONTROL_SIZE = {"frame_loop": {"width": 256, "height": 256, "dims": 64},
-                "views_batch": TINY["views_batch"]}
-
-
 def _control_readings(cell, seed):
-    """The control's numbers against the float32 reference, on the CPU."""
+    """The control's numbers against the float32 reference, on the CPU, at
+    the driver's ``CONTROL_SIZE``, for its ``control_answers()``."""
     from benchmark.calibrate import readings
 
     _, cfg, mix = run.resolve(SPEC, cell)
-    cfg = dict(cfg, **CONTROL_SIZE[cfg["entry"]])
-    driver = __import__(f"benchmark.drivers.{cfg['entry']}", fromlist=["make"]).make(
-        cfg, mix, seed, "cpu")
-    if cfg["entry"] == "frame_loop":
-        driver.answers = [(f, None) for f in range(0, 1600, 100)]
-    else:
-        driver.answers = [(driver.steps.step(k), None, None) for k in (0, 7)]
+    entry = cfg["entry"]
+    cfg = dict(cfg, **_data("drivers", entry, "CONTROL_SIZE"))
+    driver = _module("drivers", entry).make(cfg, mix, seed, "cpu")
+    missing = f"benchmark/drivers/{entry}.py gives no control_answers()"
+    if not hasattr(driver, "control_answers"):
+        pytest.fail(missing)
+    try:
+        driver.answers = driver.control_answers()
+    except NotImplementedError:
+        pytest.fail(missing)
     ref = driver.reference(torch.float32)
     return readings(driver, driver.reference(torch.bfloat16), ref), cfg["limits"]
 

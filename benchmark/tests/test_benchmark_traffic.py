@@ -11,7 +11,8 @@ from benchmark.run import load_spec, resolve
 from benchmark.traffic import batch_steps, drag_orbit
 
 SPEC = load_spec()
-ORBIT_CELLS = [w["name"] for w in SPEC["workloads"] if w["traffic"] != "batch-loop"]
+ORBIT_CELLS = [w["name"] for w in SPEC["workloads"]
+               if resolve(SPEC, w["name"])[2]["kind"] == "drag_orbit"]
 BIG_SEED = 2**31 + 977
 
 

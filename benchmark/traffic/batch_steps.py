@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import numpy as np
 
+TINY = {"warmup_batches": 1}  # the CPU tests' overrides of a mix
+
 
 class BatchSteps:
     def __init__(self, mix: dict, seed: int):

@@ -18,6 +18,7 @@ import numpy as np
 from benchmark.reference.camera import ROTATE_SPEED, ZOOM_SPEED
 
 X0 = 512.0  # where the drag starts on the screen; only differences matter
+TINY = {"warmup_frames": 3}  # the CPU tests' overrides of a mix
 
 
 class DragOrbit:
