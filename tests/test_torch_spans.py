@@ -6,7 +6,10 @@ renderer's plain version: the frame spans nest as the loop does, self time
 never exceeds a span's time, a frame sends one record (the global uniform's
 words, after the camera's with a dragged camera), nothing is kept or
 counted without a recording, and under a ``torch.profiler`` session the
-spans are ranges of the trace nested in ``loop.frame``.
+spans are ranges of the trace nested in ``loop.frame``. The xor demo's
+``PassTimer`` reports in a span of its own and counts its one wait on the
+card (``host_syncs``, with a stand-in for CUDA events), and its field
+pipeline counts its rays.
 
 Tests marked ``gpu`` need a CUDA card and skip without one: a replayed
 compiled frame's spans, K1 starting inside its replay's range, and no
@@ -161,6 +164,74 @@ def test_other_threads_and_a_second_recording():
                 pass
         profiler.count("uploads", 2)
     assert rec.snapshot() == {"spans": {}, "counters": {"uploads": 2}}
+
+
+class _Event:
+    """A stand-in for ``torch.cuda.Event`` on a machine without a card."""
+
+    synced = 0
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        _Event.synced += 1
+
+    def elapsed_time(self, end):
+        return 0.5
+
+
+def _timed_frames(timer, frames):
+    for f in range(frames):
+        with profiler.span("loop.frame", id=f):
+            with timer.measure(n_rays=6):
+                pass
+
+
+@pytest.mark.parametrize("device, syncs", [("cuda", 2), ("cpu", 0)])
+def test_pass_timer_report_is_a_span_and_counts_its_sync(device, syncs, monkeypatch, capsys):
+    """A report every ``report_every`` passes: a span in the frame that
+    reports, and on a card one ``host_syncs`` for the one wait on the
+    device (the CPU times by the wall clock and waits for nothing)."""
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(_Event, "synced", 0)
+    timer = profiler.PassTimer("raycast shader", report_every=4, device=device)
+    with profiler.recording() as rec:
+        _timed_frames(timer, 10)
+    snap = rec.snapshot()
+    assert snap["counters"] == ({"host_syncs": syncs} if syncs else {})
+    assert _Event.synced == syncs
+    report = snap["spans"]["pass_timer.report"]
+    assert report["n"] == 2 and report["parent"] == "loop.frame"
+    assert sorted(rec.by_id("pass_timer.report")) == [3, 7]
+    assert capsys.readouterr().out.count("Time on raycast shader") == 2
+
+
+def test_pass_timer_keeps_nothing_without_a_recording(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(_Event, "synced", 0)
+    timer = profiler.PassTimer("raycast shader", report_every=4, device="cuda")
+    _timed_frames(timer, 8)
+    assert _Event.synced == 2 and capsys.readouterr().out.count("Time on") == 2
+    assert profiler.span("pass_timer.report") is profiler.NOOP
+    with profiler.recording() as rec:
+        pass
+    assert rec.snapshot() == {"spans": {}, "counters": {}}
+
+
+def test_field_pipeline_counts_its_rays():
+    from vokselis_torch.models.xor import FieldPipeline
+
+    pipe = FieldPipeline("cpu", grad="analytic", dims=16)
+    cam = Camera.xor(aspect=8 / 6).uniform("cpu")
+    with profiler.recording() as rec:
+        for _ in range(2):
+            pipe.render(cam, 0.5, 8, 6)
+    assert rec.snapshot()["counters"] == {"field.rays": 2 * 8 * 6}
+    pipe.render(cam, 0.5, 8, 6)  # nothing counted without a recording
 
 
 def _profiled_frames(device, frames, record):

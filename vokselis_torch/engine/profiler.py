@@ -6,7 +6,9 @@
 - :class:`PassTimer` is the analog of the xor demo's GPU timestamp-query pair
   (examples/xor/main.rs:120-131, 164-187): on a CUDA device it brackets a
   pass with CUDA events and reads them only when it reports, every N frames,
-  so timing adds no host sync to a frame; on the CPU it takes the wall clock.
+  so timing adds one host sync every N frames (the span
+  ``pass_timer.report``, the counter ``host_syncs``) and none to the others;
+  on the CPU it takes the wall clock.
   It prints 'Time on raycast shader'-style reports plus a derived Mrays/s.
   (The JAX package calibrated a host dispatch floor instead; events time the
   device itself.)
@@ -106,11 +108,13 @@ class PassTimer:
         self.rays += n_rays
         self.count += 1
         if self.count % self.report_every == 0:
-            self._report()
+            with span("pass_timer.report"):
+                self._report()
 
     def _report(self):
         if self._events:
             self._events[-1][1].synchronize()
+            count("host_syncs")  # the frame path's one wait on the device
             ms = sum(s.elapsed_time(e) for s, e in self._events)
         else:
             ms = self._accum * 1000.0

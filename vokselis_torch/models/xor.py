@@ -33,7 +33,7 @@ import torch
 from vokselis_torch.core.camera import Camera
 from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.engine.demo import Demo
-from vokselis_torch.engine.profiler import PassTimer
+from vokselis_torch.engine.profiler import PassTimer, count
 from vokselis_torch.ops.cuda import march_field
 from vokselis_torch.ops.cuda.build import load_library
 from vokselis_torch.ops.reference import MAX_STEPS_COMPUTE
@@ -50,7 +50,7 @@ class FieldPipeline:
     the fused noise field with xor shading through
     :func:`march_field.render_field` (K7 on a CUDA device, its plain version
     on the CPU). ``grad`` is the normal source, by default ``VOK_XOR_GRAD``
-    ("analytic" or "fd").
+    ("analytic" or "fd"), and ``dims`` the field's grid, 256 in the demo.
 
     ``source`` is K7's CUDA source, by default ``csrc/march_field.cu``; another
     one (an edited copy with its headers beside it) is built here, and a
@@ -63,11 +63,13 @@ class FieldPipeline:
     height and ``tile_h`` (the field, shading, normals, quantization, grid
     and step count are the pipeline's), with the time copied into the
     graph's 0-d input: a new time replays. :func:`march_field.render_field`
-    is the eager frame."""
+    is the eager frame. Each call adds its rays, width x height, to the
+    counter ``field.rays`` of an active ``profiler.recording()``."""
 
-    def __init__(self, device, grad: str | None = None, source=None):
+    def __init__(self, device, grad: str | None = None, source=None, dims: int = DIMS):
         self.device = torch.device(device)
         self.grad = march_field.default_grad() if grad is None else grad
+        self.dims = dims
         self.source = march_field.SOURCE if source is None else Path(source)
         self.fields = fields_soa
         self.lib = None
@@ -101,22 +103,25 @@ class FieldPipeline:
 
         def fn(u, t):
             return march_field.render_field(u, t, width, height, field=FIELD, shading=SHADING,
-                                            dims=DIMS, max_steps=MAX_STEPS_COMPUTE,
+                                            dims=self.dims, max_steps=MAX_STEPS_COMPUTE,
                                             tile_h=tile_h, grad=self.grad, lib=lib,
                                             fields=fields)
 
-        key = (width, height, FIELD, SHADING, self.grad, True, tile_h, DIMS, MAX_STEPS_COMPUTE)
+        key = (width, height, FIELD, SHADING, self.grad, True, tile_h, self.dims,
+               MAX_STEPS_COMPUTE)
+        count("field.rays", width * height)
         return self.compiled(key, fn, (camera_uniform, time))
 
 
 class XorDemo(Demo):
     MODES = tuple(MODE_TILE_H)
 
-    def __init__(self, device, gen_time, grad: str | None = None, source=None):
+    def __init__(self, device, gen_time, grad: str | None = None, source=None,
+                 dims: int = DIMS):
         self.mode = "SinglePass"
         self.gen_time = gen_time  # 0-d f32 tensor on the device (main.rs:135-146)
         self.timer = PassTimer("raycast shader", device=device)
-        self.pipeline = FieldPipeline(device, grad, source)
+        self.pipeline = FieldPipeline(device, grad, source, dims)
         print("Change rendering mode on F1")
 
     @classmethod
