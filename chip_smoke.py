@@ -772,13 +772,15 @@ def main() -> int:
     import numpy as np
 
     def reset_launches():
-        mb.LAUNCHES = sr.LAUNCHES_RESAMPLE = sr.LAUNCHES_COMPOSITE = w2.LAUNCHES_WARP = 0
+        mb.LAUNCHES = mb.LAUNCHES_FRAME = 0
+        sr.LAUNCHES_RESAMPLE = sr.LAUNCHES_COMPOSITE = w2.LAUNCHES_WARP = 0
         sr.LAUNCHES_RESAMPLE_COMPOSITE = 0
         mb.LAUNCHES_TILES = w2.LAUNCHES_STATS = 0
         mf.LAUNCHES_FIELD = genvol.LAUNCHES_GENVOL = genvol.LAUNCHES_DENSITY = 0
 
     def launches():
-        return {"K1": mb.LAUNCHES, "K3": sr.LAUNCHES_RESAMPLE,
+        # K1 counts in two wrappers: over ray planes and making its own rays
+        return {"K1": mb.LAUNCHES + mb.LAUNCHES_FRAME, "K3": sr.LAUNCHES_RESAMPLE,
                 "K4": sr.LAUNCHES_COMPOSITE, "K34": sr.LAUNCHES_RESAMPLE_COMPOSITE,
                 "K6": w2.LAUNCHES_WARP,
                 "K5": w2.LAUNCHES_STATS, "K2": mb.LAUNCHES_TILES,

@@ -13,6 +13,8 @@ tensors, at the same contract. On the card, run them with
 conftest imports JAX, which that machine lacks).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,7 @@ import torch
 from vokselis_torch.core import geometry
 from vokselis_torch.core.camera import Camera, CameraUniform
 from vokselis_torch.core.colors import bonsai_transfer_fast_soa, linear_to_srgb
-from vokselis_torch.engine.profiler import kernel_launches
+from vokselis_torch.engine import profiler
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda import march_bonsai as mb
 from vokselis_torch.volume.io import get_bonsai
@@ -361,25 +363,36 @@ def test_kernel_matches_plain_on_gpu(cuda_device, volume, pose):
 
 @pytest.mark.gpu
 def test_launch_counting_on_gpu(cuda_device):
-    """The wrapper counts each launch it makes: a renderer's first call
-    launches K1 for its graph's warm-up and once more into the graph it
-    captures; a replay calls no wrapper, and its launch shows on the
-    device."""
+    """Each wrapper counts the launches it makes: a renderer's first call
+    launches K1 through the frame wrapper (``LAUNCHES_FRAME``) for its
+    graph's warm-up and once more into the graph it captures; a replay
+    calls no wrapper, and launches the graph's one kernel node, K1 (read
+    from the graph: a profiler session can lose its first device records,
+    and K1 is a frame's first kernel). A launch over ray planes counts
+    in ``LAUNCHES``."""
     r = mb.BonsaiRenderer(get_bonsai(64), cuda_device)
     u = Camera(aspect=1.0, **POSES["bench"]).uniform(cuda_device)
-    mb.LAUNCHES = 0
-    _, counts = kernel_launches(lambda: [r(u, 40, 24) for _ in range(3)],
-                                ["march_bonsai_kernel"])
-    assert mb.LAUNCHES == 2 and counts == {"march_bonsai_kernel": 3}
+    mb.LAUNCHES = mb.LAUNCHES_FRAME = 0
+    for _ in range(3):
+        r(u, 40, 24)
+    graph = r.compiled.graph(r.compiled.keys()[-1])
+    assert (mb.LAUNCHES_FRAME, mb.LAUNCHES) == (2, 0) and r.compiled.captures == 1
+    assert profiler.graph_kernels(graph, ["march_bonsai_kernel"]) == {"march_bonsai_kernel": 1}
     render, pack = mb.build_renderer(get_bonsai(64), cuda_device, with_overflow=True)
     img, ovf = render(pack, u, 40, 24)
     torch.cuda.synchronize()
-    assert mb.LAUNCHES == 4 and ovf == 0
+    assert mb.LAUNCHES_FRAME == 4 and ovf == 0
     # a rejected call launches nothing
     eye, (dx, dy, dz) = _rays(Camera(aspect=1.0, **POSES["bench"]), 8, 8, cuda_device)
     with pytest.raises(TypeError):
         mb.render_bonsai_rays_cuda(pack, eye, (dx.double(), dy, dz))
-    assert mb.LAUNCHES == 4
+    with pytest.raises(TypeError):
+        mb.render_bonsai_frame_cuda(pack, CameraUniform(u.view_position, u.proj_view,
+                                                        u.inv_proj.double()), 8, 8)
+    assert (mb.LAUNCHES_FRAME, mb.LAUNCHES) == (4, 0)
+    mb.render_bonsai_rays_cuda(pack, eye, (dx, dy, dz))
+    mb.render_bonsai_frame_cuda(pack, u, 8, 8)
+    assert (mb.LAUNCHES_FRAME, mb.LAUNCHES) == (5, 1)
     torch.testing.assert_close(img, r(u, 40, 24), rtol=0, atol=0)
 
 
@@ -410,3 +423,184 @@ def test_skip_kernels_match_plain_on_gpu(cuda_device, volume):
             k1b = mb.render_bonsai_tiles(vol, u, ids, 96, 64, fast_transfer=fast)
             p1b = mb.render_bonsai_tiles_plain(vol, u, ids, 96, 64, fast_transfer=fast)
             assert torch.equal(k1b, p1b)
+
+
+# -- K1 making its own rays: the frame wrapper ------------------------------
+
+
+def _frame_inputs():
+    vol = torch.from_numpy(get_bonsai(32))
+    return dict(vol=vol, u=Camera(aspect=1.0, **POSES["bench"]).uniform("cpu"), width=8,
+                height=8, max_steps=32)
+
+
+def _uniform(k, vp=None, inv=None):
+    u = k["u"]
+    k["u"] = CameraUniform(u.view_position if vp is None else vp, u.proj_view,
+                           u.inv_proj if inv is None else inv)
+
+
+def _batch_of(n):
+    return lambda k: k.update(u=CameraUniform(torch.zeros(n, 4), torch.zeros(n, 4, 4),
+                                              torch.zeros(n, 4, 4)))
+
+
+BAD_FRAME_INPUTS = {
+    "vol_float32": (lambda k: k.update(vol=k["vol"].float()), TypeError),
+    "vol_numpy": (lambda k: k.update(vol=k["vol"].numpy()), TypeError),
+    "inv_proj_float64": (lambda k: _uniform(k, inv=k["u"].inv_proj.double()), TypeError),
+    "view_position_float64": (lambda k: _uniform(k, vp=k["u"].view_position.double()),
+                              TypeError),
+    "inv_proj_numpy": (lambda k: _uniform(k, inv=k["u"].inv_proj.numpy()), TypeError),
+    "inv_proj_not_contiguous": (lambda k: _uniform(k, inv=k["u"].inv_proj.t()), ValueError),
+    "inv_proj_3x4": (lambda k: _uniform(k, inv=k["u"].inv_proj[:3].contiguous()), ValueError),
+    "view_position_xyz_only": (lambda k: _uniform(k, vp=k["u"].view_position[:3].contiguous()),
+                               ValueError),
+    "views_mismatch": (lambda k: _uniform(k, vp=torch.zeros(3, 4), inv=torch.zeros(2, 4, 4)),
+                       ValueError),
+    "batched_matrix_single_eye": (lambda k: _uniform(k, inv=torch.zeros(2, 4, 4)), ValueError),
+    "no_views": (_batch_of(0), ValueError),
+    "too_many_views": (_batch_of(mb.MAX_VIEWS + 1), ValueError),
+    "uniform_other_device": (lambda k: _uniform(k, inv=k["u"].inv_proj.to("meta")), ValueError),
+    "all_on_meta": (lambda k: k.update(vol=k["vol"].to("meta"), u=CameraUniform(
+        *(t.to("meta") for t in k["u"].tensors()))), ValueError),
+    "width_zero": (lambda k: k.update(width=0), ValueError),
+    "height_float": (lambda k: k.update(height=8.0), ValueError),
+    "max_steps_negative": (lambda k: k.update(max_steps=-1), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_FRAME_INPUTS))
+def test_frame_wrapper_rejects_bad_inputs(case, monkeypatch):
+    """The frame wrapper refuses what K1 could not read as a uniform (dtype,
+    shape, contiguity, device, the batch's 1 to MAX_VIEWS views, the frame's
+    size, the step count) before it builds or launches anything."""
+    def no_build():
+        raise AssertionError("built before the inputs were checked")
+
+    monkeypatch.setattr(mb, "build", no_build)
+    kw = _frame_inputs()
+    mutate, exc = BAD_FRAME_INPUTS[case]
+    mutate(kw)
+    before = mb.LAUNCHES_FRAME
+    with pytest.raises(exc):
+        mb.render_bonsai_frame_cuda(kw["vol"], kw["u"], kw["width"], kw["height"],
+                                    max_steps=kw["max_steps"])
+    assert mb.LAUNCHES_FRAME == before
+
+
+def _frame_uniform(kind, aspect, device):
+    if kind == "single":
+        return Camera(aspect=aspect, **POSES["diagonal"]).uniform(device)
+    return CameraUniform.stack(Camera(aspect=aspect, **POSES[p]).uniform(device)
+                               for p in sorted(POSES))
+
+
+@pytest.mark.parametrize("srgb", [True, False], ids=["srgb", "linear"])
+@pytest.mark.parametrize("kind", ["single", "batch"])
+def test_render_frame_on_the_cpu_is_the_plain_path(kind, srgb, monkeypatch):
+    """On the CPU render_frame, the frame wrapper, is the plain frame,
+    bitwise: geometry.rays_fragment_soa, then the plain march of each
+    view; nothing is built or launched."""
+    def no_build():
+        raise AssertionError("the CPU path built a kernel")
+
+    monkeypatch.setattr(mb, "build", no_build)
+    vol = mb.volume_tensor(get_bonsai(32), "cpu")
+    u = _frame_uniform(kind, 24 / 16, "cpu")
+    eye, dxyz = geometry.rays_fragment_soa(u, 24, 16)
+    want = mb.render_bonsai_rays_plain(vol, eye, dxyz, max_steps=64, srgb=srgb)
+    before = (mb.LAUNCHES_FRAME, mb.LAUNCHES)
+    got = mb.render_frame(vol, u, 24, 16, 64, srgb)
+    assert torch.equal(got, want)
+    assert torch.equal(mb.render_bonsai_frame_cuda(vol, u, 24, 16, 64, srgb), want)
+    assert (mb.LAUNCHES_FRAME, mb.LAUNCHES) == before
+    assert tuple(got.shape) == ((3,) if kind == "batch" else ()) + (16, 24, 4)
+    assert float(got[..., :3].max()) > 0.1
+
+
+def test_inline_rays_counter_absent_on_the_cpu():
+    """``k1.inline_rays`` counts rays that K1 makes on a card: a CPU frame,
+    through the renderer or the functional API, adds none."""
+    u = Camera(aspect=1.0, **POSES["bench"]).uniform("cpu")
+    r = mb.BonsaiRenderer(get_bonsai(32), "cpu")
+    render, pack = mb.build_renderer(get_bonsai(32), "cpu")
+    with profiler.recording() as rec:
+        r(u, 16, 12, 32)
+        render(pack, u, 16, 12, 32)
+    assert "k1.inline_rays" not in rec.counters
+
+
+@pytest.mark.gpu
+def test_inline_rays_counter_on_gpu(cuda_device):
+    """On a card every exact frame call, captured or replayed, adds views x
+    width x height to ``k1.inline_rays``."""
+    r = mb.BonsaiRenderer(get_bonsai(64), cuda_device)
+    u = Camera(aspect=1.0, **POSES["bench"]).uniform(cuda_device)
+    batch = _frame_uniform("batch", 1.0, cuda_device)
+    with profiler.recording() as rec:
+        r(u, 40, 24)
+        r(u, 40, 24)
+        r(batch, 40, 24)
+    assert rec.counters["k1.inline_rays"] == (2 + len(batch)) * 40 * 24
+
+
+def _plane_frame(vol, u, w, h, max_steps, srgb):
+    """The eager frame of the ray planes: rays_fragment_soa's torch ops, then
+    K1 over the planes."""
+    eye, dxyz = geometry.rays_fragment_soa(u, w, h)
+    return mb.render_bonsai_rays_cuda(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(1024, 1024), (1280, 720), (97, 61)],
+                         ids=["1024x1024", "1280x720", "97x61"])
+def test_inline_frame_is_bitwise_the_plane_frame_on_gpu(cuda_device, size):
+    """K1 making its own rays gives the eager plane path's frame bit for bit,
+    at every pose, in sRGB and linear, at two step counts (partial 16x8
+    blocks on both axes at 97x61)."""
+    w, h = size
+    vol = mb.volume_tensor(get_bonsai(), cuda_device)
+    for pose in sorted(POSES):
+        u = Camera(aspect=w / h, **POSES[pose]).uniform(cuda_device)
+        for srgb in (True, False):
+            for steps in (reference.MAX_STEPS_BONSAI, 100):
+                want = _plane_frame(vol, u, w, h, steps, srgb)
+                got = mb.render_bonsai_frame_cuda(vol, u, w, h, steps, srgb)
+                assert tuple(got.shape) == (h, w, 4)
+                assert torch.equal(got, want), (pose, srgb, steps,
+                                                float((got - want).abs().max()))
+                assert torch.equal(mb.render_frame(vol, u, w, h, steps, srgb), got)
+        assert float(got[..., :3].max()) > 0.1
+
+
+@pytest.mark.gpu
+def test_inline_frame_batch_is_bitwise_on_gpu(cuda_device):
+    """A batch of 8 orbit views at 512^2 in one launch of the frame wrapper
+    is the eager plane path's batch bit for bit, and each view its own
+    single-view frame."""
+    from vokselis_torch.parallel import orbit_camera_batch
+
+    vol = mb.volume_tensor(get_bonsai(), cuda_device)
+    u = orbit_camera_batch(8, device=cuda_device)
+    before = mb.LAUNCHES_FRAME
+    got = mb.render_bonsai_frame_cuda(vol, u, 512, 512)
+    assert mb.LAUNCHES_FRAME == before + 1 and tuple(got.shape) == (8, 512, 512, 4)
+    assert torch.equal(got, _plane_frame(vol, u, 512, 512, reference.MAX_STEPS_BONSAI, True))
+    for v in range(8):
+        assert torch.equal(got[v], mb.render_bonsai_frame_cuda(vol, u[v], 512, 512)), v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["single", "batch"])
+def test_renderer_graph_holds_k1_alone_on_gpu(cuda_device, kind):
+    """The renderer's captured frame is one kernel node, K1: no elementwise
+    ray kernel is left in front of it."""
+    r = mb.BonsaiRenderer(get_bonsai(64), cuda_device)
+    u = _frame_uniform(kind, 64 / 48, cuda_device)
+    first = r(u, 64, 48)
+    graph = r.compiled.graph(r.compiled.keys()[-1])
+    names = profiler._node_names(profiler._driver(), ctypes.c_void_p(graph.raw_cuda_graph()))
+    assert len(names) == 1 and profiler.kernel_name_matches(names[0], "march_bonsai_kernel"), \
+        names
+    assert torch.equal(r(u, 64, 48), first)

@@ -44,6 +44,24 @@
 // The skip changes no bit (march_ray). Shared memory staging and TMA are
 // later work.
 //
+// Rays: the renderer's frames (vk_march_bonsai_frame, K1 with INLINE_RAYS)
+// make each pixel's fragment ray in the kernel from the view's inverse
+// proj*view and eye, instead of reading three (H, W) direction planes that
+// torch wrote (vk_march_bonsai, kept for callers that hand in rays). The
+// thread repeats geometry.rays_fragment_soa's float32 operations in its
+// order, each rounded as its eager torch op rounds on the card, so that the
+// ray (and so the frame) is bitwise the plane path's: the far-plane
+// unprojection turns one ulp of its inputs into ~1e4 ulp of the direction.
+//   ndc_x = (2 * (ix + 0.5)) * inv_w - 1, ndc_y = 1 - (2 * (iy + 0.5)) * inv_h,
+//     inv_w = 1.0f / W rounded once on the host (PyTorch's CUDA division by a
+//     Python int multiplies by that reciprocal; for a whole W it is also the
+//     double quotient rounded to float);
+//   near/far row i = ((m[i][0] * ndc_x + m[i][1] * ndc_y) + m[i][2] * z) + m[i][3]
+//     (mat4_apply: one op each, the z = 0 product kept for its signed zero);
+//   d = far.xyz / far.w - near.xyz / near.w (IEEE divisions);
+//   d *= 1.0f / sqrtf((dx * dx + dy * dy) + dz * dz) (sqrt and reciprocal
+//     correctly rounded, as torch.sqrt and Tensor.__rtruediv__ are).
+//
 // K2 (march_tiles_kernel below) replaces the hybrid renderer's re-march,
 // vokselis_tpu/ops/pallas/march_bonsai.py:_march_kernel_ids_into (launched by
 // render_bonsai_tiles_into), and in its compact mode K1b, _march_kernel_ids
@@ -258,22 +276,52 @@ __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
   return make_float3(r, g, b);
 }
 
+// The fragment-path ray of pixel (ix, iy) through the row-major 4x4 inverse
+// proj*view m, normalized: geometry.rays_fragment_soa's operations in its
+// order (see the header's Rays note).
+__device__ __forceinline__ float3 fragment_ray(const float* __restrict__ m, int ix, int iy,
+                                               float inv_w, float inv_h) {
+  const float ndc_x = 2.0f * ((float)ix + 0.5f) * inv_w - 1.0f;
+  const float ndc_y = 1.0f - 2.0f * ((float)iy + 0.5f) * inv_h;
+  float near[4], far[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float xy = __ldg(m + 4 * i) * ndc_x + __ldg(m + 4 * i + 1) * ndc_y;
+    const float m2 = __ldg(m + 4 * i + 2), m3 = __ldg(m + 4 * i + 3);
+    // z = 0 (near) or 1 (far), w = 1: a product by 1 is exact, one by 0 signs its zero
+    near[i] = (xy + m2 * 0.0f) + m3;
+    far[i] = (xy + m2) + m3;
+  }
+  const float dx = far[0] / far[3] - near[0] / near[3];
+  const float dy = far[1] / far[3] - near[1] / near[3];
+  const float dz = far[2] / far[3] - near[2] / near[3];
+  const float inv_len = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+  return make_float3(dx * inv_len, dy * inv_len, dz * inv_len);
+}
+
+// K1. INLINE_RAYS: view v's ray is made here from inv_proj[16 v ..] and its
+// eye read from view_position at 4 v (dx/dy/dz unused); else the ray is read
+// from the dx/dy/dz planes and the eye at 3 v (inv_proj unused). One march
+// loop either way.
+template <bool INLINE_RAYS>
 __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
     march_bonsai_kernel(const uint8_t* __restrict__ vol, const uint8_t* __restrict__ occ,
                         int dims,
                         const float* __restrict__ dxs, const float* __restrict__ dys,
-                        const float* __restrict__ dzs, const float* __restrict__ eye,
-                        int height, int width, int max_steps, int srgb,
-                        float* __restrict__ out) {
+                        const float* __restrict__ dzs, const float* __restrict__ inv_proj,
+                        const float* __restrict__ eye, int height, int width, float inv_w,
+                        float inv_h, int max_steps, int srgb, float* __restrict__ out) {
   const int ix = blockIdx.x * BLOCK_X + threadIdx.x;
   const int iy = blockIdx.y * BLOCK_Y + threadIdx.y;
   if (ix >= width || iy >= height) return;
-  // view blockIdx.z of the batch: its eye, ray planes and output frame
+  // view blockIdx.z of the batch: its eye, its rays and its output frame
   const size_t v = blockIdx.z;
-  const float* e = eye + 3 * v;
+  const float* e = eye + (INLINE_RAYS ? 4 : 3) * v;
   const size_t pix = v * height * width + (size_t)iy * width + ix;
-  float3 c = march_ray<false>(vol, occ, dims, __ldg(e), __ldg(e + 1), __ldg(e + 2),
-                              dxs[pix], dys[pix], dzs[pix], max_steps);
+  const float3 d = INLINE_RAYS ? fragment_ray(inv_proj + 16 * v, ix, iy, inv_w, inv_h)
+                               : make_float3(dxs[pix], dys[pix], dzs[pix]);
+  float3 c = march_ray<false>(vol, occ, dims, __ldg(e), __ldg(e + 1), __ldg(e + 2), d.x, d.y,
+                              d.z, max_steps);
   if (srgb) {
     c.x = linear_to_srgb(c.x);
     c.y = linear_to_srgb(c.y);
@@ -281,6 +329,26 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
   }
   float4 o = make_float4(c.x, c.y, c.z, 1.0f);
   reinterpret_cast<float4*>(out)[pix] = o;
+}
+
+template <bool INLINE_RAYS>
+int launch_march(const void* vol, const void* occ, int dims, const void* dx, const void* dy,
+                 const void* dz, const void* inv_proj, const void* eye, int n_views,
+                 int height, int width, int max_steps, int srgb, void* out, int device,
+                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_views <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
+  if (n_views > 65535) return (int)cudaErrorInvalidValue;
+  // the reciprocals PyTorch's CUDA division by a Python scalar multiplies by
+  const float inv_w = 1.0f / (float)width, inv_h = 1.0f / (float)height;
+  const dim3 block(BLOCK_X, BLOCK_Y);
+  const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y, n_views);
+  march_bonsai_kernel<INLINE_RAYS><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)vol, (const uint8_t*)occ, dims, (const float*)dx, (const float*)dy,
+      (const float*)dz, (const float*)inv_proj, (const float*)eye, height, width, inv_w, inv_h,
+      max_steps, srgb, (float*)out);
+  return (int)cudaGetLastError();
 }
 
 // K2 and K1b: the march over listed units of TILE x TILE screen tiles (unit p
@@ -351,16 +419,20 @@ const char* vk_cuda_error_string(int err) {
 int vk_march_bonsai(const void* vol, const void* occ, int dims, const void* dx, const void* dy,
                     const void* dz, const void* eye, int n_views, int height, int width,
                     int max_steps, int srgb, void* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_views <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
-  if (n_views > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 block(BLOCK_X, BLOCK_Y);
-  const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y, n_views);
-  march_bonsai_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)vol, (const uint8_t*)occ, dims, (const float*)dx, (const float*)dy,
-      (const float*)dz, (const float*)eye, height, width, max_steps, srgb, (float*)out);
-  return (int)cudaGetLastError();
+  return launch_march<false>(vol, occ, dims, dx, dy, dz, nullptr, eye, n_views, height, width,
+                             max_steps, srgb, out, device, stream);
+}
+
+// The march of n_views whole frames with each pixel's ray made in the kernel
+// (K1 with INLINE_RAYS), as vk_march_bonsai marches geometry.rays_fragment_soa's
+// rays, bit for bit. inv_proj: n_views * 16 float32 (each view's row-major
+// inverse proj*view); view_position: n_views * 4 float32 (eye xyz, 1); the
+// rest as vk_march_bonsai.
+int vk_march_bonsai_frame(const void* vol, const void* occ, int dims, const void* inv_proj,
+                          const void* view_position, int n_views, int height, int width,
+                          int max_steps, int srgb, void* out, int device, void* stream) {
+  return launch_march<true>(vol, occ, dims, nullptr, nullptr, nullptr, inv_proj, view_position,
+                            n_views, height, width, max_steps, srgb, out, device, stream);
 }
 
 // K2 (compact == 0) or K1b (compact != 0) on `stream`; returns the launch's

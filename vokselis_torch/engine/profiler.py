@@ -17,7 +17,10 @@
   a card, CUDA activities, written as a Chrome trace.
 - :func:`kernel_launches` counts the kernels a call ran on the card by
   name, from such a trace: a replayed CUDA graph calls no launch wrapper,
-  so its kernels are counted here.
+  so its kernels are counted here. A new session can lose its first few
+  device records (up to ten seen on an H100, in a process that traced
+  before), so :func:`device_events` spends them on small kernels of its own
+  before the call and keeps only the records that follow.
 - :func:`graph_kernels` counts the kernel nodes of a captured CUDA graph by
   name, read through the CUDA driver: what each replay of it launches,
   whatever a trace recorded. CUPTI has returned a session with no device
@@ -292,20 +295,42 @@ def trace(logdir: str | None = None):
     print(f"profiler trace written to {prof.trace_path}")
 
 
+# device_events' settling: kernels run before the call, then a pause longer
+# than the skew seen between device and host timestamps (~0.1 ms)
+SETTLE_KERNELS = 32
+SETTLE_PAUSE_S = 0.002
+_TRACED = "profiler.traced"
+
+
 def device_events(fn):
     """Run ``fn()`` under ``torch.profiler`` (CPU and, with a card, CUDA
     activities; the card synchronized before the trace ends) and return
     ``(fn's result, [the names of the trace's device events])``: kernels,
-    those of replayed CUDA graphs included, and copies."""
+    those of replayed CUDA graphs included, and copies. With a card the
+    session first runs :data:`SETTLE_KERNELS` small kernels, which take the
+    records a new session may lose, and pauses; only device events that
+    start after the pause, inside a range around ``fn()``, are returned."""
+    cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
-        out = fn()
-        if torch.cuda.is_available():
+        if cuda:
+            x = torch.zeros((), device="cuda")
+            for _ in range(SETTLE_KERNELS):
+                x.add_(1.0)
             torch.cuda.synchronize()
-    return out, [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+            time.sleep(SETTLE_PAUSE_S)
+        with torch.profiler.record_function(_TRACED):
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize()
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events
+             if e.name == _TRACED and e.device_type == torch.autograd.DeviceType.CPU)
+    return out, [e.name for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.name != _TRACED
+                 and e.time_range.start >= t0]
 
 
 def count_kernels(event_names, names) -> dict:

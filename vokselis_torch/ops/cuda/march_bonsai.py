@@ -10,15 +10,18 @@ with a plain C interface at first use on a CUDA device, into
 ``build/vokselis_torch/`` under the checkout, and loaded with ``ctypes``.
 Importing this module builds nothing.
 
-:func:`render_bonsai_rays_cuda`, :func:`render_bonsai_tiles_into` and
-:func:`render_bonsai_tiles` launch their kernel for CUDA tensors and use
-their plain versions (built on
+:func:`render_bonsai_frame_cuda`, :func:`render_bonsai_rays_cuda`,
+:func:`render_bonsai_tiles_into` and :func:`render_bonsai_tiles` launch
+their kernel for CUDA tensors and use their plain versions (built on
 :func:`vokselis_torch.ops.reference.render_bonsai_rays`) only for tensors
 that lie on the CPU. A failed build or launch raises; there is no fallback.
+The frame wrapper takes a camera uniform, and K1 makes each pixel's ray
+from it; the rays wrapper takes ray planes that the caller made.
 
-``LAUNCHES``, ``LAUNCHES_TILES`` and ``LAUNCHES_TILES_COMPACT`` count the
-kernels' launches (one per successful launch, and nowhere else), so that a
-run can show its frames went through the kernels.
+``LAUNCHES_FRAME``, ``LAUNCHES``, ``LAUNCHES_TILES`` and
+``LAUNCHES_TILES_COMPACT`` count the kernels' launches (one per successful
+launch, and nowhere else), so that a run can show its frames went through
+the kernels.
 
 The kernels skip empty space exactly: :func:`occupancy_table` holds each
 8^3 cell's largest voxel, and a step whose lower taps lie in a cell with no
@@ -38,6 +41,7 @@ import torch
 
 from vokselis_torch.core import geometry
 from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.engine.profiler import count
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
@@ -54,6 +58,7 @@ OCC_CUT = 25
 # K1's views a launch: the grid's z extent
 MAX_VIEWS = 65535
 
+LAUNCHES_FRAME = 0
 LAUNCHES = 0
 LAUNCHES_TILES = 0
 LAUNCHES_TILES_COMPACT = 0
@@ -72,6 +77,8 @@ def build() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vk_march_bonsai.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, p, i, p]
     lib.vk_march_bonsai.restype = i
+    lib.vk_march_bonsai_frame.argtypes = [p, p, i, p, p, i, i, i, i, i, p, i, p]
+    lib.vk_march_bonsai_frame.restype = i
     lib.vk_march_tiles.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, p]
     lib.vk_march_tiles.restype = i
     _lib = lib
@@ -135,9 +142,10 @@ def volume_occupancy(vol) -> torch.Tensor:
     return occ
 
 
-def _check_inputs(vol, eye, dx, dy, dz, max_steps):
-    tensors = {"vol": vol, "eye": eye, "dx": dx, "dy": dy, "dz": dz}
-    for name, t in tensors.items():
+def _check_tensors(vol, tensors):
+    """``vol`` and the named ``tensors``: tensors, contiguous, on vol's
+    device (the CPU or a card); vol a cubic uint8 volume."""
+    for name, t in {"vol": vol, **tensors}.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
         if t.device != vol.device:
@@ -150,6 +158,15 @@ def _check_inputs(vol, eye, dx, dy, dz, max_steps):
         raise TypeError(f"vol must be uint8, got {vol.dtype}")
     if vol.ndim != 3 or len(set(vol.shape)) != 1:
         raise ValueError(f"vol must be a cubic (D, D, D) volume, got {tuple(vol.shape)}")
+
+
+def _check_max_steps(max_steps):
+    if not isinstance(max_steps, int) or max_steps < 0:
+        raise ValueError(f"max_steps must be a non-negative int, got {max_steps!r}")
+
+
+def _check_inputs(vol, eye, dx, dy, dz, max_steps):
+    _check_tensors(vol, {"eye": eye, "dx": dx, "dy": dy, "dz": dz})
     if eye.dtype != torch.float32 or eye.ndim not in (1, 2) or eye.shape[-1] != 3:
         raise TypeError("eye must be a (3,) or (V, 3) float32 tensor, got "
                         f"{eye.dtype} {tuple(eye.shape)}")
@@ -162,8 +179,64 @@ def _check_inputs(vol, eye, dx, dy, dz, max_steps):
         if t.shape != dx.shape or tuple(t.shape[:-2]) != views or t.ndim != len(views) + 2:
             raise ValueError(f"{name} must be (H, W) for a (3,) eye, (V, H, W) for a (V, 3) "
                              f"one, like dx, got {tuple(t.shape)} for eye {tuple(eye.shape)}")
-    if not isinstance(max_steps, int) or max_steps < 0:
-        raise ValueError(f"max_steps must be a non-negative int, got {max_steps!r}")
+    _check_max_steps(max_steps)
+
+
+def _check_frame(vol, camera_uniform, width, height, max_steps):
+    """The frame wrapper's inputs; returns the uniform's ``(inv_proj,
+    view_position)``: (4, 4) and (4,), or (V, 4, 4) and (V, 4)."""
+    inv, pos = camera_uniform.inv_proj, camera_uniform.view_position
+    _check_tensors(vol, {"inv_proj": inv, "view_position": pos})
+    for name, t in (("inv_proj", inv), ("view_position", pos)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if inv.ndim not in (2, 3) or tuple(inv.shape[-2:]) != (4, 4):
+        raise ValueError(f"inv_proj must be (4, 4) or (V, 4, 4), got {tuple(inv.shape)}")
+    views = tuple(inv.shape[:-2])
+    if tuple(pos.shape) != views + (4,):
+        raise ValueError(f"view_position must be {views + (4,)} for inv_proj "
+                         f"{tuple(inv.shape)}, got {tuple(pos.shape)}")
+    if views and not 1 <= views[0] <= MAX_VIEWS:
+        raise ValueError(f"a batch holds 1 to {MAX_VIEWS} views, got {views[0]}")
+    for name, n in (("width", width), ("height", height)):
+        if not isinstance(n, (int, np.integer)) or n < 1:
+            raise ValueError(f"{name} must be a positive int, got {n!r}")
+    _check_max_steps(max_steps)
+    return inv, pos
+
+
+@torch.no_grad()
+def render_bonsai_frame_cuda(vol, camera_uniform, width: int, height: int,
+                             max_steps: int = MAX_STEPS_BONSAI, srgb: bool = True):
+    """The exact frame of ``camera_uniform`` in one K1 launch whose threads
+    make their own fragment rays: each pixel's ray is
+    :func:`geometry.rays_fragment_soa`'s, bit for bit, made from the view's
+    ``inv_proj`` and ``view_position`` without any ray plane in memory.
+
+    ``vol``: (D, D, D) uint8 [z, y, x]; ``camera_uniform``: one view
+    (``inv_proj`` (4, 4), ``view_position`` (4,)) or a batch of V views
+    ((V, 4, 4), (V, 4)), float32, contiguous, on the volume's device.
+    Returns the (height, width, 4), or (V, height, width, 4), float32 image
+    as :func:`render_bonsai_rays_cuda` returns it for those rays. CPU
+    tensors take the plain frame: :func:`geometry.rays_fragment_soa`, then
+    :func:`render_bonsai_rays_cuda`'s plain march."""
+    global LAUNCHES_FRAME
+    inv, pos = _check_frame(vol, camera_uniform, width, height, max_steps)
+    if vol.device.type == "cpu":
+        eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
+        return render_bonsai_rays_cuda(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
+    occ = volume_occupancy(vol)
+    lib = build()
+    views = tuple(inv.shape[:-2])
+    out = torch.empty(views + (height, width, 4), dtype=torch.float32, device=vol.device)
+    err = lib.vk_march_bonsai_frame(
+        vol.data_ptr(), occ.data_ptr(), vol.shape[0], inv.data_ptr(), pos.data_ptr(),
+        views[0] if views else 1, int(height), int(width), max_steps, int(srgb), out.data_ptr(),
+        vol.device.index, torch.cuda.current_stream(vol.device).cuda_stream,
+    )
+    check_launch(lib, err, "march_bonsai_frame")
+    LAUNCHES_FRAME += 1
+    return out
 
 
 @torch.no_grad()
@@ -411,21 +484,24 @@ def volume_tensor(vol_u8, device) -> torch.Tensor:
 def render_frame(vol, camera_uniform, width: int, height: int,
                  max_steps: int = MAX_STEPS_BONSAI, srgb: bool = True):
     """The exact frame, eagerly (the JAX package's ``_render_bonsai_pallas``
-    un-jitted): :func:`geometry.rays_fragment_soa`, then
-    :func:`render_bonsai_rays_cuda` (one K1 launch on a card, for every view
-    of a batched uniform). :class:`BonsaiRenderer` and
-    :func:`build_renderer` replay it from a CUDA graph; this is the frame
-    they are held to."""
-    eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
-    return render_bonsai_rays_cuda(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
+    un-jitted): :func:`render_bonsai_frame_cuda`, on a card one K1 launch
+    for every view of the uniform, its threads making their own rays.
+    :class:`BonsaiRenderer` and :func:`build_renderer` replay it from a CUDA
+    graph; this is the frame they are held to."""
+    return render_bonsai_frame_cuda(vol, camera_uniform, width, height, max_steps, srgb)
 
 
 def _exact_frame(vol, compiled, camera_uniform, width, height, max_steps, srgb):
     """:func:`render_frame` of ``vol`` through ``compiled``, one graph per
-    ``(width, height, max_steps, srgb)`` and uniform shape."""
+    ``(width, height, max_steps, srgb)`` and uniform shape. On a card each
+    call adds the rays K1 makes itself, views x width x height, to the
+    counter ``k1.inline_rays`` of an active ``profiler.recording()``."""
     def fn(u):
         return render_frame(vol, u, width, height, max_steps, srgb)
 
+    if vol.is_cuda:
+        views = len(camera_uniform) if camera_uniform.batched else 1
+        count("k1.inline_rays", views * width * height)
     return compiled(("exact", width, height, max_steps, bool(srgb)), fn, (camera_uniform,),
                     reads=vol)
 
