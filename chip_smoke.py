@@ -63,7 +63,7 @@ Phases, each reported on its own lines:
      and 100^3, t = 0, 1.25 and +-pi/2 (sin t = +-1), equal (test_pallas.py's
      K9 tolerances printed beside);
   (the renderers, present and the demos' frames replay CUDA graphs, one per
-  static key (vokselis_torch/engine/compiled.py): a replay calls no kernel
+  static key (vokselis_torch/core/compiled.py): a replay calls no kernel
   wrapper, so phases 3-4m require each path kernel's wrapper, and no other,
   to have counted launches (the graph's warm-up and capture), and phase 4n
   runs each of those paths again under a torch.profiler trace, which counts
@@ -146,7 +146,7 @@ Phases, each reported on its own lines:
      gathered, render_frame_tiled at 1024^2 (bench pose) and
      multi_view_step; every view bitwise equal to the single-device
      batched render and to single-view K1 calls on the same uniforms, the
-     frame to a K1 call, overflow 0. The compiled steps (one CUDA graph per
+     frame to a K1 call. The compiled steps (one CUDA graph per
      key, NCCL collectives inside): render_views_sharded gathered and not,
      multi_view_step with a stable renderer (3 batches of views each),
      render_frame_tiled with a stable ray renderer (3 poses at 1024^2) and
@@ -1475,10 +1475,10 @@ def main() -> int:
           f"the "
           f"bench pose {bench_route}, lit pixels {hlit:.4f}", flush=True)
     pair = hy._pair_mode(hyb_r.dims, RES, RES)
-    img_k, _, ids_k = hy._render_hybrid(hyb_r.packs, hyb_r.vol, u_last, hyb_r.thresh, RES,
-                                        RES, ii_last, b_last, True, pair=pair)
-    img_p, _, ids_p = hy._render_hybrid(hyb_r.packs, hyb_r.vol, u_last, hyb_r.thresh, RES,
-                                        RES, ii_last, b_last, True, pair=pair, plain=True)
+    img_k, ids_k = hy._render_hybrid(hyb_r.packs, hyb_r.vol, u_last, hyb_r.thresh, RES,
+                                     RES, ii_last, b_last, True, pair=pair)
+    img_p, ids_p = hy._render_hybrid(hyb_r.packs, hyb_r.vol, u_last, hyb_r.thresh, RES,
+                                     RES, ii_last, b_last, True, pair=pair, plain=True)
     tpu = 2 if pair else 1
     sentinel = ny * nx // tpu
     sel_k, sel_p = set(ids_k.tolist()) - {sentinel}, set(ids_p.tolist()) - {sentinel}
@@ -1597,7 +1597,7 @@ def main() -> int:
     frender, fpack = orb.hybrid.functional()
     forced = {}
     for i in orbit_frames.degenerate:
-        img_f, _, deg = frender(fpack, orb.poses[i], ow, oh)
+        img_f, deg = frender(fpack, orb.poses[i], ow, oh)
         forced[i] = (float((img_f - orbit_frames.exact[i])[..., :3].abs().mean()), bool(deg))
     # every hybrid pose's units in the partial last tile row, and the worst
     # hybrid pose's frame against the plain hybrid path, as phase 4d
@@ -1613,13 +1613,13 @@ def main() -> int:
 
     last_row = {}
     for i in hyb_idx:
-        img_i, _, ids_i = hybrid_path(i)
+        img_i, ids_i = hybrid_path(i)
         sel = set(ids_i.tolist()) - {sentinel4}
         last_row[i] = sum(u * tpu4 // tx4 == ty4 - 1 for u in sel)
         if i == worst_hyb:
             img_k, sel_k = img_i, sel
     del img_i
-    img_p, _, ids_p = hybrid_path(worst_hyb, plain=True)
+    img_p, ids_p = hybrid_path(worst_hyb, plain=True)
     sel_p = set(ids_p.tolist()) - {sentinel4}
     both = hy.unit_pixel_mask(torch.tensor(sorted(sel_k & sel_p), dtype=torch.int32,
                                            device=dev), tpu4, ow, oh)
@@ -2542,11 +2542,10 @@ def main() -> int:
         device) and device copies, and the replay's device copies less its
         ``own`` (the inputs' copies into the graph and the outputs' copies
         out): what is left are the graph's copy nodes (at world 1 NCCL's
-        all-gather is one cudaMemcpyAsync, captured as a node; its in-place
-        all-reduce runs nothing). CUPTI now and then hands back a trace with
-        no device record at all (as traced_replays): a replay, which calls no
-        wrapper and captures nothing, is then traced again, at most three
-        times."""
+        all-gather is one cudaMemcpyAsync, captured as a node). CUPTI now
+        and then hands back a trace with no device record at all (as
+        traced_replays): a replay, which calls no wrapper and captures
+        nothing, is then traced again, at most three times."""
         ev_e = device_events(eager)
         for _ in range(3):
             ev_r = device_events(replay)
@@ -2614,16 +2613,16 @@ def main() -> int:
             check(sharding.mesh_device(mesh) == dev, f"mesh device {sharding.mesh_device(mesh)}")
             render, pack = sharding.build_default_renderer(vol_bonsai, dev)
             cams = sharding.orbit_camera_batch(VIEWS, device=dev)
-            ray_renderer = sharding.build_ray_renderer(vol_bonsai, dev, with_overflow=True)
+            ray_renderer = sharding.build_ray_renderer(vol_bonsai, dev)
             bench_u = bench.uniform(dev)
             reset_launches()
             t0 = time.perf_counter()
             views_img = sharding.render_views_sharded(mesh, render, pack, cams, VIEW_RES,
                                                       VIEW_RES, max_steps=MAX_STEPS_BONSAI,
                                                       gather=True)
-            tiled_img, ovf = sharding.render_frame_tiled(
+            tiled_img = sharding.render_frame_tiled(
                 mesh, None, bench_u, RES, RES, max_steps=MAX_STEPS_BONSAI,
-                renderer=ray_renderer, with_overflow=True)
+                renderer=ray_renderer)
             step_img = sharding.multi_view_step(mesh, vol_bonsai, VIEWS, VIEW_RES, VIEW_RES,
                                                 max_steps=MAX_STEPS_BONSAI, gather=True)
             torch.cuda.synchronize()
@@ -2645,8 +2644,7 @@ def main() -> int:
             views_equal = sum(bool(torch.equal(views_img[i], singles[i])) for i in range(VIEWS))
             check(views_equal == VIEWS, f"only {views_equal}/{VIEWS} sharded views equal K1's")
             check(torch.equal(step_img, views_img), "multi_view_step differs from the views")
-            check(torch.equal(tiled_img, frame_k1) and int(ovf) == 0,
-                  f"row-sharded frame differs from K1's (overflow {int(ovf)})")
+            check(torch.equal(tiled_img, frame_k1), "row-sharded frame differs from K1's")
             v_lit = min(float((im[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
                         for im in views_img)
             check(bool(torch.isfinite(views_img).all()) and v_lit > 0.01,
@@ -2656,7 +2654,6 @@ def main() -> int:
             # the replays: each entry's graph (the first calls above captured
             # the gathered views' and the frame's; the local views' and the
             # mesh's config-5 batch capture here) at three inputs
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
             batches = [cams, orbit_batch(0.05), orbit_batch(0.1)]
             sharding.render_views_sharded(mesh, render, pack, cams, VIEW_RES, VIEW_RES,
                                           max_steps=MAX_STEPS_BONSAI)
@@ -2697,15 +2694,15 @@ def main() -> int:
                            for kw in COMPILED_POSES.values()]
             calls = [(lambda u=u: sharding.render_frame_tiled(
                           mesh, None, u, RES, RES, max_steps=MAX_STEPS_BONSAI,
-                          renderer=ray_renderer, with_overflow=True),
+                          renderer=ray_renderer),
                       lambda u=u: sharding.frame_tiled_step(
-                          mesh, *ray_renderer, u, RES, RES, MAX_STEPS_BONSAI, True),
-                      lambda u=u: (mb.render_bonsai_rays_cuda(
-                          vol_bonsai, *geometry.rays_fragment_soa(u, RES, RES)), zero))
+                          mesh, *ray_renderer, u, RES, RES, MAX_STEPS_BONSAI),
+                      lambda u=u: mb.render_bonsai_rays_cuda(
+                          vol_bonsai, *geometry.rays_fragment_soa(u, RES, RES)))
                      for u in tiled_poses]
             hold_sharded(f"render_frame_tiled, a stable renderer ({RES}^2, 3 poses)",
                          sharding.TILED_STEPS, 1, calls,
-                         graph_work(calls[0][1], calls[0][0], 3 + 2), ["nccl:_all_gather_base"],
+                         graph_work(calls[0][1], calls[0][0], 3 + 1), ["nccl:_all_gather_base"],
                          K1=1)
 
             def t5(b):
@@ -2724,7 +2721,7 @@ def main() -> int:
             # eager step) against the single-device batch and the same views
             # one by one; the row-sharded frame (replayed, and its eager step)
             # against one K1 frame with its rays, and its parts (rays, the
-            # band's march, the all-gather, the overflow all-reduce)
+            # band's march, the all-gather)
             pair_ms = interleaved_ms({
                 "sharded": lambda: sharding.render_views_sharded(
                     mesh, render, pack, cams, VIEW_RES, VIEW_RES, max_steps=MAX_STEPS_BONSAI,
@@ -2737,11 +2734,6 @@ def main() -> int:
                                  for c in cams],
             }, MESH_BATCH_ROUNDS, torch)
             group = mesh.get_group("tiles")
-
-            def all_reduce():
-                ovf_t = torch.full((), 0, dtype=torch.int32, device=dev)
-                dist.all_reduce(ovf_t, group=group)
-
             frame_ms = interleaved_ms({
                 "tiled": lambda: sharding.render_frame_tiled(
                     mesh, None, bench_u, RES, RES, max_steps=MAX_STEPS_BONSAI,
@@ -2754,13 +2746,11 @@ def main() -> int:
                 "march": lambda: ray_renderer[0](ray_renderer[1], eye, dxyz,
                                                  max_steps=MAX_STEPS_BONSAI),
                 "all_gather": lambda: sharding._all_gather(frame_k1, group),
-                "all_reduce": all_reduce,
             }, MESH_FRAME_ROUNDS, torch)
-            # the rounds replayed the keys held, but for the frame without its
-            # overflow count, a key of its own
-            check(sharding.VIEWS_STEPS.captures == 2 and sharding.TILED_STEPS.captures == 2,
+            # the rounds replayed the keys held
+            check(sharding.VIEWS_STEPS.captures == 2 and sharding.TILED_STEPS.captures == 1,
                   f"phase 4h's timing rounds: captures {sharding.VIEWS_STEPS.captures} (views), "
-                  f"{sharding.TILED_STEPS.captures} (frame), not 2 and 2")
+                  f"{sharding.TILED_STEPS.captures} (frame), not 2 and 1")
             first_groups = sharding.mesh_groups(mesh)
             default_group_ok = None
         finally:
@@ -2815,7 +2805,7 @@ def main() -> int:
     del views_img, batched, batch_mesh, frames
     shard_ms, single_ms, loop_ms = pair_ms["sharded"], pair_ms["single"], pair_ms["loop"]
     tiled_ms, one_frame_ms = frame_ms["tiled"], frame_ms["single"]
-    parts = {k: frame_ms[k] for k in ("rays", "march", "all_gather", "all_reduce")}
+    parts = {k: frame_ms[k] for k in ("rays", "march", "all_gather")}
     mesh_times = {"views_sharded_ms": shard_ms, "views_sharded_eager_ms": pair_ms["sharded_eager"],
                   "views_single_ms": single_ms, "views_loop_ms": loop_ms,
                   "frame_tiled_ms": tiled_ms, "frame_tiled_eager_ms": frame_ms["tiled_eager"],
@@ -2825,8 +2815,8 @@ def main() -> int:
           f"{RES}^2 bench pose, multi_view_step {VIEWS} views in {path_s:.2f} s (first calls: "
           f"two captures and one eager step), launches "
           f"{mesh_launches}; the views bitwise equal to the single-device batched render and "
-          f"to single-view K1 calls, the step to the views, the frame to a K1 call, overflow "
-          f"{int(ovf)}, least lit view {v_lit:.4f}; a default-backend group "
+          f"to single-view K1 calls, the step to the views, the frame to a K1 call, "
+          f"least lit view {v_lit:.4f}; a default-backend group "
           f"(get_backend() {default_group_ok!r}) meshes on {dev}, equal to the first mesh, and "
           f"each entry captures again on its groups (captures {recaptures}), its frames the "
           f"first group's; "
@@ -2837,13 +2827,13 @@ def main() -> int:
           f"of {MESH_FRAME_ROUNDS}: row-sharded frame replayed {tiled_ms:.4f} ms, eager "
           f"{frame_ms['tiled_eager']:.4f} ms, vs one K1 frame with "
           f"its rays {one_frame_ms:.4f} ms ({tiled_ms / one_frame_ms:.3f}x); its parts rays "
-          f"{parts['rays']:.4f}, march {parts['march']:.4f}, all_gather {parts['all_gather']:.4f}, "
-          f"all_reduce {parts['all_reduce']:.4f} ms (sum {sum(parts.values()):.4f}); phase "
+          f"{parts['rays']:.4f}, march {parts['march']:.4f}, all_gather {parts['all_gather']:.4f} "
+          f"ms (sum {sum(parts.values()):.4f}); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     print(f"phase 4h json {json.dumps({'times_ms': mesh_times, 'replays': sharded_rows})}",
           flush=True)
 
-    # -- phase 4n: compiled frames (engine/compiled.py) ---------------------
+    # -- phase 4n: compiled frames (core/compiled.py) -----------------------
     # every entry's first call captures one CUDA graph per static key, later
     # calls replay it: each replay (3 poses, the fast frame's m and sgn
     # changing between them, 2 times for xor) bitwise against the eager frame
@@ -2976,7 +2966,7 @@ def main() -> int:
     frender(fpack, ps[0], RES, RES)
     calls = [(lambda u=u: hr_op(u, RES, RES),
               lambda u=u: eager_hybrid(hr_op, u, II_HYBRID, BUDGET_OP)) for u in ps]
-    calls += [(lambda u=u: frender(fpack, u, RES, RES)[::2],
+    calls += [(lambda u=u: frender(fpack, u, RES, RES),
                lambda u=u: (eager_hybrid(hr_op, u, II_HYBRID, BUDGET_OP),
                             shear_warp.traced_degenerate(u, 256))) for u in ps]
     hold(f"hybrid I={II_HYBRID} budget {BUDGET_OP} + functional", hr_op.compiled, 2, calls,

@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from vokselis_torch.core.camera import Camera, CameraUniform
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.models.views import ViewsBatch
 from vokselis_torch.parallel import sharding
 from vokselis_torch.volume.io import get_bonsai
@@ -77,7 +77,7 @@ def cpu_mesh(tmp_path):
 def _pairs(device="cpu"):
     vol = get_bonsai(SIZE)
     return (vol, sharding.build_default_renderer(vol, device),
-            sharding.build_ray_renderer(vol, device, with_overflow=True))
+            sharding.build_ray_renderer(vol, device))
 
 
 def _cams(n, device="cpu", yaw0=0.0):
@@ -121,7 +121,7 @@ def test_views_key_is_the_static_arguments_and_the_batch_size(cpu_mesh):
 
 def test_tiled_key_and_a_fresh_renderer_records_none(cpu_mesh):
     """render_frame_tiled with a stable pair: one key for every pose, another
-    for with_overflow or a new size; with renderer=None the pair is built
+    for a new size; with renderer=None the pair is built
     for the call and nothing is recorded, in render_frame_tiled and in
     multi_view_step (JAX: the fresh closure caches nothing)."""
     vol, (render, pack), rays = _pairs()
@@ -129,14 +129,12 @@ def test_tiled_key_and_a_fresh_renderer_records_none(cpu_mesh):
         sharding.render_frame_tiled(cpu_mesh, None, _pose(i), SIZE, SIZE, max_steps=STEPS,
                                     renderer=rays)
     assert sharding.TILED_STEPS.captures == 1
-    sharding.render_frame_tiled(cpu_mesh, None, _pose(0), SIZE, SIZE, max_steps=STEPS,
-                                renderer=rays, with_overflow=True)
     sharding.render_frame_tiled(cpu_mesh, None, _pose(0), SIZE, SIZE // 2, max_steps=STEPS,
                                 renderer=rays)
-    assert sharding.TILED_STEPS.captures == 3
+    assert sharding.TILED_STEPS.captures == 2
     sharding.render_frame_tiled(cpu_mesh, vol, _pose(1), SIZE, SIZE, max_steps=STEPS)
     sharding.multi_view_step(cpu_mesh, vol, VIEWS, SIZE, SIZE, max_steps=STEPS)
-    assert sharding.TILED_STEPS.captures == 3 and sharding.VIEWS_STEPS.captures == 0
+    assert sharding.TILED_STEPS.captures == 2 and sharding.VIEWS_STEPS.captures == 0
     sharding.multi_view_step(cpu_mesh, vol, VIEWS, SIZE, SIZE, max_steps=STEPS,
                              renderer=(render, pack))
     sharding.multi_view_step(cpu_mesh, vol, VIEWS, SIZE, SIZE, max_steps=STEPS,
@@ -229,8 +227,7 @@ def test_a_destroyed_group_never_matches(tmp_path):
 
 # -- each entry against its eager step ------------------------------------------------------------
 
-@pytest.mark.parametrize("entry", ["views", "views gathered", "tiled", "tiled overflow",
-                                   "multi_view_step"])
+@pytest.mark.parametrize("entry", ["views", "views gathered", "tiled", "multi_view_step"])
 def test_entries_are_their_eager_steps(cpu_mesh, entry):
     """Each entry's output at three poses (or view batches) is bitwise its
     eager step on the same inputs, and one key serves them all."""
@@ -243,21 +240,17 @@ def test_entries_are_their_eager_steps(cpu_mesh, entry):
                                                 STEPS, gather=gather)
             want = sharding.views_sharded_step(cpu_mesh, render, pack, cams, SIZE, SIZE,
                                                STEPS, gather=gather)
-        elif entry.startswith("tiled"):
-            ovf = entry.endswith("overflow")
+        elif entry == "tiled":
             got = sharding.render_frame_tiled(cpu_mesh, None, _pose(i), SIZE, SIZE, STEPS,
-                                              renderer=rays, with_overflow=ovf)
-            want = sharding.frame_tiled_step(cpu_mesh, *rays, _pose(i), SIZE, SIZE, STEPS,
-                                             with_overflow=ovf)
+                                              renderer=rays)
+            want = sharding.frame_tiled_step(cpu_mesh, *rays, _pose(i), SIZE, SIZE, STEPS)
         else:
             got = sharding.multi_view_step(cpu_mesh, vol, VIEWS, SIZE, SIZE, max_steps=STEPS + i,
                                            renderer=(render, pack))
             want = sharding.views_sharded_step(cpu_mesh, render, pack, _cams_orbit(VIEWS), SIZE,
                                                SIZE, STEPS + i, gather=True)
-        for g, w in zip(got if isinstance(got, tuple) else (got,),
-                        want if isinstance(want, tuple) else (want,)):
-            assert torch.equal(g, w)
-    steps = sharding.TILED_STEPS if entry.startswith("tiled") else sharding.VIEWS_STEPS
+        assert torch.equal(got, want)
+    steps = sharding.TILED_STEPS if entry == "tiled" else sharding.VIEWS_STEPS
     assert steps.captures == (3 if entry == "multi_view_step" else 1)
 
 
@@ -330,8 +323,8 @@ def _no_sync(fn):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("entry", ["views", "views gathered", "tiled overflow",
-                                   "multi_view_step", "ViewsBatch"])
+@pytest.mark.parametrize("entry", ["views", "views gathered", "tiled", "multi_view_step",
+                                   "ViewsBatch"])
 def test_replays_are_the_eager_steps_on_gpu(nccl_mesh, entry):
     """The first call captures the step (its collectives inside); replays at
     three poses or batches are bitwise the eager step, make no host sync,
@@ -369,22 +362,16 @@ def test_replays_are_the_eager_steps_on_gpu(nccl_mesh, entry):
 
         def call(i):
             return sharding.render_frame_tiled(nccl_mesh, None, _pose(i, dev), 48, 32, 64,
-                                               renderer=rays, with_overflow=True)
+                                               renderer=rays)
 
         def eager(i):
-            return sharding.frame_tiled_step(nccl_mesh, *rays, _pose(i, dev), 48, 32, 64,
-                                             with_overflow=True)
+            return sharding.frame_tiled_step(nccl_mesh, *rays, _pose(i, dev), 48, 32, 64)
     first = call(0)
-    kept = tuple(t.clone() for t in first) if isinstance(first, tuple) else first.clone()
+    kept = first.clone()
     for i in (1, 2, 0):
         want = eager(i)
-        got = _no_sync(lambda: call(i))
-        for g, w in zip(got if isinstance(got, tuple) else (got,),
-                        want if isinstance(want, tuple) else (want,)):
-            assert torch.equal(g, w)
-    for g, k in zip(first if isinstance(first, tuple) else (first,),
-                    kept if isinstance(kept, tuple) else (kept,)):
-        assert torch.equal(g, k)
+        assert torch.equal(_no_sync(lambda: call(i)), want)
+    assert torch.equal(first, kept)
     assert compiled.captures == 1
 
 
@@ -432,18 +419,15 @@ def _card_rank_main(rank, world, tmp):
                  lambda i: sharding.views_sharded_step(views_mesh, render, pack, batches[i], 48,
                                                        32, 64, gather=True)),
                 ("tiled", lambda i: sharding.render_frame_tiled(
-                    tiles_mesh, None, _pose(i, dev), 48, 32, 64, renderer=rays,
-                    with_overflow=True),
+                    tiles_mesh, None, _pose(i, dev), 48, 32, 64, renderer=rays),
                  lambda i: sharding.frame_tiled_step(tiles_mesh, *rays, _pose(i, dev), 48, 32,
-                                                     64, with_overflow=True))):
+                                                     64))):
             call(0)
             equal = 0
             for i in (1, 2, 0):
                 want = eager(i)
                 got = _no_sync(lambda: call(i))
-                equal += all(torch.equal(g, w) for g, w in
-                             zip(got if isinstance(got, tuple) else (got,),
-                                 want if isinstance(want, tuple) else (want,)))
+                equal += torch.equal(got, want)
             found[name] = equal
         found["captures"] = (sharding.VIEWS_STEPS.captures, sharding.TILED_STEPS.captures)
     finally:

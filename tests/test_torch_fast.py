@@ -121,8 +121,7 @@ def test_polynomial_transfers_match_jax(name):
 @pytest.mark.parametrize("width,height", [(64, 36), (100, 70), (1024, 1024)])
 def test_geometry_helpers_match_jax(width, height):
     """center_ray_dir (the dominant-axis pick's ray) is the JAX package's
-    bit for bit on one uniform; packed_pixel_grid gives the same tile
-    packing."""
+    bit for bit on one uniform."""
     pytest.importorskip("jax")
     from vokselis_tpu.core import geometry as jgeom
     from vokselis_torch.core import geometry
@@ -130,11 +129,6 @@ def test_geometry_helpers_match_jax(width, height):
     ju, u = _jax_uniform("tilt", aspect=width / height)
     np.testing.assert_array_equal(geometry.center_ray_dir(u, width, height).numpy(),
                                   np.asarray(jgeom.center_ray_dir(ju, width, height)))
-    ix, iy = geometry.packed_pixel_grid(width, height, "cpu")
-    jx, jy = jgeom.packed_pixel_grid(width, height)
-    assert ix.dtype == iy.dtype == torch.int32
-    np.testing.assert_array_equal(ix.numpy(), np.asarray(jx))
-    np.testing.assert_array_equal(iy.numpy(), np.asarray(jy))
 
 
 # -- packs and occupancy -----------------------------------------------------
@@ -480,20 +474,6 @@ def test_warp_plain_matches_jax_kernel(monkeypatch, kernel, case):
     finally:
         monkeypatch.undo()
         importlib.reload(w2)
-
-
-def test_warp_overflow_plane_is_zero():
-    """The footprint that overflows the TPU kernel's 16-row window
-    (test_fast.py:271) is sampled exactly here and flags nothing."""
-    rng = np.random.default_rng(3)
-    chans = torch.from_numpy(rng.random((3, 128, 128), dtype=np.float32))
-    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32)
-    av, bu = torch.from_numpy(2.0 * yy + 1.0), torch.from_numpy(xx + 1.0)
-    planes, ovf = warp2d.warp_bilinear(chans, av, bu, with_overflow=True)
-    assert ovf.shape == (32, 32) and float(ovf.abs().max()) == 0.0
-    # integer coordinates: the lookup is the texel itself
-    want = chans[:, 2 * yy.astype(np.int64) + 1, xx.astype(np.int64) + 1]
-    torch.testing.assert_close(planes, want, rtol=0, atol=0)
 
 
 # -- host-side pose classification -------------------------------------------

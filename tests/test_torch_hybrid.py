@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from vokselis_torch.core.camera import Camera, CameraUniform
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.engine.context import Context
 from vokselis_torch.engine.loop import run
 from vokselis_torch.engine.profiler import kernel_launches
@@ -532,7 +532,6 @@ def test_hybrid_full_budget_matches_exact():
     exact = mb.BonsaiRenderer(vol, "cpu")(u, 64, 64)
     assert r.route(u, 64, 64) == ("hybrid", 128, 4)
     assert float((img[..., :3] - exact[..., :3]).abs().max()) < 3e-5
-    assert r.last_overflow == 0
 
 
 @pytest.fixture(scope="module")
@@ -584,7 +583,7 @@ def test_hybrid_matches_jax(hybrid_pair, jax_interp, pose):
     err = np.abs(img.numpy() - ref)
     assert err.max() <= 2e-2, err.max()
     assert err.mean() <= 3e-4, err.mean()
-    _, _, ids = hy._render_hybrid(port.packs, port.vol, u, port.thresh, w, h, 128, 3, True)
+    _, ids = hy._render_hybrid(port.packs, port.vol, u, port.thresh, w, h, 128, 3, True)
     jids = _jax_selected(jax_interp["hy"], jax_r, ju, w, h)
     overlap = len(set(ids.tolist()) & set(jids.tolist()))
     assert overlap >= 2, (ids.tolist(), jids.tolist())
@@ -607,7 +606,7 @@ def test_hybrid_escalation_ladder(monkeypatch):
     def fake_render_hybrid(packs, vol, u, thresh, w, h, ii, budget, srgb, max_steps,
                            pair=False):
         calls["mode"] = ("hybrid", ii, budget)
-        return "img", 0, None
+        return "img", None
 
     def fake_exact(*a, **k):
         calls["mode"] = ("exact",)
@@ -658,7 +657,7 @@ def test_dense_volume_routes_to_exact(monkeypatch):
 
     def fake_render_hybrid(*a, **k):
         calls["mode"] = "hybrid"
-        return "img", 0, None
+        return "img", None
 
     monkeypatch.setattr(hy, "_render_hybrid", fake_render_hybrid)
     dense = hy.HybridBonsaiRenderer(dense_stress(64), "cpu", budget=8)
@@ -669,7 +668,7 @@ def test_dense_volume_routes_to_exact(monkeypatch):
     dense.exact = lambda *a, **k: torch.zeros((2, 2, 4))
     render, pack = dense.functional()
     out = render(pack, None, 64, 64, with_degraded=True)
-    assert out[2].dtype == torch.bool and not bool(out[2])
+    assert out[1].dtype == torch.bool and not bool(out[1])
     sparse = hy.HybridBonsaiRenderer(get_bonsai(64), "cpu", budget=8)
     assert not sparse.dense_fallback and sparse.occ_frac < 0.1
     sparse._call_traced(None, 64, 64, hint=(0, 128, False))
@@ -692,7 +691,7 @@ def test_degraded_flag_unmissable_in_public_apis(monkeypatch):
     assert not bool(deg)
 
     sentinel = object()
-    monkeypatch.setattr(hy, "_render_hybrid", lambda *a, **k: ("img", 7, None))
+    monkeypatch.setattr(hy, "_render_hybrid", lambda *a, **k: ("img", None))
     monkeypatch.setattr(hy, "traced_degenerate", lambda u, d: sentinel)
     render, pack = hy.build_hybrid_renderer(vol, "cpu", budget=8)
     img, deg = render(pack, None, 64, 64)
@@ -700,8 +699,8 @@ def test_degraded_flag_unmissable_in_public_apis(monkeypatch):
     r = hy.HybridBonsaiRenderer(vol, "cpu", budget=8)
     frender, fpack = r.functional()
     out = frender(fpack, None, 64, 64)
-    assert len(out) == 3 and out[2] is sentinel
-    assert len(frender(fpack, None, 64, 64, with_degraded=False)) == 2
+    assert len(out) == 2 and out[1] is sentinel
+    assert frender(fpack, None, 64, 64, with_degraded=False) == "img"
     assert real is not hy._render_hybrid
 
 
@@ -857,7 +856,7 @@ def test_hybrid_frame_launches_on_gpu(cuda_device):
     before = [getattr(mb, n) for n in names] + [
         sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
         warp2d.LAUNCHES_STATS, warp2d.LAUNCHES_WARP]
-    eager, _, _ = hy._render_hybrid(r.packs, r.vol, u, r.thresh, 160, 120, 128, 8, True)
+    eager, _ = hy._render_hybrid(r.packs, r.vol, u, r.thresh, 160, 120, 128, 8, True)
     torch.cuda.synchronize()
     after = [getattr(mb, n) for n in names] + [
         sr.LAUNCHES_RESAMPLE, sr.LAUNCHES_COMPOSITE, sr.LAUNCHES_RESAMPLE_COMPOSITE,
@@ -869,7 +868,7 @@ def test_hybrid_frame_launches_on_gpu(cuda_device):
     img, counts = kernel_launches(lambda: [r(u, 160, 120) for _ in range(3)][-1], kernels)
     assert [counts[k] for k in kernels] == [0, 3, 0, 0, 3, 3, 0]
     assert torch.equal(img, eager)
-    plain, _, _ = hy._render_hybrid(r.packs, r.vol, u, r.thresh, 160, 120, 128, 8, True,
-                                    plain=True)
+    plain, _ = hy._render_hybrid(r.packs, r.vol, u, r.thresh, 160, 120, 128, 8, True,
+                                 plain=True)
     assert img.shape == (120, 160, 4) and bool(torch.isfinite(img).all())
     assert float((img - plain).abs().max()) <= 2e-3

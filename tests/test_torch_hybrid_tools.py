@@ -324,7 +324,7 @@ def test_residual_decay_actual_picks_are_the_hybrids(decay, pose):
     vol = get_bonsai(DIMS)
     u = residual_decay.decay_poses()[pose].uniform("cpu")
     packs = prepare_fast_volume(vol, "cpu")
-    render, pack = build_renderer(vol, "cpu", with_overflow=True)
+    render, pack = build_renderer(vol, "cpu")
     rec, _, picks = residual_decay.decay_pose(packs, render, pack, u, SIZE, II, BUDGETS)
     assert rec == recs[pose]
     _, stats = _render_fast(packs, u, SIZE, SIZE, II, False, return_aux="stats")
@@ -474,10 +474,10 @@ def test_recorded_errors_are_direct_calls(oppoint, pose):
     res, _, _ = oppoint
     vol = get_bonsai(DIMS)
     u = hop.probe_poses()[pose].uniform("cpu")
-    h, _ = hy.HybridBonsaiRenderer(vol, "cpu", intermediate=II, budget=8)._call_traced(
+    h = hy.HybridBonsaiRenderer(vol, "cpu", intermediate=II, budget=8)._call_traced(
         u, SIZE, SIZE)
-    render, pack = build_renderer(vol, "cpu", with_overflow=True)
-    want = round(mean_rgb_err(h, render(pack, u, SIZE, SIZE)[0]), 9)
+    render, pack = build_renderer(vol, "cpu")
+    want = round(mean_rgb_err(h, render(pack, u, SIZE, SIZE)), 9)
     assert res["ladder"][2]["errs"][pose] == want
 
 
@@ -507,7 +507,7 @@ def test_hybrid_contract_in_both_packages():
         jhy = [importlib.reload(importlib.import_module(m)) for m in names][2]
         jax_r = jhy.HybridBonsaiRenderer(vol, intermediate=ii, budget=budget)
         port_r = hy.HybridBonsaiRenderer(vol, "cpu", intermediate=ii, budget=budget)
-        render, pack = build_renderer(vol, "cpu", with_overflow=True)
+        render, pack = build_renderer(vol, "cpu")
         for pose in ("bench", "z1.6-diag"):
             cam = hop.probe_poses()[pose]
             jcam = (JaxCamera.bonsai(1.0) if pose == "bench" else
@@ -517,8 +517,8 @@ def test_hybrid_contract_in_both_packages():
             u = CameraUniform.from_numpy(np.asarray(ju.view_position), np.asarray(ju.proj_view),
                                          np.asarray(ju.inv_proj), "cpu")
             assert port_r.route(u, size, size) == ("hybrid", ii, budget)
-            h, _ = port_r._call_traced(u, size, size)
-            port_err = mean_rgb_err(h, render(pack, u, size, size)[0])
+            h = port_r._call_traced(u, size, size)
+            port_err = mean_rgb_err(h, render(pack, u, size, size))
             jh, _ = jax_r._call_traced(ju, size, size)
             je = np.asarray(jax_render_bonsai(jnp.asarray(vol), ju, width=size, height=size))
             jax_err = float(np.abs(np.asarray(jh)[..., :3] - je[..., :3]).mean())

@@ -127,15 +127,13 @@ def test_plain_march_counts_steps():
 def test_build_renderer_api():
     vol = get_bonsai(32)
     u = Camera(aspect=1.0, **POSES["bench"]).uniform("cpu")
-    render, pack = mb.build_renderer(vol, "cpu", with_overflow=True)
+    render, pack = mb.build_renderer(vol, "cpu")
     assert pack.dtype == torch.uint8 and pack.shape == (32, 32, 32)
-    img, ovf = render(pack, u, 32, 32)
-    assert ovf == 0
+    img = render(pack, u, 32, 32)
     r = mb.BonsaiRenderer(vol, "cpu")
-    torch.testing.assert_close(img, r(u, 32, 32, strict=True), rtol=0, atol=0)
-    assert r.last_overflow == 0
-    render_plain, _ = mb.build_renderer(vol, "cpu")
-    torch.testing.assert_close(render_plain(pack, u, 32, 32), img, rtol=0, atol=0)
+    torch.testing.assert_close(img, r(u, 32, 32), rtol=0, atol=0)
+    render_again, _ = mb.build_renderer(vol, "cpu")
+    torch.testing.assert_close(render_again(pack, u, 32, 32), img, rtol=0, atol=0)
 
 
 def _good_inputs():
@@ -378,10 +376,10 @@ def test_launch_counting_on_gpu(cuda_device):
     graph = r.compiled.graph(r.compiled.keys()[-1])
     assert (mb.LAUNCHES_FRAME, mb.LAUNCHES) == (2, 0) and r.compiled.captures == 1
     assert profiler.graph_kernels(graph, ["march_bonsai_kernel"]) == {"march_bonsai_kernel": 1}
-    render, pack = mb.build_renderer(get_bonsai(64), cuda_device, with_overflow=True)
-    img, ovf = render(pack, u, 40, 24)
+    render, pack = mb.build_renderer(get_bonsai(64), cuda_device)
+    img = render(pack, u, 40, 24)
     torch.cuda.synchronize()
-    assert mb.LAUNCHES_FRAME == 4 and ovf == 0
+    assert mb.LAUNCHES_FRAME == 4
     # a rejected call launches nothing
     eye, (dx, dy, dz) = _rays(Camera(aspect=1.0, **POSES["bench"]), 8, 8, cuda_device)
     with pytest.raises(TypeError):

@@ -195,7 +195,7 @@ def test_orbit_frames_match_jax(jax_interp, size):
         if frames.routes[i][0] != "hybrid":
             assert torch.equal(hyb, exact)
             continue
-        _, _, ids = hy._render_hybrid(orb.hybrid.packs, orb.hybrid.vol, u, orb.hybrid.thresh,
-                                      w, h, II, BUDGET, True)
+        _, ids = hy._render_hybrid(orb.hybrid.packs, orb.hybrid.vol, u, orb.hybrid.thresh,
+                                   w, h, II, BUDGET, True)
         jids = _jax_selected(jhy, jax_r.packs, ju, w, h)
         assert len(set(ids.tolist()) & set(jids.tolist())) >= 2, (ids.tolist(), jids.tolist())

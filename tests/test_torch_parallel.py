@@ -47,7 +47,7 @@ def _rank_main(rank, world, views, tiles, tmp):
         dev = sharding.mesh_device(mesh)
         vol = get_bonsai(SIZE)
         render, pack = sharding.build_default_renderer(vol, dev)
-        rays = sharding.build_ray_renderer(vol, dev, with_overflow=True)
+        rays = sharding.build_ray_renderer(vol, dev)
         cams = sharding.orbit_camera_batch(VIEWS, device=dev)
         cam = Camera.bonsai(1.0).uniform(dev)
         out = {
@@ -58,14 +58,12 @@ def _rank_main(rank, world, views, tiles, tmp):
             "step": sharding.multi_view_step(mesh, vol, n_views=VIEWS, width=SIZE,
                                              height=SIZE, max_steps=4, gather=True),
             "tiled": sharding.render_frame_tiled(mesh, vol, Camera.bonsai(1.0).uniform(dev),
-                                                 width=SIZE, height=SIZE, max_steps=STEPS,
-                                                 with_overflow=True),
+                                                 width=SIZE, height=SIZE, max_steps=STEPS),
             "step_cached": sharding.multi_view_step(mesh, vol, n_views=VIEWS, width=SIZE,
                                                     height=SIZE, max_steps=4, gather=True,
                                                     renderer=(render, pack)),
             "tiled_cached": sharding.render_frame_tiled(mesh, None, cam, width=SIZE, height=SIZE,
-                                                        max_steps=STEPS, renderer=rays,
-                                                        with_overflow=True),
+                                                        max_steps=STEPS, renderer=rays),
             "local_eager": sharding.views_sharded_step(mesh, render, pack, cams, SIZE, SIZE,
                                                        max_steps=STEPS),
             "gathered_eager": sharding.views_sharded_step(mesh, render, pack, cams, SIZE, SIZE,
@@ -73,7 +71,7 @@ def _rank_main(rank, world, views, tiles, tmp):
             "step_eager": sharding.views_sharded_step(mesh, render, pack, cams, SIZE, SIZE,
                                                       max_steps=4, gather=True),
             "tiled_eager": sharding.frame_tiled_step(mesh, *rays, cam, SIZE, SIZE,
-                                                     max_steps=STEPS, with_overflow=True),
+                                                     max_steps=STEPS),
             "keys": (len(sharding.VIEWS_STEPS.keys()), len(sharding.TILED_STEPS.keys())),
             "single": torch.stack([render(pack, c, SIZE, SIZE, STEPS) for c in cams]),
             "frame": render(pack, Camera.bonsai(1.0).uniform(dev), SIZE, SIZE, STEPS),
@@ -126,9 +124,8 @@ def _same_as_eager(out):
     assert torch.equal(out["gathered"], out["gathered_eager"])
     assert torch.equal(out["step_cached"], out["step_eager"])
     assert torch.equal(out["step"], out["step_eager"])
-    for got, want in zip(out["tiled_cached"], out["tiled_eager"]):
-        assert torch.equal(got, want)
-    assert torch.equal(out["tiled"][0], out["tiled_eager"][0])
+    assert torch.equal(out["tiled_cached"], out["tiled_eager"])
+    assert torch.equal(out["tiled"], out["tiled_eager"])
     assert out["keys"] == (3, 1)
 
 
@@ -154,18 +151,16 @@ def test_world8_views_sharded_matches_jax(tmp_path, jax_frames):
         assert torch.equal(out["gathered"], out["single"])
         _close(out["gathered"], jax_frames["views"])
         _close(out["step"], jax_frames["step"])
-        img, ovf = out["tiled"]
-        _close(img, jax_frames["tiled"][1])
-        assert int(ovf) == 0
+        _close(out["tiled"], jax_frames["tiled"][1])
         _same_as_eager(out)
 
 
 def test_world4_views_and_tiles_match_jax(tmp_path, jax_frames):
     """(views=2, tiles=2): ranks along 'tiles' render the same block of 4
     views; gathered views, multi_view_step and the row-sharded frame (two
-    bands of 8 rows) match JAX's within 1e-5 on every rank; the overflow
-    count is 0 (K1 has no window); the banded frame is bitwise the
-    unsharded one; every cached entry is its eager step bitwise."""
+    bands of 8 rows) match JAX's within 1e-5 on every rank; the banded
+    frame is bitwise the unsharded one; every cached entry is its eager
+    step bitwise."""
     outs = _spawn(tmp_path, views=2, tiles=2)
     for r, out in enumerate(outs):
         vr, tr = divmod(r, 2)
@@ -174,10 +169,8 @@ def test_world4_views_and_tiles_match_jax(tmp_path, jax_frames):
         assert torch.equal(out["local"], out["single"][4 * vr:4 * vr + 4])
         _close(out["gathered"], jax_frames["views"])
         _close(out["step"], jax_frames["step"])
-        img, ovf = out["tiled"]
-        _close(img, jax_frames["tiled"][2])
-        assert int(ovf) == 0
-        assert torch.equal(img, out["frame"])  # the bands are the whole frame's rows
+        _close(out["tiled"], jax_frames["tiled"][2])
+        assert torch.equal(out["tiled"], out["frame"])  # the bands are the whole frame's rows
         _same_as_eager(out)
 
 

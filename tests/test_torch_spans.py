@@ -1,4 +1,4 @@
-"""The port's spans and counters (vokselis_torch.engine.profiler: ``span``,
+"""The port's spans and counters (vokselis_torch.utils.spans: ``span``,
 ``count``, ``recording``) in its frame loop, uniforms and compiled frames.
 
 On the CPU the frame loop runs a small seeded volume through the exact
@@ -31,6 +31,7 @@ from vokselis_torch.engine.context import Context
 from vokselis_torch.engine.loop import run
 from vokselis_torch.models.bonsai import BonsaiDemo
 from vokselis_torch.ops.cuda.march_bonsai import BonsaiRenderer
+from vokselis_torch.utils import spans
 
 W = H = 24
 FRAME_SPANS = ("loop.frame", "context.update", "uniforms.global", "uniforms.camera",
@@ -82,7 +83,7 @@ def _run(device, frames, drag=True, record=True):
     if not record:
         run(demo, frames=frames, events=_events(frames, drag), context=ctx, quiet=True)
         return None
-    with profiler.recording() as rec:
+    with spans.recording() as rec:
         run(demo, frames=frames, events=_events(frames, drag), context=ctx, quiet=True)
     return rec
 
@@ -90,22 +91,22 @@ def _run(device, frames, drag=True, record=True):
 def test_frame_spans_nest_as_the_loop_does():
     rec = _run("cpu", 3)
     snap = rec.snapshot()
-    spans = snap["spans"]
-    assert set(FRAME_SPANS) <= set(spans)
-    assert spans["loop.frame"]["n"] == 3 and spans["context.update"]["n"] == 3
-    assert spans["loop.frame"]["parent"] is None
-    assert spans["context.update"]["parent"] == "loop.frame"
-    assert spans["uniforms.global"]["parent"] == "context.update"
-    assert spans["uniforms.camera"]["parent"] == "context.update"
-    assert spans["uniforms.send"]["parent"] == "context.update"
-    for key, s in spans.items():
+    kept = snap["spans"]
+    assert set(FRAME_SPANS) <= set(kept)
+    assert kept["loop.frame"]["n"] == 3 and kept["context.update"]["n"] == 3
+    assert kept["loop.frame"]["parent"] is None
+    assert kept["context.update"]["parent"] == "loop.frame"
+    assert kept["uniforms.global"]["parent"] == "context.update"
+    assert kept["uniforms.camera"]["parent"] == "context.update"
+    assert kept["uniforms.send"]["parent"] == "context.update"
+    for key, s in kept.items():
         assert 0.0 <= s["self_s"] <= s["total_s"], key
         assert 0.0 < s["p95_s"] <= s["total_s"], key
     frames = rec.by_id("loop.frame")
     assert sorted(frames) == [0, 1, 2]
     # a span without an id takes its frame's
     assert sorted(rec.by_id("uniforms.global")) == [0, 1, 2]
-    assert abs(sum(frames.values()) - spans["loop.frame"]["total_s"]) < 1e-9
+    assert abs(sum(frames.values()) - kept["loop.frame"]["total_s"]) < 1e-9
 
 
 @pytest.mark.parametrize("drag, uploads, nbytes", [
@@ -122,24 +123,24 @@ def test_uploads_a_frame(drag, uploads, nbytes):
 
 
 def test_nothing_is_kept_without_a_recording():
-    assert profiler.span("loop.frame") is profiler.NOOP
-    assert profiler.span("compiled.call", "BonsaiRenderer", 3) is profiler.NOOP
+    assert spans.span("loop.frame") is spans.NOOP
+    assert spans.span("compiled.call", "BonsaiRenderer", 3) is spans.NOOP
     _run("cpu", 2, record=False)
-    profiler.count("uploads", 5)
-    with profiler.recording() as rec:
+    spans.count("uploads", 5)
+    with spans.recording() as rec:
         pass
     assert rec.snapshot() == {"spans": {}, "counters": {}}
-    assert profiler.span("loop.frame") is profiler.NOOP
+    assert spans.span("loop.frame") is spans.NOOP
 
 
 def test_self_time_is_the_time_children_leave():
-    with profiler.recording() as rec:
-        with profiler.span("outer", id=7):
+    with spans.recording() as rec:
+        with spans.span("outer", id=7):
             for tag in ("a", "b", "a"):
-                with profiler.span("inner", tag):
-                    with profiler.span("leaf"):
+                with spans.span("inner", tag):
+                    with spans.span("leaf"):
                         sum(range(1000))
-        with profiler.span("outer", id=8):
+        with spans.span("outer", id=8):
             pass
     s = rec.snapshot()["spans"]
     assert s["outer"]["n"] == 2 and s["inner/a"]["n"] == 2 and s["inner/b"]["n"] == 1
@@ -154,19 +155,19 @@ def test_self_time_is_the_time_children_leave():
 def test_other_threads_and_a_second_recording():
     """Only the recording thread's spans and counts are kept (the source
     watcher's thread is not); one recording at a time."""
-    with profiler.recording() as rec:
+    with spans.recording() as rec:
         def other():
-            with profiler.span("watcher"):
-                profiler.count("uploads")
+            with spans.span("watcher"):
+                spans.count("uploads")
 
         t = threading.Thread(target=other)
         t.start()
         t.join(timeout=30)
         assert not t.is_alive()
         with pytest.raises(RuntimeError):
-            with profiler.recording():
+            with spans.recording():
                 pass
-        profiler.count("uploads", 2)
+        spans.count("uploads", 2)
     assert rec.snapshot() == {"spans": {}, "counters": {"uploads": 2}}
 
 
@@ -190,7 +191,7 @@ class _Event:
 
 def _timed_frames(timer, frames):
     for f in range(frames):
-        with profiler.span("loop.frame", id=f):
+        with spans.span("loop.frame", id=f):
             with timer.measure(n_rays=6):
                 pass
 
@@ -203,7 +204,7 @@ def test_pass_timer_report_is_a_span_and_counts_its_sync(device, syncs, monkeypa
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     monkeypatch.setattr(_Event, "synced", 0)
     timer = profiler.PassTimer("raycast shader", report_every=4, device=device)
-    with profiler.recording() as rec:
+    with spans.recording() as rec:
         _timed_frames(timer, 10)
     snap = rec.snapshot()
     assert snap["counters"] == ({"host_syncs": syncs} if syncs else {})
@@ -220,8 +221,8 @@ def test_pass_timer_keeps_nothing_without_a_recording(monkeypatch, capsys):
     timer = profiler.PassTimer("raycast shader", report_every=4, device="cuda")
     _timed_frames(timer, 8)
     assert _Event.synced == 2 and capsys.readouterr().out.count("Time on") == 2
-    assert profiler.span("pass_timer.report") is profiler.NOOP
-    with profiler.recording() as rec:
+    assert spans.span("pass_timer.report") is spans.NOOP
+    with spans.recording() as rec:
         pass
     assert rec.snapshot() == {"spans": {}, "counters": {}}
 
@@ -231,7 +232,7 @@ def test_field_pipeline_counts_its_rays():
 
     pipe = FieldPipeline("cpu", grad="analytic", dims=16)
     cam = Camera.xor(aspect=8 / 6).uniform("cpu")
-    with profiler.recording() as rec:
+    with spans.recording() as rec:
         for _ in range(2):
             pipe.render(cam, 0.5, 8, 6)
     assert rec.snapshot()["counters"] == {"field.rays": 2 * 8 * 6}
@@ -251,7 +252,7 @@ def _profiled_frames(device, frames, record):
                 quiet=True)
             torch.cuda.synchronize()
         with torch.profiler.record_function(MEASURED):
-            with profiler.recording() if record else contextlib.nullcontext() as rec:
+            with spans.recording() if record else contextlib.nullcontext() as rec:
                 run(demo, frames=frames, events=_events(frames, True), context=ctx, quiet=True)
         if device != "cpu":
             torch.cuda.synchronize()
@@ -291,23 +292,23 @@ def test_a_replay_is_split_into_its_steps_on_gpu(cuda_device):
     r = BonsaiRenderer(_volume(cuda_device, 32), cuda_device)
     u = Camera.bonsai(1.0).uniform(cuda_device)
     r(u, 64, 64)  # the capture
-    with profiler.recording() as rec:
+    with spans.recording() as rec:
         r(u, 64, 64)
-    spans = rec.snapshot()["spans"]
+    kept = rec.snapshot()["spans"]
     steps = ("compiled.copy_in", "compiled.replay", "compiled.copy_out")
-    assert set(spans) == {"compiled.call/BonsaiRenderer"} | {f"{s}/BonsaiRenderer" for s in steps}
+    assert set(kept) == {"compiled.call/BonsaiRenderer"} | {f"{s}/BonsaiRenderer" for s in steps}
     for s in steps:
-        assert spans[f"{s}/BonsaiRenderer"]["parent"] == "compiled.call/BonsaiRenderer"
-    with profiler.recording() as rec:
+        assert kept[f"{s}/BonsaiRenderer"]["parent"] == "compiled.call/BonsaiRenderer"
+    with spans.recording() as rec:
         r(u, 48, 48)  # a new key: captured, not replayed
-    spans = rec.snapshot()["spans"]
-    assert spans["compiled.capture/BonsaiRenderer"]["n"] == 1
-    assert spans["compiled.capture/BonsaiRenderer"]["parent"] == "compiled.call/BonsaiRenderer"
-    assert "compiled.replay/BonsaiRenderer" not in spans
+    kept = rec.snapshot()["spans"]
+    assert kept["compiled.capture/BonsaiRenderer"]["n"] == 1
+    assert kept["compiled.capture/BonsaiRenderer"]["parent"] == "compiled.call/BonsaiRenderer"
+    assert "compiled.replay/BonsaiRenderer" not in kept
 
     vb = ViewsBatch(2, 32, 32, device=cuda_device)
     vb(4)
-    with profiler.recording() as rec:
+    with spans.recording() as rec:
         vb(5)
     assert list(rec.by_id("compiled.call/ViewsBatch")) == [5]
     assert list(rec.by_id("compiled.replay/ViewsBatch")) == [5]
@@ -340,7 +341,7 @@ def test_no_device_event_bears_a_span_name_on_gpu(cuda_device, record):
     run(demo, frames=1, events=_events(1, True), context=ctx, quiet=True)
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        with profiler.recording() if record else contextlib.nullcontext():
+        with spans.recording() if record else contextlib.nullcontext():
             with torch.profiler.record_function(WINDOW_SPAN):
                 run(demo, frames=4, events=_events(4, True), context=ctx, quiet=True)
                 torch.cuda.synchronize()

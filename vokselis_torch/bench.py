@@ -13,7 +13,7 @@ exact frame otherwise (:func:`flagship_line`).
 
 Every frame is timed by :func:`slope_time`, the slope between a 1-frame and
 an n-frame run, median of 5 repeats; a frame is one call of the port's
-compiled entry (a CUDA graph replay, ``engine/compiled.py``).
+compiled entry (a CUDA graph replay, ``core/compiled.py``).
 
 It measures the card. Without CUDA it exits 1 and says so, unless
 ``--cpu-oracle`` asks for the plain oracle (``ops/reference.render_bonsai``)
@@ -131,14 +131,7 @@ def bench_bonsai(width=1024, height=1024, use_oracle=False, vol=None, device="cu
         def render(pk, u, w, h):
             return reference.render_bonsai(pk, u, w, h)
     else:
-        render_ovf, pack = build_renderer(vol, device, with_overflow=True)
-        # the TPU kernel's wrong-pixels signal; K1 has no window, so 0
-        _img, ovf = render_ovf(pack, u0, width, height)
-        if int(ovf) != 0:
-            raise RuntimeError(f"window overflow on the bench pose: {int(ovf)}")
-
-        def render(pk, u, w, h):
-            return render_ovf(pk, u, w, h)[0]
+        render, pack = build_renderer(vol, device)
 
     sec = slope_time(lambda n: _frames(lambda i: render(pack, u0, width, height), n, device))
     return width * height / sec / 1e6, sec
@@ -187,7 +180,7 @@ def bench_bonsai_hybrid(width=1024, height=1024, intermediate=None, budget=None,
                                intermediate=intermediate, budget=budget)
     hint = pose_hint(u0, width, height, intermediate, hyb.dims)
     exact = hyb.exact(u0, width, height)
-    img, _ovf = hyb._call_traced(u0, width, height, hint=hint)
+    img = hyb._call_traced(u0, width, height, hint=hint)
     err = float((img[..., :3] - exact[..., :3]).abs().mean())
     frender, fpack = hyb.functional()
 

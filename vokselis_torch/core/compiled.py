@@ -43,7 +43,7 @@ from collections import OrderedDict
 import torch
 
 from vokselis_torch.core.camera import CameraUniform
-from vokselis_torch.engine.profiler import span
+from vokselis_torch.utils.spans import span
 
 # Python numbers among the inputs become 0-d tensors of this dtype in a graph
 SCALAR_DTYPE = torch.float32
@@ -179,7 +179,7 @@ class CompiledFrame:
         tensor or a tuple of tensors and reads nothing that changes from
         call to call but its inputs and ``reads`` (tensors, or tuples of
         them, whose :func:`stamp` the graph keeps). On a card the call is
-        the span ``compiled.call/<name>`` (:func:`engine.profiler.span`,
+        the span ``compiled.call/<name>`` (:func:`utils.spans.span`,
         of the frame or batch ``id``), holding ``compiled.copy_in``,
         ``compiled.replay`` and ``compiled.copy_out`` or, for a new key,
         ``compiled.capture``."""

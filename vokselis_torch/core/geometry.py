@@ -138,24 +138,6 @@ def intersect_box_soa(ex, ey, ez, dx, dy, dz, box_min: float, box_max: float):
     return t0, t1
 
 
-def packed_pixel_grid(width: int, height: int, device):
-    """Integer pixel coordinates of the FULL frame in the JAX package's
-    packed (n_tiles*8, 128) tile layout (packed element (s, l) of tile s//8
-    is image row (s%8)*4 + l//32, col l%32 of that 32x32 tile). Frames
-    padded to the 32-multiple grid include out-of-frame pixels — callers
-    must mask ``(ix < width) & (iy < height)``.
-
-    Returns (ix, iy) int32, each (cdiv(H,32)*cdiv(W,32)*8, 128)."""
-    ny = -(-height // 32)
-    nx = -(-width // 32)
-    s = torch.arange(ny * nx * 8, dtype=torch.int32, device=device)
-    lane = torch.arange(128, dtype=torch.int32, device=device)
-    tile = s // 8
-    iy = (tile // nx * 32 + (s % 8) * 4)[:, None] + (lane // 32)[None, :]
-    ix = (tile % nx * 32)[:, None] + (lane % 32)[None, :]
-    return ix, iy
-
-
 def center_ray_dir(camera_uniform, width: int, height: int):
     """Normalized fragment-path ray direction through the CENTER pixel
     (row H//2, col W//2) — the single ray the fast renderer's dominant-axis

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vokselis_torch.utils.spans import count
+
 # the global uniform's words: (field, offset, words, uint32)
 GLOBAL_LAYOUT = (
     ("pos", 0, 3, False),
@@ -27,17 +29,6 @@ GLOBAL_WORDS = 11
 _FIELDS = {f[0]: f for f in GLOBAL_LAYOUT}
 
 
-def _count(name: str, n: int = 1) -> None:
-    """:func:`vokselis_torch.engine.profiler.count`, which replaces this
-    function at its first call: the engine package imports this module, so
-    it cannot be imported here at the top, and an import in every send
-    would cost more than the count."""
-    global _count
-    from vokselis_torch.engine.profiler import count as _count
-
-    _count(name, n)
-
-
 def send(parts, device) -> torch.Tensor:
     """One float32 block on ``device`` holding ``parts`` (arrays, or what
     ``np.asarray`` takes) flattened one after another: float32 parts by
@@ -46,14 +37,14 @@ def send(parts, device) -> torch.Tensor:
     a pinned host block and copied ``non_blocking`` (the caching host
     allocator keeps the block until its copy has run), so the host never
     waits; on the CPU the host block is the result. Counted as one of
-    ``uploads`` and its bytes as ``upload_bytes`` (:func:`engine.profiler.count`)."""
+    ``uploads`` and its bytes as ``upload_bytes`` (:func:`utils.spans.count`)."""
     device = torch.device(device)
     flat = np.concatenate(parts, axis=None)
     cuda = device.type == "cuda"
     host = torch.empty(flat.size, dtype=torch.float32, pin_memory=cuda)
     host.numpy()[:] = flat
-    _count("uploads")
-    _count("upload_bytes", host.nbytes)
+    count("uploads")
+    count("upload_bytes", host.nbytes)
     if device.type == "cpu":
         return host
     return host.to(device, non_blocking=cuda)  # one allocation, one copy

@@ -32,13 +32,13 @@ import numpy as np
 import torch
 
 from vokselis_torch.core.camera import CAMERA_WORDS, Camera, CameraUniform
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.core.config import DEFAULT_RESOLUTION, EngineConfig
 from vokselis_torch.core.uniforms import GlobalUniform, send
 from vokselis_torch.engine.compiler import KernelCompiler
 from vokselis_torch.engine.input import Input
 from vokselis_torch.engine.profiler import span
 from vokselis_torch.engine.reload import Watcher
-from vokselis_torch.engine.compiled import CompiledFrame
 from vokselis_torch.ops.present import FILTERS, present, to_uint8
 from vokselis_torch.utils.misc import ImageDimensions
 

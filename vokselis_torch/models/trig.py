@@ -14,7 +14,7 @@ import torch
 
 from vokselis_torch.core.camera import Camera
 from vokselis_torch.core.colors import fract
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.engine.demo import Demo
 from vokselis_torch.ops.raster import rasterize_triangle
 

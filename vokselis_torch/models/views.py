@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops.cuda.genvol import generate_density_u8
 from vokselis_torch.parallel.sharding import (
     build_default_renderer,

@@ -31,7 +31,7 @@ from pathlib import Path
 import torch
 
 from vokselis_torch.core.camera import Camera
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.engine.demo import Demo
 from vokselis_torch.engine.profiler import PassTimer, count
 from vokselis_torch.ops.cuda import march_field

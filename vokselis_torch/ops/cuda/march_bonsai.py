@@ -40,12 +40,12 @@ import numpy as np
 import torch
 
 from vokselis_torch.core import geometry
-from vokselis_torch.engine.compiled import CompiledFrame
-from vokselis_torch.engine.profiler import count
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
 from vokselis_torch.utils.grid import TILE, cdiv
+from vokselis_torch.utils.spans import count
 
 SOURCE = CSRC / "march_bonsai.cu"
 # empty-space skipping: cells of OCC_CELL^3 voxels; a sample whose every tap
@@ -495,7 +495,7 @@ def _exact_frame(vol, compiled, camera_uniform, width, height, max_steps, srgb):
     """:func:`render_frame` of ``vol`` through ``compiled``, one graph per
     ``(width, height, max_steps, srgb)`` and uniform shape. On a card each
     call adds the rays K1 makes itself, views x width x height, to the
-    counter ``k1.inline_rays`` of an active ``profiler.recording()``."""
+    counter ``k1.inline_rays`` of an active ``spans.recording()``."""
     def fn(u):
         return render_frame(vol, u, width, height, max_steps, srgb)
 
@@ -511,7 +511,7 @@ class BonsaiRenderer:
     table; call to render (the analog of the reference's VolumeTexture +
     RaycastPipeline pair, examples/bonsai/raycast.rs:12-141). On a card a
     call replays the frame's CUDA graph (``compiled``, one per width,
-    height, max_steps and srgb; see :mod:`vokselis_torch.engine.compiled`);
+    height, max_steps and srgb; see :mod:`vokselis_torch.core.compiled`);
     :func:`render_frame` is the eager frame. ``compiled`` may be shared
     with another renderer of the same volume (the hybrid's), whose graphs
     then share its memory pool."""
@@ -523,8 +523,6 @@ class BonsaiRenderer:
             volume_occupancy(self.vol)
         self.dims = self.vol.shape[0]
         self.compiled = CompiledFrame("BonsaiRenderer") if compiled is None else compiled
-        # a windowless kernel cannot overflow; kept for API parity
-        self.last_overflow = 0
 
     def __call__(
         self,
@@ -533,33 +531,27 @@ class BonsaiRenderer:
         height: int = 720,
         max_steps: int = MAX_STEPS_BONSAI,
         srgb: bool = True,
-        strict: bool = False,
     ):
         """Render one frame, or (V, H, W, 4) frames of a batched uniform's
-        views in one launch. ``strict`` is accepted for API parity and does
-        nothing: every pixel of this kernel is exact, there is no window
-        overflow to re-render."""
+        views in one launch."""
         return _exact_frame(self.vol, self.compiled, camera_uniform, width, height,
                             max_steps, srgb)
 
 
-def build_renderer(vol_u8, device, with_overflow: bool = False):
+def build_renderer(vol_u8, device):
     """Functional API: returns (render_fn, pack) where
     ``render_fn(pack, camera_uniform, width, height, max_steps=, srgb=)``
     renders a frame and ``pack`` is the volume tensor on ``device``. A
     batched ``camera_uniform`` renders its V views as (V, H, W, 4) with one
     ray pass and one K1 launch: the counterpart of the JAX package's
-    ``vmap`` of its render over a view batch.
-    ``with_overflow=True`` makes render_fn return ``(img, 0)``: the kernel
-    has no window that could overflow. On a card render_fn replays one CUDA
-    graph per static key, as :class:`BonsaiRenderer` does; another ``pack``
-    than the last one captures again."""
+    ``vmap`` of its render over a view batch. On a card render_fn replays
+    one CUDA graph per static key, as :class:`BonsaiRenderer` does; another
+    ``pack`` than the last one captures again."""
     pack = volume_tensor(vol_u8, device)
     compiled = CompiledFrame("build_renderer")
 
     def render(pk, camera_uniform, width, height,
                max_steps=MAX_STEPS_BONSAI, srgb=True):
-        img = _exact_frame(pk, compiled, camera_uniform, width, height, max_steps, srgb)
-        return (img, 0) if with_overflow else img
+        return _exact_frame(pk, compiled, camera_uniform, width, height, max_steps, srgb)
 
     return render, pack

@@ -44,7 +44,7 @@ import torch
 
 from vokselis_torch.core import geometry
 from vokselis_torch.core.colors import mix, smoothstep
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
 # the shared hash table (hash_table.py), importable from here too
 from vokselis_torch.ops.cuda.hash_table import (  # noqa: F401

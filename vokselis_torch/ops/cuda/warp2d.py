@@ -90,17 +90,15 @@ def _check_inputs(chans, av, bu, hit):
 
 
 @torch.no_grad()
-def warp_bilinear(chans, av, bu, hit=None, with_overflow: bool = False):
+def warp_bilinear(chans, av, bu, hit=None):
     """K6: bilinear lookup of ``chans`` (C <= 4, Iv, Iu) f32 at the (H, W)
     f32 coordinates (``av`` rows, ``bu`` columns), clamped to the edge.
     ``hit`` (H, W) bool zeroes the pixels that do not participate; their
     coordinates are never read. Coordinates must be finite where ``hit``.
 
-    Returns the (C, H, W) f32 planes, and with ``with_overflow`` also an
-    (H, W) f32 overflow plane that is all zeros: the TPU kernel flagged
-    pixels whose footprint overflowed its VMEM window, and this kernel has
-    no window. CUDA tensors launch the kernel; CPU tensors take
-    :func:`warp_plain`."""
+    Returns the (C, H, W) f32 planes (the TPU kernel's VMEM window and its
+    overflow plane have no counterpart). CUDA tensors launch the kernel;
+    CPU tensors take :func:`warp_plain`."""
     global LAUNCHES_WARP
     _check_inputs(chans, av, bu, hit)
     if chans.device.type == "cpu":
@@ -117,8 +115,6 @@ def warp_bilinear(chans, av, bu, hit=None, with_overflow: bool = False):
         )
         check_launch(lib, err, "warp_bilinear")
         LAUNCHES_WARP += 1
-    if with_overflow:
-        return planes, torch.zeros_like(av)
     return planes
 
 

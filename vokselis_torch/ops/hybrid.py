@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops.cuda.march_bonsai import (
     BonsaiRenderer,
     render_bonsai_tiles_into,
@@ -139,8 +139,8 @@ def _dilate3(t):
 def score_tiles(stats, ny: int, nx: int):
     """Per-tile scores from K5's stats (hybrid.py:259-266): curvature x
     slope plus 0.03 x edge, per tile pixel, plus the extent-excluded
-    (and overflowed, x4) pixel share weighted by the 3x3-dilated peak
-    luminance."""
+    (and window-overflowed, x4: a column K5 writes as 0) pixel share
+    weighted by the 3x3-dilated peak luminance."""
     inv_px = 1.0 / (8 * 128)
     scores = (stats[:, STAT_CURV] + 0.03 * stats[:, STAT_EDGE]) * inv_px
     tile_peak = _dilate3(stats[:, STAT_PEAK].reshape(ny, nx))
@@ -152,10 +152,9 @@ def _render_hybrid(packs, vol, camera_uniform, thresh, width: int, height: int,
                    intermediate: int, budget: int, srgb: bool,
                    max_steps: int = MAX_STEPS_BONSAI, pair: bool = False,
                    plain: bool = False):
-    """One hybrid frame (hybrid.py:177-315). Returns ``(img, ovf, ids)``:
-    the (H, W, 4) image, the re-march's window-overflow count (0: no
-    window) and the selected unit ids (None at budget 0). ``plain=True``
-    runs every stage's plain version even on CUDA tensors."""
+    """One hybrid frame (hybrid.py:177-315). Returns ``(img, ids)``: the
+    (H, W, 4) image and the selected unit ids (None at budget 0).
+    ``plain=True`` runs every stage's plain version even on CUDA tensors."""
     rgb, stats = _render_fast(packs, camera_uniform, width, height, intermediate,
                               False, return_aux="stats", plain=plain)
     ids = None
@@ -167,14 +166,13 @@ def _render_hybrid(packs, vol, camera_uniform, thresh, width: int, height: int,
         # the hybrid's 1e-3 contract (hybrid.py:305-309)
         march(vol, rgb, camera_uniform, ids, width, height, 2 if pair else 1,
               fast_transfer=True, max_steps=max_steps)
-    return finish(rgb, srgb), 0, ids
+    return finish(rgb, srgb), ids
 
 
 class HybridBonsaiRenderer:
     """renderer="hybrid": shear-warp frame + exact re-march of the worst
     tiles, on ``device``. Call like
     :class:`vokselis_torch.ops.cuda.march_bonsai.BonsaiRenderer`.
-    ``last_overflow`` is kept for API parity and stays 0 (no window).
     ``exact`` is the K1 renderer of the same volume tensor, which renders
     degenerate poses and dense volumes. The route is chosen on the host;
     on a card each route replays a CUDA graph of its frame (``compiled``,
@@ -196,7 +194,6 @@ class HybridBonsaiRenderer:
         self.intermediate = intermediate
         self.budget = budget
         self.thresh = thresh
-        self.last_overflow = 0
         # u8 > OCC_EPS * 255 is exactly u8 / 255 > OCC_EPS (hybrid.py:340-344)
         self.occ_frac = float((vol_np > OCC_EPS * 255.0).mean())
         self.dense_fallback = self.occ_frac > DENSE_OCC_FRAC
@@ -230,14 +227,14 @@ class HybridBonsaiRenderer:
     def _call_traced(self, camera_uniform, width: int = 1280, height: int = 720,
                      max_steps: int = MAX_STEPS_BONSAI, srgb: bool = True,
                      budget: int | None = None, hint=None, route=None):
-        """``(img, ovf)`` of one frame along :meth:`route`, or along
-        ``route`` when the caller has classified the pose already."""
+        """One frame along :meth:`route`, or along ``route`` when the
+        caller has classified the pose already."""
         mode, ii, b = (self.route(camera_uniform, width, height, budget, hint)
                        if route is None else route)
         if mode in ("dense", "exact"):
-            return self.exact(camera_uniform, width, height, max_steps, srgb), 0
+            return self.exact(camera_uniform, width, height, max_steps, srgb)
         return self._hybrid_frame((self.packs, self.vol), camera_uniform, width, height, ii,
-                                  b, srgb, max_steps, False), 0
+                                  b, srgb, max_steps, False)
 
     def _hybrid_frame(self, pk, camera_uniform, width, height, ii, budget, srgb, max_steps,
                       with_degraded):
@@ -264,8 +261,8 @@ class HybridBonsaiRenderer:
         host-side pose classification (the JAX package's builders "for jit
         pipelines where the camera is TRACED"): ``render(pack, camera_uniform,
         width, height, hint=None, max_steps=, srgb=, budget=None,
-        with_degraded=True)`` -> ``(img, ovf, degraded)`` (``(img, ovf)``
-        with ``with_degraded=False``). It never escalates nor falls back:
+        with_degraded=True)`` -> ``(img, degraded)`` (``img`` with
+        ``with_degraded=False``). It never escalates nor falls back:
         ``degraded`` (a 0-d bool tensor, :func:`traced_degenerate`) marks
         frames whose pose breaks the shear-warp factorization, whose pixels
         are outside the error contract. ``hint`` is accepted for API parity
@@ -282,18 +279,17 @@ class HybridBonsaiRenderer:
                              with_degraded=True):
                 img = self.exact(camera_uniform, width, height, max_steps, srgb)
                 if with_degraded:
-                    return img, 0, torch.zeros((), dtype=torch.bool, device=img.device)
-                return img, 0
+                    return img, torch.zeros((), dtype=torch.bool, device=img.device)
+                return img
 
             return render_exact, pack
 
         def render(pk, camera_uniform, width, height, hint=None,
                    max_steps=MAX_STEPS_BONSAI, srgb=True, budget=None,
                    with_degraded=True):
-            out = self._hybrid_frame(pk, camera_uniform, width, height, self.intermediate,
-                                     self.budget if budget is None else budget, srgb,
-                                     max_steps, with_degraded)
-            return (out[0], 0, out[1]) if with_degraded else (out, 0)
+            return self._hybrid_frame(pk, camera_uniform, width, height, self.intermediate,
+                                      self.budget if budget is None else budget, srgb,
+                                      max_steps, with_degraded)
 
         return render, pack
 
@@ -302,10 +298,8 @@ class HybridBonsaiRenderer:
                  budget: int | None = None, route=None):
         """One frame; ``route``: this pose's :meth:`route` at this frame,
         if the caller has it (the pose is then not classified again)."""
-        img, ovf = self._call_traced(camera_uniform, width, height, max_steps, srgb,
-                                     budget, route=route)
-        self.last_overflow = ovf
-        return img
+        return self._call_traced(camera_uniform, width, height, max_steps, srgb, budget,
+                                 route=route)
 
 
 def build_hybrid_renderer(vol_u8, device, intermediate: int = 512,
@@ -320,8 +314,7 @@ def build_hybrid_renderer(vol_u8, device, intermediate: int = 512,
 
     def render(pk, camera_uniform, width, height, max_steps=MAX_STEPS_BONSAI,
                srgb=True, hint=None):
-        img, _ovf, deg = frender(pk, camera_uniform, width, height, hint=hint,
-                                 max_steps=max_steps, srgb=srgb)
-        return img, deg
+        return frender(pk, camera_uniform, width, height, hint=hint, max_steps=max_steps,
+                       srgb=srgb)
 
     return render, pack

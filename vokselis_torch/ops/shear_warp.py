@@ -44,7 +44,7 @@ import torch
 
 from vokselis_torch.core import geometry
 from vokselis_torch.core.colors import linear_to_srgb
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops.cuda import shear_resample, warp2d
 from vokselis_torch.ops.cuda.march_bonsai import volume_tensor
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI

@@ -16,14 +16,14 @@ with the same two dimension names, over its ranks:
   group, so every rank holds all;
 - image-space tile sharding -> each 'tiles' rank marches its band of frame
   ROWS (rays are independent: no halo exchange); an all-gather over the
-  'tiles' group assembles the frame, an all-reduce the overflow count.
+  'tiles' group assembles the frame.
 
 Each path is one step, a module function that runs eagerly
 (:func:`views_sharded_step`, :func:`frame_tiled_step`: the JAX package's
 ``local_step``s), and one entry that replays it, as the JAX package's
 ``jax.jit(shard_map(local_step))`` under ``functools.lru_cache(maxsize=64)``
 does: :func:`render_views_sharded` and :func:`render_frame_tiled` go through
-a :class:`~vokselis_torch.engine.compiled.CompiledFrame` of at most 64 keys
+a :class:`~vokselis_torch.core.compiled.CompiledFrame` of at most 64 keys
 (:data:`VIEWS_STEPS`, :data:`TILED_STEPS`). On a card the first call with
 a key captures the step, its NCCL collectives inside, into one CUDA graph
 and later calls replay it; off the card (gloo on the CPU) every call runs
@@ -44,10 +44,9 @@ hand-written march, ``ops/cuda/march_bonsai``) for a CUDA volume, its plain
 version for a CPU one. A pair built once and passed again is what makes a
 step replay; a pair made for one call (``renderer=None``) runs the eager
 step and caches nothing, as the JAX package's fresh closure caches nothing.
-K1 has no slab window, so the overflow count is always 0; the interface
-keeps it, as ``BonsaiRenderer.last_overflow`` does. The JAX package's TPU
-window arguments (``force_oracle``, ``win_rows``, ``full_frame``) have no
-counterpart.
+K1 has no slab window: the JAX package's TPU window arguments
+(``force_oracle``, ``win_rows``, ``full_frame``) and the window overflow
+count it all-reduces have no counterpart.
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ import torch.distributed as dist
 
 from vokselis_torch.core import geometry
 from vokselis_torch.core.camera import Camera, CameraUniform
-from vokselis_torch.engine.compiled import CompiledFrame
+from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops.cuda import march_bonsai
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
 
@@ -217,46 +216,39 @@ def render_views_sharded(mesh, render, pack, cams, width: int, height: int,
                                           gather), (cams,), reads=pack)
 
 
-def build_ray_renderer(vol_u8, device, with_overflow: bool = False):
+def build_ray_renderer(vol_u8, device):
     """``(render_rays, pack)`` with the ray-set signature ``render_rays(pack,
-    eye, (dx, dy, dz), max_steps)`` -> (H, W, 4), or ``((H, W, 4), 0)`` with
-    ``with_overflow=True``: :func:`march_bonsai.render_bonsai_rays_cuda`, K1
-    on a CUDA ``device`` and its plain version on the CPU. This is what
+    eye, (dx, dy, dz), max_steps)`` -> (H, W, 4):
+    :func:`march_bonsai.render_bonsai_rays_cuda`, K1 on a CUDA ``device``
+    and its plain version on the CPU. This is what
     :func:`render_frame_tiled` marches each rank's band with."""
     pack = march_bonsai.volume_tensor(vol_u8, device)
 
     def render_rays(pk, eye, dxyz, max_steps=MAX_STEPS_BONSAI):
-        img = march_bonsai.render_bonsai_rays_cuda(
+        return march_bonsai.render_bonsai_rays_cuda(
             pk, eye, tuple(d.contiguous() for d in dxyz), max_steps=max_steps)
-        return (img, 0) if with_overflow else img
 
     return render_rays, pack
 
 
 def frame_tiled_step(mesh, render_rays, pack, cam: CameraUniform, width: int, height: int,
-                     max_steps: int = 64, with_overflow: bool = False):
+                     max_steps: int = 64):
     """The eager step of :func:`render_frame_tiled` (the JAX package's
     ``local_step`` of ``_frame_tiled_fn``, with the ray planes): the frame's
-    rays, this 'tiles' rank's band marched, the bands all-gathered and the
-    overflow counts all-reduced over 'tiles'."""
+    rays, this 'tiles' rank's band marched and the bands all-gathered over
+    'tiles'."""
     n_tiles = _dim_size(mesh, "tiles")
     assert height % n_tiles == 0
     eye, dxyz = geometry.rays_fragment_soa(cam, width, height)
     rows = height // n_tiles
     r = mesh.get_local_rank("tiles")
-    out = render_rays(pack, eye, tuple(d[r * rows:(r + 1) * rows] for d in dxyz),
+    img = render_rays(pack, eye, tuple(d[r * rows:(r + 1) * rows] for d in dxyz),
                       max_steps=max_steps)
-    img, ovf = out if isinstance(out, tuple) else (out, 0)
-    group = mesh.get_group("tiles")
-    img = _all_gather(img, group)
-    # a fill on the device: a tensor built from a host value would wait for the march
-    ovf = torch.full((), int(ovf), dtype=torch.int32, device=img.device)
-    dist.all_reduce(ovf, group=group)
-    return (img, ovf) if with_overflow else img
+    return _all_gather(img, mesh.get_group("tiles"))
 
 
 def render_frame_tiled(mesh, vol, cam: CameraUniform, width: int, height: int,
-                       max_steps: int = 64, renderer=None, with_overflow: bool = False):
+                       max_steps: int = 64, renderer=None):
     """Render ONE frame with its rows sharded over the mesh's 'tiles'
     dimension — the multi-device descendant of the xor demo's 256^2-tile
     dispatch (examples/xor/main.rs:235-254). Every rank makes the frame's
@@ -267,22 +259,18 @@ def render_frame_tiled(mesh, vol, cam: CameraUniform, width: int, height: int,
     ``renderer``: optional ``(render_rays, pack)`` from
     :func:`build_ray_renderer`; with it, a card replays
     :func:`frame_tiled_step`'s graph of the key (the mesh's groups,
-    ``render_rays``, ``width``, ``height``, ``max_steps``,
-    ``with_overflow``), so pass a pair built once. By default a pair is
-    built from ``vol`` on this rank's device for this call only: the eager
-    step runs and nothing is cached. ``with_overflow=True`` returns
-    ``(frame, overflow)``: the all-reduced count of the ranks' window
-    overflows, always 0 for K1, which has no window."""
+    ``render_rays``, ``width``, ``height``, ``max_steps``), so pass a pair
+    built once. By default a pair is built from ``vol`` on this rank's
+    device for this call only: the eager step runs and nothing is cached."""
     if renderer is None:
-        render_rays, pack = build_ray_renderer(vol, mesh_device(mesh), with_overflow=True)
-        return frame_tiled_step(mesh, render_rays, pack, cam, width, height, max_steps,
-                                with_overflow)
+        render_rays, pack = build_ray_renderer(vol, mesh_device(mesh))
+        return frame_tiled_step(mesh, render_rays, pack, cam, width, height, max_steps)
     render_rays, pack = renderer
     TILED_STEPS.drop(_stale)
-    key = (mesh_groups(mesh), render_rays, width, height, max_steps, with_overflow)
+    key = (mesh_groups(mesh), render_rays, width, height, max_steps)
     return TILED_STEPS(
-        key, lambda u: frame_tiled_step(mesh, render_rays, pack, u, width, height, max_steps,
-                                        with_overflow), (cam,), reads=pack)
+        key, lambda u: frame_tiled_step(mesh, render_rays, pack, u, width, height, max_steps),
+        (cam,), reads=pack)
 
 
 def multi_view_step(mesh, vol, n_views: int, width: int, height: int, max_steps: int = 32,

@@ -60,8 +60,8 @@ def run(device, budget: int = 64, size: int = SIZE, dims: int = 256, poses=None,
     all_poses = dense_poses()
     poses = list(all_poses) if poses is None else poses
     vol = dense_stress(dims)
-    render, pack = build_renderer(vol, device, with_overflow=True)
-    exact = {k: render(pack, all_poses[k].uniform(device), size, size)[0] for k in poses}
+    render, pack = build_renderer(vol, device)
+    exact = {k: render(pack, all_poses[k].uniform(device), size, size) for k in poses}
     log("exact frames done")
 
     fast = FastBonsaiRenderer(vol, device, intermediate=ii)
@@ -70,7 +70,7 @@ def run(device, budget: int = 64, size: int = SIZE, dims: int = 256, poses=None,
     for name in poses:
         u = all_poses[name].uniform(device)
         ef = mean_rgb_err(fast(u, size, size), exact[name])
-        eh = mean_rgb_err(hyb._call_traced(u, size, size)[0], exact[name])
+        eh = mean_rgb_err(hyb._call_traced(u, size, size), exact[name])
         out[f"{name}_fast_err"] = ef
         out[f"{name}_hybrid_err"] = eh
         log(f"{name}: fast {ef:.3e}  hybrid {eh:.3e}")

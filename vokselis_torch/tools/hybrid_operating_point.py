@@ -16,7 +16,7 @@ path, with no scoring: the fit's floor, not its intercept).
 
 Each budget is a new :class:`HybridBonsaiRenderer`: its errors come from the
 routed frame (``_call_traced``) against the exact K1 frame
-(``build_renderer(..., with_overflow=True)``), its time from
+(``build_renderer``), its time from
 ``VOK_OPPOINT_REPEATS`` (default 3) independent :func:`slope_time` runs of
 ``functional()``'s replays at the bench pose. After the ladder the first
 measured budget is timed again (the drift sentinel: the gap bounds the
@@ -103,7 +103,7 @@ def measure_budget(vol, device, ii: int, budget: int, size: int, exact: dict, po
     hyb = HybridBonsaiRenderer(vol, device, intermediate=ii, budget=budget)
     errs = {}
     for name, cam in poses.items():
-        h, _ = hyb._call_traced(cam.uniform(device), size, size)
+        h = hyb._call_traced(cam.uniform(device), size, size)
         errs[name] = mean_rgb_err(h, exact[name])
     frame = replay_frame(hyb, poses["bench"].uniform(device), size)
     reps = [frame_ms(frame, device) for _ in range(repeats)]
@@ -173,8 +173,8 @@ def run(device, ii: int, budgets, size: int = SIZE, vol=None, out_dir=DEFAULT_OU
     repeats = n_repeats() if repeats is None else repeats
     vol = get_bonsai() if vol is None else vol
     poses = probe_poses()
-    render, pack = build_renderer(vol, device, with_overflow=True)
-    exact = {k: render(pack, c.uniform(device), size, size)[0] for k, c in poses.items()}
+    render, pack = build_renderer(vol, device)
+    exact = {k: render(pack, c.uniform(device), size, size) for k, c in poses.items()}
 
     os.makedirs(out_dir, exist_ok=True)
     ckpt_path = os.path.join(out_dir, f"hybrid_oppoint_{ii}.jsonl")

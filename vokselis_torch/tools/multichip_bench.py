@@ -123,7 +123,7 @@ def _rank_main(rank: int, cfg: dict, tmp: str):
     w, h, steps = cfg["width"], cfg["height"], cfg["max_steps"]
     vol = get_bonsai(cfg["bonsai"])
     render, pack = sharding.build_default_renderer(vol, dev)
-    ray_renderer = sharding.build_ray_renderer(vol, dev, with_overflow=True)
+    ray_renderer = sharding.build_ray_renderer(vol, dev)
     cam = Camera.bonsai(1.0).uniform(dev)
     secs = {"A": {}, "B": {}}
     for c in cfg["chips"]:

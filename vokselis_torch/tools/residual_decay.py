@@ -70,7 +70,7 @@ def decay_pose(packs, render, pack, u, size: int, ii: int, budgets):
     ``decay_raw_*.npz``; ``picks`` the actual selection's tile ids at each
     budget (sorted numpy int arrays)."""
     degen = pose_hint(u, size, size, ii, int(pack.shape[0]))[2]
-    exact = render(pack, u, size, size)[0][..., :3].cpu().numpy()
+    exact = render(pack, u, size, size)[..., :3].cpu().numpy()
     img, bad, errd = _render_fast(packs, u, size, size, ii, False, return_aux=True)
     # sRGB like the final frame: the error budget is measured in sRGB
     fast_s = linear_to_srgb(torch.clamp(img[..., :3], min=0.0)).cpu().numpy()
@@ -115,7 +115,7 @@ def run(device, ii: int, budgets, size: int = SIZE, vol=None, poses=None,
     vol = get_bonsai() if vol is None else vol
     all_poses = decay_poses()
     poses = list(all_poses) if poses is None else poses
-    render, pack = build_renderer(vol, device, with_overflow=True)
+    render, pack = build_renderer(vol, device)
     packs = prepare_fast_volume(vol, device)
     os.makedirs(out_dir, exist_ok=True)
     out = {}
