@@ -12,10 +12,13 @@ quantiles, not the max: PyTorch's and XLA's CPU sines differ by one ulp on
 rare per-sample differences up to ~1 (test_torch_fields.py). Camera uniforms
 are carried across from the JAX camera with CameraUniform.from_numpy.
 
-Tests marked ``gpu`` need a CUDA card and skip without one: they launch K7
-and hold it bitwise against its plain version on the same inputs.
+Tests marked ``gpu`` need a CUDA card and skip without one: they launch K7,
+which makes its own rays from the camera, and hold it bitwise against its
+plain version on the same inputs: the ray planes of field_rays marched by
+the plain march.
 """
 
+import ctypes
 import importlib
 
 import numpy as np
@@ -23,6 +26,8 @@ import pytest
 import torch
 
 from vokselis_torch.core.camera import Camera, CameraUniform
+from vokselis_torch.engine import profiler
+from vokselis_torch.models.xor import FieldPipeline
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda import genvol
 from vokselis_torch.ops.cuda import march_field as mf
@@ -189,6 +194,127 @@ def test_plain_return_steps_counts_samples():
     assert torch.equal(img, mf.render_field_plain(u, 0.0, 32, 32, max_steps=100))
     assert steps.dtype == torch.int32 and steps.shape == (32, 32)
     assert int(steps.max()) <= 100 and int(steps[0, 0]) == 0 and int(steps.sum()) > 0
+
+
+# -- K7 making its own rays: the frame wrapper ------------------------------------------
+
+# (field, shading, grad): one per kernel instantiation
+VARIANTS = {
+    "noise-xor-analytic": ("noise", "xor", "analytic"),
+    "noise-xor-fd": ("noise", "xor", "fd"),
+    "noise-emission": ("noise", "emission", "fd"),
+    "xor-xor": ("xor", "xor", "fd"),
+    "xor-emission": ("xor", "emission", "fd"),
+    "trig-xor": ("trig", "xor", "fd"),
+    "trig-emission": ("trig", "emission", "fd"),
+}
+# around the xor demo's target: the field-orbit's zoom range, an axis-aligned
+# view (a zero direction component: infinite slab terms), the eye in the box
+FIELD_POSES = {
+    "zoom1.2": dict(zoom=1.2, pitch=0.3, yaw=0.8),
+    "zoom2.4": dict(zoom=2.4, pitch=-0.5, yaw=2.0),
+    "axis": dict(zoom=2.0, pitch=0.0, yaw=0.0),
+    "inside": dict(zoom=0.8, pitch=0.2, yaw=1.3),
+}
+
+
+def _field_uniform(pose, aspect, device):
+    return Camera(aspect=aspect, target=(0.0, 0.0, 0.0), **FIELD_POSES[pose]).uniform(device)
+
+
+@pytest.mark.parametrize("clip", [True, False], ids=["sphere-clip", "box"])
+@pytest.mark.parametrize("quantize", [True, False], ids=["quantized", "exact"])
+@pytest.mark.parametrize("variant", ["noise-xor-analytic", "xor-xor", "trig-emission"])
+def test_render_field_on_the_cpu_is_the_plain_twin(variant, quantize, clip, monkeypatch):
+    """On the CPU render_field is field_rays and time_vector marched by the
+    plain march, bitwise, for each field with quantization and the sphere
+    clip on and off; nothing is built or launched."""
+    def no_build():
+        raise AssertionError("the CPU path built a kernel")
+
+    monkeypatch.setattr(mf, "build", no_build)
+    field, shading, grad = VARIANTS[variant]
+    u = _field_uniform("zoom1.2", 24 / 16, "cpu")
+    rays = mf.field_rays(u, 24, 16, field, 256, quantize, clip)
+    want = mf._march_plain(mf.time_vector(1.7, "cpu"), rays, field, shading, 256, quantize, 96,
+                           grad)
+    before = mf.LAUNCHES_FIELD
+    got = mf.render_field(u, 1.7, 24, 16, field=field, shading=shading, quantize=quantize,
+                          max_steps=96, sphere_clip=clip, grad=grad)
+    assert torch.equal(got, want)
+    assert mf.LAUNCHES_FIELD == before
+    assert float(got[..., :3].max()) > 0.03
+
+
+def test_inline_rays_counter_absent_on_the_cpu():
+    """``k7.inline_rays`` counts rays that K7 makes on a card: a CPU frame,
+    through the xor pipeline or FieldRenderer, adds none (the pipeline's
+    ``field.rays`` still counts)."""
+    u = _field_uniform("zoom2.4", 1.0, "cpu")
+    with profiler.recording() as rec:
+        FieldPipeline("cpu").render(u, 0.0, 12, 8)
+        mf.FieldRenderer("cpu")(u, 0.0, 12, 8, max_steps=32)
+    assert rec.counters["field.rays"] == 12 * 8
+    assert "k7.inline_rays" not in rec.counters
+
+
+def _with_inv(inv):
+    u = _field_uniform("zoom2.4", 1.0, "cpu")
+    return CameraUniform(u.view_position, u.proj_view, inv)
+
+
+def _inv():
+    return _field_uniform("zoom2.4", 1.0, "cpu").inv_proj
+
+
+BAD_FRAME_INPUTS = {
+    "inv_proj_float64": (lambda: (_with_inv(_inv().double()), 0.0), TypeError, "float32"),
+    "inv_proj_numpy": (lambda: (_with_inv(_inv().numpy()), 0.0), TypeError, "torch.Tensor"),
+    "inv_proj_3x4": (lambda: (_with_inv(_inv()[:3].contiguous()), 0.0), ValueError, r"\(4, 4\)"),
+    "inv_proj_batched": (lambda: (_with_inv(_inv()[None]), 0.0), ValueError, r"\(4, 4\)"),
+    "inv_proj_not_contiguous": (lambda: (_with_inv(_inv().t()), 0.0), ValueError, "contiguous"),
+    "inv_proj_on_the_cpu": (lambda: (_with_inv(_inv()), 0.0), ValueError, "CUDA device"),
+    "inv_proj_on_meta": (lambda: (_with_inv(_inv().to("meta")), 0.0), ValueError,
+                         "CUDA device"),
+    "time_on_another_device": (lambda: (_with_inv(_inv().to("meta")), torch.tensor(0.5)),
+                               ValueError, "time is on cpu"),
+    "time_on_the_cpu": (lambda: (_with_inv(_inv()), torch.zeros((), device="meta")),
+                        ValueError, "time is on meta"),
+    "time_two_values": (lambda: (_with_inv(_inv()), torch.zeros(2)), ValueError, "one value"),
+    "time_string": (lambda: (_with_inv(_inv()), "0.5"), TypeError, "number"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_FRAME_INPUTS))
+def test_frame_wrapper_rejects_bad_inputs(case, monkeypatch):
+    """The frame wrapper refuses what K7 could not read as its camera and
+    time (inv_proj's type, dtype, shape, contiguity and device; a time on
+    another device, of more than one value, or of another type) before it
+    builds, reads the hash table or launches anything."""
+    class StandIn:
+        def __getattr__(self, name):
+            raise AssertionError(f"the stand-in library's {name} was reached")
+
+    def no_build(*args):
+        raise AssertionError("built before the inputs were checked")
+
+    monkeypatch.setattr(mf, "build", no_build)
+    monkeypatch.setattr(mf, "hash_table", no_build)
+    make, exc, match = BAD_FRAME_INPUTS[case]
+    u, t = make()
+    before = mf.LAUNCHES_FIELD
+    with pytest.raises(exc, match=match):
+        mf.launch(u, t, 8, 8, "noise", "xor", 256, True, 32, "analytic", 8, lib=StandIn())
+    assert mf.LAUNCHES_FIELD == before
+
+
+def test_sphere_radius_is_field_rays_radius():
+    """The squared radius the kernel receives is field_rays' Python float:
+    the field's radius plus the texel pad when quantized, 1e9 unclipped."""
+    assert mf._sphere_r2("noise", 256, True, True) == (1.0 + 2.0 * np.sqrt(3.0) / 256) ** 2
+    assert mf._sphere_r2("xor", 256, False, True) == 1.4 ** 2
+    assert mf._sphere_r2("trig", 16, False, False) == 1e9 ** 2
+    assert np.float32(mf._sphere_r2("trig", 16, True, False)) == np.float32(1e18)
 
 
 # -- the port's oracles ------------------------------------------------------------------
@@ -374,9 +500,9 @@ def test_table_hash_kernel_bitwise_on_gpu(cuda_device, case):
 
 @pytest.mark.gpu
 def test_out_of_range_table_traps_on_gpu(cuda_device):
-    """A table that misses most of octave 0's lattice arguments makes K7
-    trap; the stream's synchronization raises (in a process of its own: the
-    CUDA context is lost)."""
+    """A table that misses most of octave 0's lattice arguments makes K7,
+    making its own rays, trap; the stream's synchronization raises (in a
+    process of its own: the CUDA context is lost)."""
     import subprocess
     import sys
     from pathlib import Path
@@ -388,9 +514,8 @@ def test_out_of_range_table_traps_on_gpu(cuda_device):
         "dev = torch.device('cuda', 0)\n"
         "(lo, _), *rest = mf.HASH_RANGES\n"
         "bad = mf.build_hash_table(dev, ((lo, lo + 300), *rest))\n"
-        "rays = mf.field_rays(Camera.xor(1.0).uniform(dev), 32, 32)\n"
-        "mf.launch(mf.time_vector(0.0, dev), rays, 'noise', 'xor', 256, True, 348,\n"
-        "          'analytic', 8, table=bad)\n"
+        "mf.launch(Camera.xor(1.0).uniform(dev), 0.0, 32, 32, 'noise', 'xor', 256, True,\n"
+        "          348, 'analytic', 8, table=bad)\n"
         "try:\n"
         "    torch.cuda.synchronize()\n"
         "except RuntimeError:\n"
@@ -400,3 +525,79 @@ def test_out_of_range_table_traps_on_gpu(cuda_device):
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 3, proc.stdout + proc.stderr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(1280, 720), (97, 61), (512, 512)],
+                         ids=["1280x720", "97x61", "512x512"])
+def test_inline_frame_is_bitwise_the_plane_frame_on_gpu(cuda_device, size):
+    """K7 making its own rays gives the plane frame (render_field_plain on
+    the card: field_rays' planes marched in torch) bit for bit at the xor
+    demo's settings, at zoom 1.2 and 2.4, an axis-aligned view and the eye
+    in the box, at tile_h 8 and 16 (partial 32x8 and 32x16 blocks on both
+    axes at 97x61), the time a Python float and a 0-d tensor."""
+    w, h = size
+    for i, pose in enumerate(FIELD_POSES):
+        u = _field_uniform(pose, w / h, cuda_device)
+        t = 1.7 if i % 2 else torch.full((), 0.4, device=cuda_device)
+        want = mf.render_field_plain(u, t, w, h, grad="analytic")
+        for tile_h in (8, 16):
+            got = mf.render_field(u, t, w, h, grad="analytic", tile_h=tile_h)
+            assert torch.equal(got, want), (pose, tile_h, float((got - want).abs().max()))
+        lit = (want[..., :3] - want.new_tensor(mf._CLEAR[:3])).abs().amax(dim=-1) > 1e-3
+        assert float(lit.float().mean()) > 0.005, pose
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_inline_frame_every_variant_bitwise_on_gpu(cuda_device, variant):
+    """Each field, shading and normal source, with quantization and the
+    sphere clip on and off: K7 making its own rays is the plane frame bit for
+    bit at 97x61, at zoom 1.2 and with the eye in the box."""
+    field, shading, grad = VARIANTS[variant]
+    for pose in ("zoom1.2", "inside"):
+        u = _field_uniform(pose, 97 / 61, cuda_device)
+        for quantize in (True, False):
+            for clip in (True, False):
+                kw = dict(field=field, shading=shading, quantize=quantize, sphere_clip=clip,
+                          grad=grad)
+                got = mf.render_field(u, 1.7, 97, 61, **kw)
+                want = mf.render_field_plain(u, 1.7, 97, 61, **kw)
+                assert torch.equal(got, want), (pose, quantize, clip,
+                                                float((got - want).abs().max()))
+
+
+@pytest.mark.gpu
+def test_field_pipeline_graph_holds_k7_alone_on_gpu(cuda_device):
+    """The xor pipeline's and FieldRenderer's captured frames are one kernel
+    node each, K7: no elementwise ray kernel is left in front of it."""
+    u = _field_uniform("zoom2.4", 64 / 48, cuda_device)
+    t = torch.full((), 0.4, device=cuda_device)
+    pipe = FieldPipeline(cuda_device, grad="analytic")
+    fr = mf.FieldRenderer(cuda_device)
+    for compiled, call in ((pipe.compiled, lambda: pipe.render(u, t, 64, 48)),
+                           (fr.compiled, lambda: fr(u, t, 64, 48, grad="analytic"))):
+        first = call()
+        graph = compiled.graph(compiled.keys()[-1])
+        names = profiler._node_names(profiler._driver(), ctypes.c_void_p(graph.raw_cuda_graph()))
+        assert len(names) == 1 and profiler.kernel_name_matches(names[0],
+                                                                "march_field_kernel"), names
+        assert torch.equal(call(), first)
+        assert torch.equal(first, mf.render_field_plain(u, t, 64, 48, grad="analytic"))
+
+
+@pytest.mark.gpu
+def test_inline_rays_counter_on_gpu(cuda_device):
+    """On a card every call of the xor pipeline or FieldRenderer, captured or
+    replayed, adds width x height to ``k7.inline_rays``."""
+    u = _field_uniform("zoom1.2", 40 / 24, cuda_device)
+    pipe = FieldPipeline(cuda_device)
+    fr = mf.FieldRenderer(cuda_device)
+    with profiler.recording() as rec:
+        for _ in range(3):
+            pipe.render(u, 0.0, 40, 24)
+        fr(u, 0.0, 40, 24)
+        fr(u, 0.0, 40, 24)
+    torch.cuda.synchronize()
+    assert rec.counters["k7.inline_rays"] == 5 * 40 * 24
+    assert rec.counters["field.rays"] == 3 * 40 * 24

@@ -3,10 +3,11 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel vokselis_tpu/ops/pallas/march_field.py:_march_kernel
-// (launched by render_field_pallas). For each pixel, from the ray's eye e,
-// normalized direction d and the [t0, t1) span and step dt that the wrapper
-// computed in torch (slab test against [-1,1]^3, the dt floor of 0.01 and the
-// exact bounding-sphere clip), it runs shaders/raycast_compute.wgsl get_col2
+// (launched by render_field_pallas). Each thread makes its pixel's ray from
+// the camera's inverse proj*view and the raw time (see Rays below): the eye
+// e, the normalized direction d, the [t0, t1) span and the step dt (slab
+// test against [-1,1]^3, the dt floor of 0.01 and the exact bounding-sphere
+// clip), and sin(time). Then it runs shaders/raycast_compute.wgsl get_col2
 // (:60-95):
 //   1. color starts at (clear.rgb, 0.1);
 //   2. while t < t1 and alpha < 0.95 (at most max_steps): p = e + t d,
@@ -35,12 +36,34 @@
 // and one load replaces each, bit for bit. A lattice cell outside the table
 // traps: no clamp, no fallback to sinf. Rays stop at their own alpha exit
 // and step count, so a warp runs as long as its longest ray (lane efficiency
-// 0.70 at 512^2, 0.76 at the demo's 1280x720, PERF.md). The reads are nine
-// (H, W) planes once per pixel. The design: one thread per pixel with its
-// own loop, so each ray stops at its own alpha exit (the TPU kernel looped a
-// whole tile until every lane was done); 32-wide blocks along a row keep the
-// plane loads coalesced. The block's height (tile_h) is the xor demo's
-// SinglePass/Tile toggle: it changes the schedule, never a pixel.
+// 0.70 at 512^2, 0.76 at the demo's 1280x720, PERF.md). Its reads are the
+// 16 floats of the matrix and the time, once per thread; its ray set-up,
+// ~100 float operations, runs once per pixel against hundreds of samples.
+// The design: one thread per pixel with its own loop, so each ray stops at
+// its own alpha exit (the TPU kernel looped a whole tile until every lane
+// was done); 32-wide blocks along a row keep the frame's stores coalesced.
+// The block's height (tile_h) is the xor demo's SinglePass/Tile toggle: it
+// changes the schedule, never a pixel.
+//
+// Rays: the thread repeats march_field.py:field_rays's float32 operations
+// (geometry.rays_compute_soa, geometry.intersect_box_soa, the dt floor and
+// the sphere clip) and time_vector's sine in their order, each rounded as
+// its eager torch op rounds on the card, so that the frame is bitwise the
+// frame those torch ops feed to the plain march:
+//   sx = (2 * ix) * inv_w - 1, sy = ((2 * iy) * inv_h - 1) * neg_aspect, from
+//     the integer pixel id; inv_w = 1.0f / W and inv_h rounded once on the
+//     host (PyTorch's CUDA division by a Python int multiplies by that
+//     reciprocal), neg_aspect = -H/W rounded from double to float;
+//   near/far row i = ((m[i][0] * sx + m[i][1] * sy) + m[i][2] * z) + m[i][3]
+//     (mat4_apply, z = 0 or 1); e = near.xyz / near.w, d = far.xyz / far.w - e,
+//     d *= 1 / sqrt((dx dx + dy dy) + dz dz);
+//   the slab over 1 / d (infinite on an axis-aligned ray, and 0 * inf NaN):
+//     torch.minimum, torch.maximum and torch.clamp keep a NaN, which fminf
+//     and fmaxf alone drop, so nan_min/nan_max/nan_clamp_min repeat them;
+//   dt = max(min over axes of 1 / (dims |d|), 0.01), t0 = max(t0, 0);
+//   the sphere |e + t d|^2 = r2 (r2 rounded from the host's double) and the
+//     entry snapped forward onto t0 + j dt, j = ceil(max(ts0 - t0, 0) / dt);
+//   sin_t = sinf(time * 1) (libdevice's accurate sinf, as torch.sin).
 //
 // Numerics: the march repeats its plain version
 // (vokselis_torch/ops/cuda/march_field.py:render_field_plain) operation for
@@ -98,28 +121,99 @@ __device__ __forceinline__ float field_value(float cx, float cy, float cz, float
   return vkf::trig_field(cx, cy, cz, time, alpha);
 }
 
+// torch.minimum, torch.maximum and torch.clamp(min=) as PyTorch's CUDA
+// kernels compute them: a NaN operand is the result
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+__device__ __forceinline__ float nan_clamp_min(float v, float lo) {
+  return v != v ? v : fmaxf(v, lo);
+}
+
+// One pixel's ray: eye, normalized direction, span [t0, t1) and step
+struct FieldRay {
+  float ex, ey, ez, dx, dy, dz, t0, t1, dt;
+};
+
+// field_rays for pixel (ix, iy) through the row-major 4x4 inverse proj*view
+// m, in its operations' order (see the header's Rays note)
+__device__ __forceinline__ FieldRay field_ray(const float* __restrict__ m, int ix, int iy,
+                                              float inv_w, float inv_h, float neg_aspect,
+                                              float dims_f, float r2) {
+  const float sx = 2.0f * (float)ix * inv_w - 1.0f;
+  const float sy = (2.0f * (float)iy * inv_h - 1.0f) * neg_aspect;
+  float near[4], far[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float xy = __ldg(m + 4 * i) * sx + __ldg(m + 4 * i + 1) * sy;
+    const float m2 = __ldg(m + 4 * i + 2), m3 = __ldg(m + 4 * i + 3);
+    // z = 0 (near) or 1 (far), w = 1: a product by 1 is exact, one by 0 signs its zero
+    near[i] = (xy + m2 * 0.0f) + m3;
+    far[i] = (xy + m2) + m3;
+  }
+  FieldRay r;
+  r.ex = near[0] / near[3];
+  r.ey = near[1] / near[3];
+  r.ez = near[2] / near[3];
+  const float dx = far[0] / far[3] - r.ex;
+  const float dy = far[1] / far[3] - r.ey;
+  const float dz = far[2] / far[3] - r.ez;
+  const float inv_len = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+  r.dx = dx * inv_len;
+  r.dy = dy * inv_len;
+  r.dz = dz * inv_len;
+  // the slab test against [-1, 1]^3 (geometry.intersect_box_soa)
+  const float rx = 1.0f / r.dx, ry = 1.0f / r.dy, rz = 1.0f / r.dz;
+  const float ax0 = (-1.0f - r.ex) * rx, ax1 = (1.0f - r.ex) * rx;
+  const float ay0 = (-1.0f - r.ey) * ry, ay1 = (1.0f - r.ey) * ry;
+  const float az0 = (-1.0f - r.ez) * rz, az1 = (1.0f - r.ez) * rz;
+  const float t0 = nan_clamp_min(
+      nan_max(nan_min(ax0, ax1), nan_max(nan_min(ay0, ay1), nan_min(az0, az1))), 0.0f);
+  const float t1 = nan_min(nan_max(ax0, ax1), nan_min(nan_max(ay0, ay1), nan_max(az0, az1)));
+  // one voxel along the dominant axis, floored at 0.01
+  r.dt = nan_clamp_min(nan_min(1.0f / (dims_f * fabsf(r.dx)),
+                               nan_min(1.0f / (dims_f * fabsf(r.dy)),
+                                       1.0f / (dims_f * fabsf(r.dz)))),
+                       (float)0.01);
+  // the bounding sphere |e + t d|^2 = r2, its entry snapped onto t0 + j dt
+  const float bq = r.ex * r.dx + r.ey * r.dy + r.ez * r.dz;
+  const float cq = r.ex * r.ex + r.ey * r.ey + r.ez * r.ez - r2;
+  const float disc = bq * bq - cq;
+  const float sq = sqrtf(nan_clamp_min(disc, 0.0f));
+  const float ts0 = -bq - sq, ts1 = -bq + sq;
+  const float j0 = ceilf(nan_clamp_min(ts0 - t0, 0.0f) / r.dt);
+  const bool sph_hit = disc > 0.0f;  // no sphere hit -> zero steps
+  r.t0 = sph_hit ? t0 + j0 * r.dt : t1;
+  r.t1 = sph_hit ? nan_min(t1, ts1) : t1;
+  return r;
+}
+
 template <int FIELD, bool XOR_SHADE, bool ANALYTIC>
 __global__ void __launch_bounds__(BLOCK_X* MAX_TILE_H)
-    march_field_kernel(const float* __restrict__ tvec, const float* __restrict__ exs,
-                       const float* __restrict__ eys, const float* __restrict__ ezs,
-                       const float* __restrict__ dxs, const float* __restrict__ dys,
-                       const float* __restrict__ dzs, const float* __restrict__ t0s,
-                       const float* __restrict__ t1s, const float* __restrict__ dts,
-                       int height, int width, int dims, float inv_dims, int quantize,
-                       int max_steps, const vkf::TableHash tab, float* __restrict__ out) {
+    march_field_kernel(const float* __restrict__ inv_proj, const float* __restrict__ time,
+                       int height, int width, float inv_w, float inv_h, float neg_aspect,
+                       float r2, int dims, float inv_dims, int quantize, int max_steps,
+                       const vkf::TableHash tab, float* __restrict__ out) {
   const int ix = blockIdx.x * BLOCK_X + threadIdx.x;
   const int iy = blockIdx.y * blockDim.y + threadIdx.y;
   if (ix >= width || iy >= height) return;
   const size_t pix = (size_t)iy * width + ix;
-  const float t_raw = __ldg(tvec), sin_t = __ldg(tvec + 1);
+  const float t_raw = __ldg(time);
+  const float sin_t = sinf(t_raw * 1.0f);
   const float field_time = FIELD == TRIG ? t_raw : sin_t;
-  const float ex = exs[pix], ey = eys[pix], ez = ezs[pix];
-  const float dx = dxs[pix], dy = dys[pix], dz = dzs[pix];
-  const float t1 = t1s[pix], dt = dts[pix];
-  float t = t0s[pix];
+  const FieldRay ray =
+      field_ray(inv_proj, ix, iy, inv_w, inv_h, neg_aspect, (float)dims, r2);
+  const float ex = ray.ex, ey = ray.ey, ez = ray.ez;
+  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
+  const float t1 = ray.t1, dt = ray.dt;
+  float t = ray.t0;
   const bool hit = t < t1;
   const float half = 0.5f * (float)dims, hi = (float)(dims - 1);
-
   float r = CLEAR_R, g = CLEAR_G, b = CLEAR_B, a = 0.1f;
   if (hit) {
     for (int i = 0; i < max_steps; ++i) {
@@ -165,9 +259,8 @@ __global__ void __launch_bounds__(BLOCK_X* MAX_TILE_H)
   reinterpret_cast<float4*>(out)[pix] = make_float4(r, g, b, 1.0f);
 }
 
-using KernelFn = void (*)(const float*, const float*, const float*, const float*, const float*,
-                          const float*, const float*, const float*, const float*, const float*,
-                          int, int, int, float, int, int, const vkf::TableHash, float*);
+using KernelFn = void (*)(const float*, const float*, int, int, float, float, float, float,
+                          int, float, int, int, const vkf::TableHash, float*);
 
 KernelFn pick(int field, int xor_shade, int analytic) {
   if (field == NOISE && xor_shade)
@@ -189,38 +282,40 @@ const char* vk_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches K7 on `stream` and returns the launch's cudaError_t (0 on
-// success). Device pointers: tvec (2 f32: raw time, sin(time)); ex..dt (nine
-// height*width f32 planes: eye, direction, t0, t1, dt); hash (the f32 hash
-// table: octave o's hash(n) at hash[off_o + n - lo_o] for n - lo_o in
-// [0, last_o + 271]); out (height*width*4 f32, 16-byte aligned). field: 0
-// noise, 1 xor, 2 trig; tile_h: the block's rows (1, 2, 4, 8 or 16), 32
-// columns each. A lattice cell outside the table traps in the kernel: the
+// Launches K7 over a whole frame on `stream` and returns the launch's
+// cudaError_t (0 on success). Device pointers: inv_proj (16 f32, the camera's
+// row-major inverse proj*view); time (1 f32, the raw time); hash (the f32
+// hash table: octave o's hash(n) at hash[off_o + n - lo_o] for n - lo_o in
+// [0, last_o + 271]); out (height*width*4 f32, 16-byte aligned). r2: the
+// squared radius of the field's bounding sphere (march_field.py:_sphere_r2);
+// field: 0 noise, 1 xor, 2 trig; tile_h: the block's rows (1, 2, 4, 8 or 16),
+// 32 columns each. A lattice cell outside the table traps in the kernel: the
 // launch fails, and the stream's next synchronization reports it.
-int vk_march_field(const void* tvec, const void* ex, const void* ey, const void* ez,
-                   const void* dx, const void* dy, const void* dz, const void* t0,
-                   const void* t1, const void* dt, int height, int width, int field,
-                   int xor_shade, int analytic, int quantize, int dims, float inv_dims,
-                   int max_steps, int tile_h, const void* hash, int lo0, int lo1, int lo2,
-                   int off0, int off1, int off2, int last0, int last1, int last2, void* out,
-                   int device, void* stream) {
+int vk_march_field_frame(const void* inv_proj, const void* time, int height, int width,
+                         float r2, int field, int xor_shade, int analytic, int quantize,
+                         int dims, float inv_dims, int max_steps, int tile_h, const void* hash,
+                         int lo0, int lo1, int lo2, int off0, int off1, int off2, int last0,
+                         int last1, int last2, void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (height <= 0 || width <= 0) return (int)cudaSuccess;
   KernelFn kernel = pick(field, xor_shade, analytic);
   if (kernel == nullptr || tile_h < 1 || tile_h > MAX_TILE_H || (tile_h & (tile_h - 1)))
     return (int)cudaErrorInvalidValue;
-  if (hash == nullptr || last0 < 0 || last1 < 0 || last2 < 0)
+  if (inv_proj == nullptr || time == nullptr || hash == nullptr || last0 < 0 || last1 < 0 ||
+      last2 < 0)
     return (int)cudaErrorInvalidValue;
   const vkf::TableHash tab{(const float*)hash, {lo0, lo1, lo2}, {off0, off1, off2},
                            {last0, last1, last2}};
+  // the reciprocals PyTorch's CUDA division by a Python int multiplies by,
+  // and the Python float -H/W as a float32 operand
+  const float inv_w = 1.0f / (float)width, inv_h = 1.0f / (float)height;
+  const float neg_aspect = (float)(-((double)height / (double)width));
   const dim3 block(BLOCK_X, tile_h);
   const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + tile_h - 1) / tile_h);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)tvec, (const float*)ex, (const float*)ey, (const float*)ez,
-      (const float*)dx, (const float*)dy, (const float*)dz, (const float*)t0,
-      (const float*)t1, (const float*)dt, height, width, dims, inv_dims, quantize, max_steps,
-      tab, (float*)out);
+      (const float*)inv_proj, (const float*)time, height, width, inv_w, inv_h, neg_aspect, r2,
+      dims, inv_dims, quantize, max_steps, tab, (float*)out);
   return (int)cudaGetLastError();
 }
 

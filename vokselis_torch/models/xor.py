@@ -58,13 +58,14 @@ class FieldPipeline:
     launches (None: the module's own) and ``fields`` the plain version's
     field module; :meth:`reload` rebinds the one of the device's route.
 
-    On a card :meth:`render` replays a CUDA graph of the frame
-    (:func:`march_field.field_rays` + K7; ``compiled``), one per width,
+    On a card :meth:`render` replays a CUDA graph of the frame (K7 alone,
+    which makes its own rays from the camera; ``compiled``), one per width,
     height and ``tile_h`` (the field, shading, normals, quantization, grid
     and step count are the pipeline's), with the time copied into the
     graph's 0-d input: a new time replays. :func:`march_field.render_field`
     is the eager frame. Each call adds its rays, width x height, to the
-    counter ``field.rays`` of an active ``profiler.recording()``."""
+    counter ``field.rays`` of an active ``profiler.recording()``, and on a
+    card to ``k7.inline_rays`` too."""
 
     def __init__(self, device, grad: str | None = None, source=None, dims: int = DIMS):
         self.device = torch.device(device)
@@ -110,6 +111,7 @@ class FieldPipeline:
         key = (width, height, FIELD, SHADING, self.grad, True, tile_h, self.dims,
                MAX_STEPS_COMPUTE)
         count("field.rays", width * height)
+        march_field.count_inline_rays(camera_uniform, width, height)
         return self.compiled(key, fn, (camera_uniform, time))
 
 

@@ -5,19 +5,21 @@ The kernel (``vokselis_torch/csrc/march_field.cu``, with the fields in
 ``csrc/fields.cuh``) replaces the TPU kernel
 ``vokselis_tpu/ops/pallas/march_field.py:_march_kernel``; :func:`render_field`
 is the counterpart of ``render_field_pallas``, and :class:`FieldRenderer`
-of that function's ``jax.jit``: one CUDA graph per static key. Ray generation
-(:func:`geometry.rays_compute_soa`), the slab test, the per-ray dt and the
-exact bounding-sphere clip with its lattice snap stay torch glue
-(:func:`field_rays`), as the JAX package computes them in XLA; the kernel
-runs the march body. It is compiled with ``nvcc`` for ``sm_90a`` at first use
-on a CUDA device into ``build/vokselis_torch/`` and loaded with ``ctypes``;
-importing this module builds nothing.
+of that function's ``jax.jit``: one CUDA graph per static key. The kernel
+takes the camera's ``inv_proj`` and the raw time: each thread makes its
+pixel's ray (:func:`geometry.rays_compute_soa`), the slab test, the per-ray
+dt, the exact bounding-sphere clip with its lattice snap and sin(time), bit
+for bit as :func:`field_rays` and :func:`time_vector` compute them in torch
+(the JAX package computes them in XLA), then runs the march body. It is
+compiled with ``nvcc`` for ``sm_90a`` at first use on a CUDA device into
+``build/vokselis_torch/`` and loaded with ``ctypes``; importing this module
+builds nothing.
 
 :func:`render_field` launches the kernel for a camera uniform on a CUDA
-device and takes :func:`render_field_plain`, its operation-for-operation
-torch twin, only on the CPU. A failed build or launch raises; there is no
-fallback. ``LAUNCHES_FIELD`` counts the kernel's launches (one per
-successful launch, and nowhere else).
+device and takes its plain twin, :func:`field_rays` and :func:`time_vector`
+marched by :func:`_march_plain` operation for operation, only on the CPU.
+A failed build or launch raises; there is no fallback. ``LAUNCHES_FIELD``
+counts the kernel's launches (one per successful launch, and nowhere else).
 
 The kernel reads the fbm field's lattice hashes from :func:`hash_table`
 (``hash_table.py``, shared with K9 and K8: built once per device by the
@@ -50,6 +52,7 @@ from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_l
 from vokselis_torch.ops.cuda.hash_table import (  # noqa: F401
     HASH_RANGES, HashTable, build_hash_table, hash_table, table_args, table_hash)
 from vokselis_torch.ops.reference import MAX_STEPS_COMPUTE
+from vokselis_torch.utils.spans import count
 from vokselis_torch.volume import fields_soa
 
 SOURCE = CSRC / "march_field.cu"
@@ -81,8 +84,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     (this module's own, or one the hot-reload loop rebuilt from an edited
     source); returns ``lib``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vk_march_field.argtypes = [p] * 10 + [i] * 7 + [f, i, i, p] + [i] * 9 + [p, i, p]
-    lib.vk_march_field.restype = i
+    lib.vk_march_field_frame.argtypes = ([p, p, i, i, f] + [i] * 5 + [f, i, i, p] + [i] * 9
+                                         + [p, i, p])
+    lib.vk_march_field_frame.restype = i
     return lib
 
 
@@ -106,19 +110,31 @@ def default_grad() -> str:
 
 
 def time_vector(time, device) -> torch.Tensor:
-    """``[raw time, sin(time)]`` as a (2,) f32 tensor on ``device``: the
+    """``[raw time, sin(time)]`` as a (2,) f32 tensor on ``device``, which
+    the plain march reads (K7 takes the raw time and makes the sine): the
     noise and xor fields take sin(time), the trig field the raw time. A 0-d
     tensor already on the device is not copied."""
     t = torch.as_tensor(time, dtype=torch.float32, device=device).reshape(())
     return torch.stack([t, torch.sin(t * 1.0)])
 
 
+def _sphere_r2(field: str, dims: int, quantize: bool, sphere_clip: bool) -> float:
+    """The squared radius of the field's bounding sphere (a Python float,
+    which meets the rays as float32): the field's radius, grown by one
+    voxel's reach when quantized; 1e9 without the clip."""
+    radius = _RADIUS[field] if sphere_clip else 1e9
+    pad = (2.0 * math.sqrt(3.0) / dims) if quantize else 0.0
+    return (radius + pad) ** 2
+
+
 def field_rays(camera_uniform, width: int, height: int, field: str = "noise",
                dims: int = 256, quantize: bool = True, sphere_clip: bool = True):
-    """The nine (H, W) f32 planes the march reads (march_field.py:239-283):
-    eye (ex, ey, ez), direction (dx, dy, dz), the span t0 <= t < t1 and the
-    step dt. dt is one voxel of a dims^3 grid along the dominant axis,
-    floored at 0.01 (raycast_compute.wgsl:65-68).
+    """The nine (H, W) f32 planes the plain march reads
+    (march_field.py:239-283): eye (ex, ey, ez), direction (dx, dy, dz), the
+    span t0 <= t < t1 and the step dt. dt is one voxel of a dims^3 grid
+    along the dominant axis, floored at 0.01 (raycast_compute.wgsl:65-68).
+    K7's threads make each pixel's nine values themselves, bit for bit as
+    these torch ops make them on the card (``csrc/march_field.cu``).
 
     The exact empty-space clip: every field windows its alpha to zero beyond
     a radius, and with clear.a == 0 a zero-alpha step composites nothing, so
@@ -136,9 +152,7 @@ def field_rays(camera_uniform, width: int, height: int, field: str = "noise",
         ),
         min=0.01,
     )
-    radius = _RADIUS[field] if sphere_clip else 1e9
-    pad = (2.0 * math.sqrt(3.0) / dims) if quantize else 0.0
-    r2 = (radius + pad) ** 2
+    r2 = _sphere_r2(field, dims, quantize, sphere_clip)
     # |e + t d|^2 = R^2  (d normalized)
     bq = ex * dx + ey * dy + ez * dz
     cq = ex * ex + ey * ey + ez * ez - r2
@@ -245,10 +259,8 @@ def _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad,
     return img
 
 
-def _prepare(camera_uniform, time, width, height, field, shading, dims, quantize, max_steps,
-             tile_h, sphere_clip, grad):
-    """Check the arguments; returns (grad, rays, time vector) on the camera
-    uniform's device."""
+def _check_args(camera_uniform, width, height, field, shading, dims, max_steps, tile_h, grad):
+    """Check the arguments; returns the resolved ``grad``."""
     grad = default_grad() if grad is None else grad
     device = camera_uniform.inv_proj.device
     if device.type not in ("cpu", "cuda"):
@@ -267,34 +279,57 @@ def _prepare(camera_uniform, time, width, height, field, shading, dims, quantize
         raise ValueError(f"max_steps must be a non-negative int, got {max_steps!r}")
     if width < 1 or height < 1:
         raise ValueError(f"bad frame {width}x{height}")
-    rays = field_rays(camera_uniform, width, height, field, dims, quantize, sphere_clip)
-    return grad, rays, time_vector(time, device)
+    return grad
 
 
-def launch(tvec, rays, field, shading, dims, quantize, max_steps, grad, tile_h, table=None,
-           lib=None):
-    """Launch K7 on precomputed rays (:func:`field_rays`) and the time
-    vector (:func:`time_vector`), all f32 on one CUDA device; returns the
-    (H, W, 4) f32 image. The kernel reads the device's :func:`hash_table`;
-    a lattice argument outside it makes the kernel trap, which the stream's
-    next synchronization raises. ``table`` is a test hook: another table
-    (one cut short, to show the trap) in place of the device's. ``lib`` is
-    a K7 library already bound by :func:`bind` (one the hot-reload loop
-    rebuilt) in place of this module's :func:`build`."""
+def _check_frame(camera_uniform, time):
+    """The kernel's inputs: the uniform's ``inv_proj``, a contiguous (4, 4)
+    float32 tensor on a CUDA device, and ``time``, a Python number (uploaded)
+    or a one-element tensor on that device; returns ``(inv_proj, the time as
+    a 0-d float32 tensor there)``."""
+    inv = camera_uniform.inv_proj
+    if not isinstance(inv, torch.Tensor):
+        raise TypeError(f"inv_proj must be a torch.Tensor, got {type(inv)}")
+    if inv.dtype != torch.float32:
+        raise TypeError(f"inv_proj must be float32, got {inv.dtype}")
+    if tuple(inv.shape) != (4, 4) or not inv.is_contiguous():
+        raise ValueError(f"inv_proj must be a contiguous (4, 4) tensor, got "
+                         f"{tuple(inv.shape)} with strides {inv.stride()}")
+    if isinstance(time, torch.Tensor):
+        if time.device != inv.device:
+            raise ValueError(f"time is on {time.device}, the uniform on {inv.device}")
+        if time.numel() != 1:
+            raise ValueError(f"time must hold one value, got {tuple(time.shape)}")
+    elif not isinstance(time, (int, float, np.integer, np.floating)):
+        raise TypeError(f"time must be a number or a tensor, got {type(time)}")
+    if inv.device.type != "cuda":
+        raise ValueError(f"K7 launches on a CUDA device, not {inv.device}")
+    return inv, torch.as_tensor(time, dtype=torch.float32, device=inv.device).reshape(())
+
+
+def launch(camera_uniform, time, width, height, field, shading, dims, quantize, max_steps,
+           grad, tile_h, sphere_clip=True, table=None, lib=None):
+    """Launch K7 for the (height, width) frame of ``camera_uniform`` at
+    ``time`` on its CUDA device; returns the (H, W, 4) f32 image. Each thread
+    makes its pixel's ray, span and step (:func:`field_rays`) and sin(time)
+    (:func:`time_vector`) bit for bit from the uniform's ``inv_proj`` and
+    the raw time: no ray plane is written. The kernel reads the device's
+    :func:`hash_table`; a lattice argument outside it makes the kernel trap,
+    which the stream's next synchronization raises. ``table`` is a test
+    hook: another table (one cut short, to show the trap) in place of the
+    device's. ``lib`` is a K7 library already bound by :func:`bind` (one the
+    hot-reload loop rebuilt) in place of this module's :func:`build`."""
     global LAUNCHES_FIELD
+    inv, t = _check_frame(camera_uniform, time)
     lib = build() if lib is None else lib
-    dev = tvec.device
+    dev = inv.device
     table = hash_table(dev) if table is None else table
-    for x in (tvec, table.values) + tuple(rays):
-        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("march_field wants contiguous f32 planes on one device")
-    for x in rays:
-        if x.shape != rays[0].shape:
-            raise ValueError(f"ray planes differ in shape: {tuple(x.shape)}")
-    height, width = rays[0].shape
+    if table.values.device != dev or table.values.dtype != torch.float32:
+        raise ValueError("march_field wants the hash table as f32 on the uniform's device")
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
-    err = lib.vk_march_field(
-        tvec.data_ptr(), *(x.data_ptr() for x in rays), height, width, FIELDS.index(field),
+    err = lib.vk_march_field_frame(
+        inv.data_ptr(), t.data_ptr(), height, width,
+        float(np.float32(_sphere_r2(field, dims, quantize, sphere_clip))), FIELDS.index(field),
         int(shading == "xor"), int(grad == "analytic"), int(quantize), dims,
         float(np.float32(1.0 / dims)), max_steps, tile_h, *table_args(table), out.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
@@ -302,6 +337,15 @@ def launch(tvec, rays, field, shading, dims, quantize, max_steps, grad, tile_h, 
     check_launch(lib, err, "march_field")
     LAUNCHES_FIELD += 1
     return out
+
+
+def count_inline_rays(camera_uniform, width: int, height: int) -> None:
+    """On a card, add the rays K7 makes itself for a frame, width x height,
+    to the counter ``k7.inline_rays`` of an active ``spans.recording()``.
+    The compiled entries call it outside their captured frame, so that
+    every replay counts; a CPU frame counts nothing."""
+    if camera_uniform.inv_proj.is_cuda:
+        count("k7.inline_rays", width * height)
 
 
 @torch.no_grad()
@@ -318,20 +362,22 @@ def render_field(camera_uniform, time=0.0, width: int = 1280, height: int = 720,
     ``quantize=False``). ``time`` is a Python float or a 0-d tensor on that
     device (then nothing is uploaded). ``tile_h`` sets the kernel block's
     rows and never changes a pixel. ``grad`` defaults to
-    :func:`default_grad`. A CUDA uniform launches the kernel (``lib``: a
-    rebuilt library in place of this module's, see :func:`launch`); a CPU
-    uniform takes :func:`render_field_plain` (``fields``: a field module in
-    place of :mod:`fields_soa`, see :func:`_march_plain`)."""
-    grad, rays, tvec = _prepare(camera_uniform, time, width, height, field, shading, dims,
-                                quantize, max_steps, tile_h, sphere_clip, grad)
-    if tvec.device.type == "cpu":
-        return _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad,
-                            fields=fields_soa if fields is None else fields)
+    :func:`default_grad`. A CUDA uniform launches the kernel, which makes
+    its own rays (``lib``: a rebuilt library in place of this module's, see
+    :func:`launch`); a CPU uniform takes the plain twin, :func:`field_rays`
+    and :func:`time_vector` marched by :func:`_march_plain` (``fields``: a
+    field module in place of :mod:`fields_soa`)."""
+    grad = _check_args(camera_uniform, width, height, field, shading, dims, max_steps, tile_h,
+                       grad)
+    if camera_uniform.inv_proj.device.type == "cpu":
+        rays = field_rays(camera_uniform, width, height, field, dims, quantize, sphere_clip)
+        return _march_plain(time_vector(time, "cpu"), rays, field, shading, dims, quantize,
+                            max_steps, grad, fields=fields_soa if fields is None else fields)
     if fields is not None:
         raise ValueError("a Python field module drives only the plain version (CPU); "
                          "the kernel's fields are csrc/fields.cuh")
-    return launch(tvec, rays, field, shading, dims, quantize, max_steps, grad, tile_h,
-                  lib=lib)
+    return launch(camera_uniform, time, width, height, field, shading, dims, quantize,
+                  max_steps, grad, tile_h, sphere_clip, lib=lib)
 
 
 @torch.no_grad()
@@ -341,11 +387,15 @@ def render_field_plain(camera_uniform, time=0.0, width: int = 1280, height: int 
                        tile_h: int = DEFAULT_TILE_H, sphere_clip: bool = True,
                        grad: str | None = None, return_steps: bool = False):
     """K7's plain torch version on any device, with :func:`render_field`'s
-    arguments (``tile_h`` is checked and has no effect). With
-    ``return_steps`` also returns the (H, W) int32 count of samples each ray
-    took (the work the kernel does for these rays)."""
-    grad, rays, tvec = _prepare(camera_uniform, time, width, height, field, shading, dims,
-                                quantize, max_steps, tile_h, sphere_clip, grad)
+    arguments (``tile_h`` is checked and has no effect): the ray planes of
+    :func:`field_rays` and :func:`time_vector`, marched by
+    :func:`_march_plain`. With ``return_steps`` also returns the (H, W)
+    int32 count of samples each ray took (the work the kernel does for these
+    rays)."""
+    grad = _check_args(camera_uniform, width, height, field, shading, dims, max_steps, tile_h,
+                       grad)
+    rays = field_rays(camera_uniform, width, height, field, dims, quantize, sphere_clip)
+    tvec = time_vector(time, camera_uniform.inv_proj.device)
     return _march_plain(tvec, rays, field, shading, dims, quantize, max_steps, grad,
                         return_steps)
 
@@ -359,7 +409,8 @@ class FieldRenderer:
     max_steps, tile_h, sphere_clip, grad``, ``grad`` resolved by
     :func:`default_grad`). The camera uniform's three tensors and the time (a
     Python float or a 0-d f32 tensor on the device) are the graph's inputs,
-    so a new pose or time replays. On the CPU a call is
+    so a new pose or time replays; each call on a card adds its rays to
+    ``k7.inline_rays`` (:func:`count_inline_rays`). On the CPU a call is
     :func:`render_field`, which is also the eager frame the graphs capture.
     A uniform on another type of device than ``device`` raises."""
 
@@ -383,4 +434,5 @@ class FieldRenderer:
             return render_field(u, t, width, height, field, shading, dims, quantize, max_steps,
                                 tile_h, sphere_clip, grad)
 
+        count_inline_rays(camera_uniform, width, height)
         return self.compiled(key, fn, (camera_uniform, time))
