@@ -27,7 +27,10 @@ Phases, each reported on its own lines:
      view on the grid's z): 8 orbit views at 512^2 and 3 at 1001x563
      (partial 16x8 blocks on both axes) of the 256^3 bonsai, each view
      bitwise equal to a single-view launch on its uniform and to the
-     plain version;
+     plain version; the kingsnake scan's shape (the benchmark's stand-in,
+     795 x 1024 x 1024, read from DRAM) at one pose at zoom 0.9 through
+     BonsaiRenderer, bitwise the plain version, with K1's device ms beside
+     the 256^3 bonsai frame's at that pose;
   3b. K3, K4 (low-degree transfer), K4b (K4's exact-transfer mode) and K6
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
@@ -367,6 +370,7 @@ ESCALATED_POSES = [dict(zoom=1.0, pitch=-0.35, yaw=2 * math.pi * i / 8) for i in
 FIELD_RES = 512  # configs 1 and 2 (bench.py:442-444)
 K7_MAX, K7_MEAN = 5e-3, 1e-5  # test_pallas.py:41-58, K7 vs plain if not bitwise
 VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-371)
+SCAN_SHAPE = (795, 1024, 1024)  # the Open SciVis kingsnake, (D, H, W)
 # phase 4h's timing rounds: a 64-view batch takes ~20-30 ms batched and
 # ~70-125 ms view by view, a 1024^2 frame ~1.5
 MESH_BATCH_ROUNDS, MESH_FRAME_ROUNDS = 25, 60
@@ -1017,6 +1021,39 @@ def main() -> int:
               "and the plain version")
         worst["K1"] = max(worst["K1"], mx)
     del ub, eye_b, dxyz_b, img_b, plain_b
+
+    # a full-size CT scan's shape, the benchmark's kingsnake stand-in (795 x
+    # 1024 x 1024, 834 MB: K1's gathers from DRAM), one pose at zoom 0.9:
+    # K1 making its rays through the renderer bitwise its plain twin, and its
+    # device ms beside the 256^3 bonsai frame's at that pose
+    from benchmark.reference.standin_kingsnake import kingsnake
+
+    snake_r = mb.BonsaiRenderer(kingsnake(SCAN_SHAPE, 2**31 + 27, dev), dev)
+    close_u = Camera(zoom=0.9, pitch=0.4, yaw=0.8, target=(0.5, 0.5, 0.5),
+                     aspect=1.0).uniform(dev)
+    reset_launches()
+    img_k = snake_r(close_u, RES, RES)
+    snake_launches = launches()
+    wrapper_check("the scan frame", snake_launches, "K1")
+    eye, dxyz = geometry.rays_fragment_soa(close_u, RES, RES)
+    img_p = mb.render_bonsai_rays_plain(snake_r.vol, eye, dxyz)
+    mx, mean = rgb_err(img_k, img_p)
+    snake_equal = torch.equal(img_k, img_p)
+    snake_lit = float((img_k[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
+    snake_dev = device_ms(lambda: mb.render_bonsai_frame_cuda(snake_r.vol, close_u, RES, RES),
+                          torch)
+    bonsai_dev = device_ms(lambda: mb.render_bonsai_frame_cuda(vol_bonsai, close_u, RES, RES),
+                           torch)
+    print(f"phase 3 K1 vs plain kingsnake stand-in {'x'.join(map(str, SCAN_SHAPE))} zoom 0.9 "
+          f"{RES}x{RES} ({card}; BonsaiRenderer, {snake_r.max_steps} steps; voxels above 0 "
+          f"{float((snake_r.vol > 0).float().mean()):.4f}): bitwise equal {snake_equal}, max "
+          f"{mx:.3e} mean {mean:.3e}, lit pixels {snake_lit:.4f}, launches {snake_launches}; "
+          f"K1 making its rays, device {snake_dev:.4f} ms (the 256^3 bonsai's at that pose "
+          f"{bonsai_dev:.4f} ms; CUDA graph of {GRAPH_LAUNCHES} launches)", flush=True)
+    check(snake_equal and snake_lit > 0.1 and snake_r.max_steps == 1775,
+          "the scan frame disagrees with K1's plain version or shows nothing")
+    worst["K1"] = max(worst["K1"], mx)
+    del snake_r, img_k, img_p, eye, dxyz
 
     # -- phase 3b: K3, K4, K4b, K34, K6 against their plain versions -------
     fast_r = shear_warp.FastBonsaiRenderer(vol_bonsai, dev, intermediate=II)

@@ -2,7 +2,10 @@
 """Bonsai demo on the PyTorch + CUDA port (vokselis_torch): raymarch the
 256^3 CT volume with the hand-written march kernel, or render it with the
 shear-warp kernels (``--fast``) or the hybrid renderer (``--hybrid``: the
-fast frame with its worst tiles re-marched exactly).
+fast frame with its worst tiles re-marched exactly). ``--volume`` marches
+another uint8 scan, an Open SciVis Datasets ``.raw`` file whose name gives
+its dims (e.g. ``kingsnake_1024x1024x795_uint8.raw``), with the exact
+renderer: it takes any (D, H, W) volume, fast and hybrid only cubes.
 
 Same command line as examples/bonsai.py. Runs on the CUDA card; ``--cpu``
 runs the kernels' plain torch versions on the CPU instead.
@@ -22,17 +25,24 @@ def main():
         "--hybrid", action="store_true",
         help="hybrid renderer (shear-warp frame, worst tiles re-marched exactly)",
     )
+    parser.add_argument(
+        "--volume", default=None,
+        help="an Open SciVis uint8 .raw file to march with the exact renderer, its dims "
+             "read from its name (<name>_<x>x<y>x<z>_uint8.raw)",
+    )
     args = parser.parse_args()
+    if args.volume and (args.fast or args.hybrid):
+        parser.error("--volume takes the exact renderer only")
     from vokselis_torch.engine.loop import run
     from vokselis_torch.models.bonsai import BonsaiDemo
 
     demo_cls = BonsaiDemo
-    renderer = "fast" if args.fast else "hybrid" if args.hybrid else None
-    if renderer:
+    renderer = "fast" if args.fast else "hybrid" if args.hybrid else "exact"
+    if renderer != "exact" or args.volume:
         class demo_cls(BonsaiDemo):  # noqa: N801 - init-arg shim for run()
             @classmethod
             def init(cls, ctx):
-                return BonsaiDemo.init(ctx, renderer=renderer)
+                return BonsaiDemo.init(ctx, renderer=renderer, volume=args.volume)
 
     camera = BonsaiDemo.default_camera(args.width / args.height)
     events = orbit_events(args.frames, args.width, args.height) if args.orbit else None

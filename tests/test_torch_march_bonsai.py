@@ -144,7 +144,8 @@ def _good_inputs():
 
 BAD_INPUTS = {
     "vol_float32": (lambda k: k.update(vol=k["vol"].float()), TypeError),
-    "vol_not_cubic": (lambda k: k.update(vol=k["vol"][:, :, :16].contiguous()), ValueError),
+    # K1 takes any (D, H, W) volume; one with an empty axis it refuses
+    "vol_not_cubic": (lambda k: k.update(vol=k["vol"][:, :, :0].contiguous()), ValueError),
     "vol_not_contiguous": (lambda k: k.update(vol=k["vol"].transpose(0, 2)), ValueError),
     "rays_float64": (lambda k: k.update(dx=k["dx"].double()), TypeError),
     "rays_not_contiguous": (lambda k: k.update(dy=k["dy"].t()), ValueError),
@@ -174,7 +175,7 @@ def test_wrapper_rejects_negative_max_steps():
 
 def test_renderer_rejects_bad_volume():
     with pytest.raises(ValueError):
-        mb.BonsaiRenderer(np.zeros((8, 8, 4), np.uint8), "cpu")
+        mb.BonsaiRenderer(np.zeros((8, 8), np.uint8), "cpu")
     with pytest.raises(ValueError):
         mb.BonsaiRenderer(np.zeros((8, 8, 8), np.float32), "cpu")
 

@@ -8,26 +8,30 @@
 // the oracle vokselis_torch/ops/reference.py:render_bonsai_rays compute, for
 // each pixel (shaders/raycast_naive.wgsl fs_main, :84-125):
 //   1. clip the ray to the [0,1]^3 box (slab test);
-//   2. dt = 1 / (D * max|d|): each step moves the dominant axis one voxel;
+//   2. dt = min over the axes a of 1 / (N_a * |d_a|), (N_x, N_y, N_z) =
+//      (W, H, D): each step moves one voxel along the axis that crosses
+//      voxels fastest (for a cube, 1 / (D * max|d|));
 //   3. march while t < t1 and alpha < 0.95, position accumulated p += d * dt;
-//   4. trilinear R8Unorm sample with wgpu ClampToEdge taps (texel x = p*D - 0.5,
-//      taps floor(x) and floor(x)+1, each clamped to [0, D-1]);
+//   4. trilinear R8Unorm sample with wgpu ClampToEdge taps (texel x = p*W - 0.5,
+//      taps floor(x) and floor(x)+1, each clamped to [0, W-1]; y with H, z
+//      with D);
 //   5. transfer tv = smoothstep(0.10, 1.2, min(0.9, samp)) (the clamp-argument
 //      quirk) and the vertigo palette (TAU = 6.28318);
 //   6. composite under: rgb += (1-a)*tv*c, a += (1-a)*tv;
 //   7. optional linear_to_srgb on rgb; alpha out is 1.
 //
 // What bounds it on this card: the steps, one after another. A ray takes up
-// to MAX_STEPS (444 at D=256) steps, each from the position the previous
-// one left. Empty-space skipping (march_ray) makes most of them cheap: at
-// the bench pose 97 % of the steps lie in cells with no voxel above OCC_CUT
-// and cost only the position arithmetic and, on entering a cell, one read
-// of the 32 KB occupancy table; the rest gather 8 one-byte taps whose
-// addresses depend on the step's position, and take the transfer and three
-// cosf, divergent within a warp at the volume's surfaces. The design: the
-// volume stays one contiguous (D, D, D) buffer indexed [z][y][x] (256^3 =
-// 16.8 MB, resident in the 50 MB L2 across frames) and is read through
-// __ldg, as is the table (not staged into shared memory: every block would
+// to max_steps (the volume's full diagonal: 445 at 256^3) steps, each from
+// the position the previous one left. Empty-space skipping (march_ray) makes
+// most of them cheap: at the bench pose 97 % of the steps lie in cells with
+// no voxel above OCC_CUT and cost only the position arithmetic and, on
+// entering a cell, one read of the 32 KB occupancy table; the rest gather 8
+// one-byte taps whose addresses depend on the step's position, and take the
+// transfer and three cosf, divergent within a warp at the volume's surfaces.
+// The design: the volume stays one contiguous (D, H, W) buffer indexed
+// [z][y][x] (256^3 = 16.8 MB, resident in the 50 MB L2 across frames; a
+// 1024x1024x795 scan, 834 MB, read from DRAM) and is read through __ldg, as
+// is the table (not staged into shared memory: every block would
 // copy it); threads run in 16x8 pixel blocks so that neighbouring rays,
 // which sample neighbouring voxels and cross the same cells, share L1 lines
 // and skip together; each thread breaks out at alpha >= 0.95. None of the
@@ -112,29 +116,38 @@ struct Taps {
   float fx, fy, fz;
 };
 
-__device__ __forceinline__ Taps taps_at(int dims, float fdims, float px, float py, float pz) {
-  const float x = px * fdims - 0.5f;
-  const float y = py * fdims - 0.5f;
-  const float z = pz * fdims - 0.5f;
+// The volume's extent per axis, voxels (nx, ny, nz) = (W, H, D), and as floats.
+struct Dims {
+  int nx, ny, nz;
+  float fx, fy, fz;
+};
+
+__device__ __forceinline__ Dims dims_of(int w, int h, int d) {
+  return Dims{w, h, d, (float)w, (float)h, (float)d};
+}
+
+__device__ __forceinline__ Taps taps_at(const Dims& n, float px, float py, float pz) {
+  const float x = px * n.fx - 0.5f;
+  const float y = py * n.fy - 0.5f;
+  const float z = pz * n.fz - 0.5f;
   const float x0f = floorf(x), y0f = floorf(y), z0f = floorf(z);
-  const int hi = dims - 1;
   Taps t;
   t.fx = x - x0f;
   t.fy = y - y0f;
   t.fz = z - z0f;
-  t.x0 = clampi((int)x0f, hi);
-  t.x1 = clampi((int)x0f + 1, hi);
-  t.y0 = clampi((int)y0f, hi);
-  t.y1 = clampi((int)y0f + 1, hi);
-  t.z0 = clampi((int)z0f, hi);
-  t.z1 = clampi((int)z0f + 1, hi);
+  t.x0 = clampi((int)x0f, n.nx - 1);
+  t.x1 = clampi((int)x0f + 1, n.nx - 1);
+  t.y0 = clampi((int)y0f, n.ny - 1);
+  t.y1 = clampi((int)y0f + 1, n.ny - 1);
+  t.z0 = clampi((int)z0f, n.nz - 1);
+  t.z1 = clampi((int)z0f + 1, n.nz - 1);
   return t;
 }
 
-// sample_trilinear_r8 of an R8Unorm (D, D, D) volume at the taps tp.
-__device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vol, int dims,
+// sample_trilinear_r8 of an R8Unorm (D, H, W) volume at the taps tp.
+__device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vol, const Dims& n,
                                                   const Taps& tp) {
-  const size_t row = (size_t)dims, slab = (size_t)dims * dims;
+  const size_t row = (size_t)n.nx, slab = (size_t)n.nx * n.ny;
   const uint8_t* r00 = vol + tp.z0 * slab + tp.y0 * row;
   const uint8_t* r10 = vol + tp.z0 * slab + tp.y1 * row;
   const uint8_t* r01 = vol + tp.z1 * slab + tp.y0 * row;
@@ -210,11 +223,12 @@ __device__ __forceinline__ float horner(const float (&c)[N], float u) {
 // value is reloaded only when the step enters another cell.
 template <bool FAST>
 __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
-                                            const uint8_t* __restrict__ occ, int dims,
+                                            const uint8_t* __restrict__ occ, const Dims& n,
                                             float ex, float ey, float ez, float dx,
                                             float dy, float dz, int max_steps) {
-  const float fdims = (float)dims;
-  const int cells = (dims + OCC_CELL - 1) / OCC_CELL;
+  // the occupancy table's cells along x and y ([z][y][x], march_bonsai.py:occupancy_table)
+  const int cells_x = (n.nx + OCC_CELL - 1) / OCC_CELL;
+  const int cells_y = (n.ny + OCC_CELL - 1) / OCC_CELL;
 
   // slab test against [0,1]^3 (geometry.intersect_box_unit)
   const float inx = 1.0f / dx, iny = 1.0f / dy, inz = 1.0f / dz;
@@ -226,9 +240,10 @@ __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
   const bool hit = t0 <= t1;
   float t = fmaxf(t0, 0.0f);
 
-  // one voxel along the dominant axis per step (raycast_naive.wgsl:97-99)
-  const float dt = fminf(1.0f / (fdims * fabsf(dx)),
-                         fminf(1.0f / (fdims * fabsf(dy)), 1.0f / (fdims * fabsf(dz))));
+  // one voxel per step along the axis that crosses voxels fastest
+  // (raycast_naive.wgsl:97-99, there with the cube's 256 on every axis)
+  const float dt = fminf(1.0f / (n.fx * fabsf(dx)),
+                         fminf(1.0f / (n.fy * fabsf(dy)), 1.0f / (n.fz * fabsf(dz))));
 
   float px = ex + t * dx, py = ey + t * dy, pz = ez + t * dz;
   float r = 0.0f, g = 0.0f, b = 0.0f, a = 0.0f;
@@ -237,14 +252,15 @@ __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
   if (hit) {
     for (int i = 0; i < max_steps; ++i) {
       if (!(t < t1) || !(a < 0.95f)) break;
-      const Taps tp = taps_at(dims, fdims, px, py, pz);
-      const int c = ((tp.z0 / OCC_CELL) * cells + tp.y0 / OCC_CELL) * cells + tp.x0 / OCC_CELL;
+      const Taps tp = taps_at(n, px, py, pz);
+      const int c =
+          ((tp.z0 / OCC_CELL) * cells_y + tp.y0 / OCC_CELL) * cells_x + tp.x0 / OCC_CELL;
       if (c != cell) {
         cell = c;
         empty = __ldg(occ + c) <= OCC_CUT;
       }
       if (!empty) {
-        const float samp = sample_trilinear(vol, dims, tp);
+        const float samp = sample_trilinear(vol, n, tp);
         // transfer: smoothstep(0.10, 1.2, min(0.9, samp)) + vertigo
         float s = (fminf(samp, 0.9f) - 0.10f) * INV_SMOOTH_SPAN;
         s = fminf(fmaxf(s, 0.0f), 1.0f);
@@ -302,11 +318,16 @@ __device__ __forceinline__ float3 fragment_ray(const float* __restrict__ m, int 
 // K1. INLINE_RAYS: view v's ray is made here from inv_proj[16 v ..] and its
 // eye read from view_position at 4 v (dx/dy/dz unused); else the ray is read
 // from the dx/dy/dz planes and the eye at 3 v (inv_proj unused). One march
-// loop either way.
-template <bool INLINE_RAYS>
+// loop either way. CUBE: vol_w == vol_h == vol_d, and the march takes that one
+// size on every axis, so that the compiler keeps one of each per-axis value:
+// the same operations, in the cubic kernel's instructions. (With three sizes
+// the loop reloads them from the constant bank and clamps the upper taps
+// before the skip's branch; on an H100 that took K1 on the 256^3 bonsai at
+// 1024^2 from 0.27 to 0.32 ms.)
+template <bool INLINE_RAYS, bool CUBE>
 __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
     march_bonsai_kernel(const uint8_t* __restrict__ vol, const uint8_t* __restrict__ occ,
-                        int dims,
+                        int vol_w, int vol_h, int vol_d,
                         const float* __restrict__ dxs, const float* __restrict__ dys,
                         const float* __restrict__ dzs, const float* __restrict__ inv_proj,
                         const float* __restrict__ eye, int height, int width, float inv_w,
@@ -320,8 +341,9 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
   const size_t pix = v * height * width + (size_t)iy * width + ix;
   const float3 d = INLINE_RAYS ? fragment_ray(inv_proj + 16 * v, ix, iy, inv_w, inv_h)
                                : make_float3(dxs[pix], dys[pix], dzs[pix]);
-  float3 c = march_ray<false>(vol, occ, dims, __ldg(e), __ldg(e + 1), __ldg(e + 2), d.x, d.y,
-                              d.z, max_steps);
+  const Dims n = CUBE ? dims_of(vol_w, vol_w, vol_w) : dims_of(vol_w, vol_h, vol_d);
+  float3 c = march_ray<false>(vol, occ, n, __ldg(e), __ldg(e + 1), __ldg(e + 2), d.x, d.y, d.z,
+                              max_steps);
   if (srgb) {
     c.x = linear_to_srgb(c.x);
     c.y = linear_to_srgb(c.y);
@@ -332,10 +354,10 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
 }
 
 template <bool INLINE_RAYS>
-int launch_march(const void* vol, const void* occ, int dims, const void* dx, const void* dy,
-                 const void* dz, const void* inv_proj, const void* eye, int n_views,
-                 int height, int width, int max_steps, int srgb, void* out, int device,
-                 void* stream) {
+int launch_march(const void* vol, const void* occ, int vol_w, int vol_h, int vol_d,
+                 const void* dx, const void* dy, const void* dz, const void* inv_proj,
+                 const void* eye, int n_views, int height, int width, int max_steps, int srgb,
+                 void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_views <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
@@ -344,10 +366,13 @@ int launch_march(const void* vol, const void* occ, int dims, const void* dx, con
   const float inv_w = 1.0f / (float)width, inv_h = 1.0f / (float)height;
   const dim3 block(BLOCK_X, BLOCK_Y);
   const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y, n_views);
-  march_bonsai_kernel<INLINE_RAYS><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)vol, (const uint8_t*)occ, dims, (const float*)dx, (const float*)dy,
-      (const float*)dz, (const float*)inv_proj, (const float*)eye, height, width, inv_w, inv_h,
-      max_steps, srgb, (float*)out);
+  const bool cube = vol_w == vol_h && vol_h == vol_d;
+  auto kernel = cube ? march_bonsai_kernel<INLINE_RAYS, true>
+                     : march_bonsai_kernel<INLINE_RAYS, false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)vol, (const uint8_t*)occ, vol_w, vol_h, vol_d, (const float*)dx,
+      (const float*)dy, (const float*)dz, (const float*)inv_proj, (const float*)eye, height, width,
+      inv_w, inv_h, max_steps, srgb, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -385,7 +410,8 @@ __global__ void __launch_bounds__(TILE* BLOCK_Y)
   float3 c = make_float3(0.0f, 0.0f, 0.0f);
   if (inside) {
     const float ex = __ldg(eye), ey = __ldg(eye + 1), ez = __ldg(eye + 2);
-    c = march_ray<FAST>(vol, occ, dims, ex, ey, ez, dxs[k], dys[k], dzs[k], max_steps);
+    c = march_ray<FAST>(vol, occ, dims_of(dims, dims, dims), ex, ey, ez, dxs[k], dys[k], dzs[k],
+                        max_steps);
   }
   if (COMPACT) {
     const size_t n = (size_t)n_sel * tpu * TILE * TILE;
@@ -410,17 +436,18 @@ const char* vk_cuda_error_string(int err) {
 
 // Launches the march of n_views views on `stream` and returns the
 // cudaError_t of the launch (0 on success). All pointers are device
-// pointers: vol (dims^3 uint8, [z][y][x]), occ (cells^3 uint8, cells =
-// ceil(dims / 8), [z][y][x]: the occupancy table, one for every view),
-// dx/dy/dz (n_views*height*width float32 each, view-major), eye (n_views*3
-// float32), out (n_views*height*width*4 float32, 16-byte aligned). The view
-// is the grid's z (at most 65535), so each view's blocks and pixels are a
-// single-view launch's, bit for bit.
-int vk_march_bonsai(const void* vol, const void* occ, int dims, const void* dx, const void* dy,
-                    const void* dz, const void* eye, int n_views, int height, int width,
-                    int max_steps, int srgb, void* out, int device, void* stream) {
-  return launch_march<false>(vol, occ, dims, dx, dy, dz, nullptr, eye, n_views, height, width,
-                             max_steps, srgb, out, device, stream);
+// pointers: vol (vol_d * vol_h * vol_w uint8, [z][y][x]), occ (ceil(vol_d / 8)
+// * ceil(vol_h / 8) * ceil(vol_w / 8) uint8, [z][y][x]: the occupancy table,
+// one for every view), dx/dy/dz (n_views*height*width float32 each,
+// view-major), eye (n_views*3 float32), out (n_views*height*width*4 float32,
+// 16-byte aligned). The view is the grid's z (at most 65535), so each view's
+// blocks and pixels are a single-view launch's, bit for bit.
+int vk_march_bonsai(const void* vol, const void* occ, int vol_w, int vol_h, int vol_d,
+                    const void* dx, const void* dy, const void* dz, const void* eye,
+                    int n_views, int height, int width, int max_steps, int srgb, void* out,
+                    int device, void* stream) {
+  return launch_march<false>(vol, occ, vol_w, vol_h, vol_d, dx, dy, dz, nullptr, eye, n_views,
+                             height, width, max_steps, srgb, out, device, stream);
 }
 
 // The march of n_views whole frames with each pixel's ray made in the kernel
@@ -428,15 +455,18 @@ int vk_march_bonsai(const void* vol, const void* occ, int dims, const void* dx, 
 // rays, bit for bit. inv_proj: n_views * 16 float32 (each view's row-major
 // inverse proj*view); view_position: n_views * 4 float32 (eye xyz, 1); the
 // rest as vk_march_bonsai.
-int vk_march_bonsai_frame(const void* vol, const void* occ, int dims, const void* inv_proj,
-                          const void* view_position, int n_views, int height, int width,
-                          int max_steps, int srgb, void* out, int device, void* stream) {
-  return launch_march<true>(vol, occ, dims, nullptr, nullptr, nullptr, inv_proj, view_position,
-                            n_views, height, width, max_steps, srgb, out, device, stream);
+int vk_march_bonsai_frame(const void* vol, const void* occ, int vol_w, int vol_h, int vol_d,
+                          const void* inv_proj, const void* view_position, int n_views,
+                          int height, int width, int max_steps, int srgb, void* out, int device,
+                          void* stream) {
+  return launch_march<true>(vol, occ, vol_w, vol_h, vol_d, nullptr, nullptr, nullptr, inv_proj,
+                            view_position, n_views, height, width, max_steps, srgb, out, device,
+                            stream);
 }
 
 // K2 (compact == 0) or K1b (compact != 0) on `stream`; returns the launch's
-// cudaError_t. Device pointers: vol, occ, eye as above; dx/dy/dz (n_sel * tpu *
+// cudaError_t. Device pointers: vol (dims^3 uint8: the hybrid's volume is a
+// cube), occ, eye as above; dx/dy/dz (n_sel * tpu *
 // 32 * 32 f32 each: the compact rays of the listed units); ids (n_sel int32,
 // unit ids, parked where outside [0, n_units)); out: K2 the three (height,
 // width) f32 rgb planes, written in place; K1b three planes shaped like dx.

@@ -22,12 +22,11 @@ returns frames; it times nothing.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops.cuda.genvol import generate_density_u8
+from vokselis_torch.ops.reference import bonsai_max_steps
 from vokselis_torch.parallel.sharding import (
     build_default_renderer,
     destroyed,
@@ -44,7 +43,7 @@ DIMS = 512
 
 def full_diagonal(dims: int) -> int:
     """Steps for a ray across the whole box diagonal (bench.py:340)."""
-    return int(math.ceil(math.sqrt(3.0) * dims)) + 1
+    return bonsai_max_steps((dims, dims, dims))
 
 
 class ViewsBatch:

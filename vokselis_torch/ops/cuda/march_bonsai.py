@@ -23,6 +23,14 @@ from it; the rays wrapper takes ray planes that the caller made.
 launch, and nowhere else), so that a run can show its frames went through
 the kernels.
 
+K1's volume is any (D, H, W) uint8 array with no empty axis, [z, y, x],
+filling the unit box (normalised texture coordinates, as upstream's
+texture): each step moves one voxel along the axis that crosses voxels
+fastest, and unless told otherwise a ray takes the steps of the box's whole
+diagonal, :func:`reference.bonsai_max_steps` of the volume's shape (445 at
+256^3, 1,775 for a 1024 x 1024 x 795 scan). K2 and K1b serve the hybrid,
+whose volume is a cube, and take cubes only.
+
 The kernels skip empty space exactly: :func:`occupancy_table` holds each
 8^3 cell's largest voxel, and a step whose lower taps lie in a cell with no
 voxel above ``OCC_CUT`` adds nothing (its transfer is exactly 0), so it
@@ -43,9 +51,9 @@ from vokselis_torch.core import geometry
 from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
-from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
+from vokselis_torch.ops.reference import MAX_STEPS_BONSAI, bonsai_max_steps
 from vokselis_torch.utils.grid import TILE, cdiv
-from vokselis_torch.utils.spans import count
+from vokselis_torch.utils.spans import count, span
 
 SOURCE = CSRC / "march_bonsai.cu"
 # empty-space skipping: cells of OCC_CELL^3 voxels; a sample whose every tap
@@ -75,9 +83,9 @@ def build() -> ctypes.CDLL:
         return _lib
     lib, BUILD_LOG = load_library(SOURCE, NVCC_FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vk_march_bonsai.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, p, i, p]
+    lib.vk_march_bonsai.argtypes = [p, p, i, i, i, p, p, p, p, i, i, i, i, i, p, i, p]
     lib.vk_march_bonsai.restype = i
-    lib.vk_march_bonsai_frame.argtypes = [p, p, i, p, p, i, i, i, i, i, p, i, p]
+    lib.vk_march_bonsai_frame.argtypes = [p, p, i, i, i, p, p, i, i, i, i, i, p, i, p]
     lib.vk_march_bonsai_frame.restype = i
     lib.vk_march_tiles.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, p]
     lib.vk_march_tiles.restype = i
@@ -105,12 +113,13 @@ def _cell_max(x, axis: int):
 
 
 def occupancy_table(vol) -> torch.Tensor:
-    """The march's occupancy table of the (D, D, D) uint8 volume ``vol``:
+    """The march's occupancy table of the (D, H, W) uint8 volume ``vol``:
     the largest voxel of each OCC_CELL^3 cell with one voxel of overlap
-    toward +, cell c covering voxels 8c .. min(8c + 8, D - 1) on each axis,
-    so that both taps of every trilinear pair (x0, x0 + 1) whose lower tap
-    lies in the cell lie inside it. (C, C, C) uint8, C = ceil(D / 8),
-    [z, y, x], on the volume's device: 32 KB at 256^3, 256 KB at 512^3.
+    toward +, cell c covering voxels 8c .. min(8c + 8, N - 1) on each axis
+    of N voxels, so that both taps of every trilinear pair (x0, x0 + 1)
+    whose lower tap lies in the cell lie inside it. (ceil(D / 8),
+    ceil(H / 8), ceil(W / 8)) uint8, [z, y, x], on the volume's device: 32
+    KB at 256^3, 256 KB at 512^3, 1.6 MB at 795 x 1024 x 1024.
     Three separable max passes of plain torch, x first (the contiguous
     axis, which shrinks the volume 8x for the other two)."""
     occ = vol
@@ -144,7 +153,8 @@ def volume_occupancy(vol) -> torch.Tensor:
 
 def _check_tensors(vol, tensors):
     """``vol`` and the named ``tensors``: tensors, contiguous, on vol's
-    device (the CPU or a card); vol a cubic uint8 volume."""
+    device (the CPU or a card); vol a (D, H, W) uint8 volume with no empty
+    axis."""
     for name, t in {"vol": vol, **tensors}.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
@@ -156,16 +166,28 @@ def _check_tensors(vol, tensors):
         raise ValueError(f"march_bonsai runs on cpu or cuda, not {vol.device}")
     if vol.dtype != torch.uint8:
         raise TypeError(f"vol must be uint8, got {vol.dtype}")
-    if vol.ndim != 3 or len(set(vol.shape)) != 1:
-        raise ValueError(f"vol must be a cubic (D, D, D) volume, got {tuple(vol.shape)}")
+    if vol.ndim != 3 or min(vol.shape) < 1:
+        raise ValueError(f"vol must be a (D, H, W) volume with no empty axis, got "
+                         f"{tuple(vol.shape)}")
 
 
-def _check_max_steps(max_steps):
+def _steps(vol, max_steps):
+    """``max_steps``, checked; None for the whole diagonal of ``vol``."""
+    if max_steps is None:
+        return bonsai_max_steps(vol.shape)
     if not isinstance(max_steps, int) or max_steps < 0:
         raise ValueError(f"max_steps must be a non-negative int, got {max_steps!r}")
+    return max_steps
+
+
+def _whd(vol):
+    """The kernels' volume size arguments: (W, H, D) of the (D, H, W) ``vol``."""
+    d, h, w = vol.shape
+    return w, h, d
 
 
 def _check_inputs(vol, eye, dx, dy, dz, max_steps):
+    """The rays wrappers' inputs; returns the steps (:func:`_steps`)."""
     _check_tensors(vol, {"eye": eye, "dx": dx, "dy": dy, "dz": dz})
     if eye.dtype != torch.float32 or eye.ndim not in (1, 2) or eye.shape[-1] != 3:
         raise TypeError("eye must be a (3,) or (V, 3) float32 tensor, got "
@@ -179,12 +201,13 @@ def _check_inputs(vol, eye, dx, dy, dz, max_steps):
         if t.shape != dx.shape or tuple(t.shape[:-2]) != views or t.ndim != len(views) + 2:
             raise ValueError(f"{name} must be (H, W) for a (3,) eye, (V, H, W) for a (V, 3) "
                              f"one, like dx, got {tuple(t.shape)} for eye {tuple(eye.shape)}")
-    _check_max_steps(max_steps)
+    return _steps(vol, max_steps)
 
 
 def _check_frame(vol, camera_uniform, width, height, max_steps):
     """The frame wrapper's inputs; returns the uniform's ``(inv_proj,
-    view_position)``: (4, 4) and (4,), or (V, 4, 4) and (V, 4)."""
+    view_position)``: (4, 4) and (4,), or (V, 4, 4) and (V, 4); and the
+    steps (:func:`_steps`)."""
     inv, pos = camera_uniform.inv_proj, camera_uniform.view_position
     _check_tensors(vol, {"inv_proj": inv, "view_position": pos})
     for name, t in (("inv_proj", inv), ("view_position", pos)):
@@ -201,27 +224,27 @@ def _check_frame(vol, camera_uniform, width, height, max_steps):
     for name, n in (("width", width), ("height", height)):
         if not isinstance(n, (int, np.integer)) or n < 1:
             raise ValueError(f"{name} must be a positive int, got {n!r}")
-    _check_max_steps(max_steps)
-    return inv, pos
+    return inv, pos, _steps(vol, max_steps)
 
 
 @torch.no_grad()
 def render_bonsai_frame_cuda(vol, camera_uniform, width: int, height: int,
-                             max_steps: int = MAX_STEPS_BONSAI, srgb: bool = True):
+                             max_steps: int | None = None, srgb: bool = True):
     """The exact frame of ``camera_uniform`` in one K1 launch whose threads
     make their own fragment rays: each pixel's ray is
     :func:`geometry.rays_fragment_soa`'s, bit for bit, made from the view's
     ``inv_proj`` and ``view_position`` without any ray plane in memory.
 
-    ``vol``: (D, D, D) uint8 [z, y, x]; ``camera_uniform``: one view
+    ``vol``: (D, H, W) uint8 [z, y, x]; ``camera_uniform``: one view
     (``inv_proj`` (4, 4), ``view_position`` (4,)) or a batch of V views
-    ((V, 4, 4), (V, 4)), float32, contiguous, on the volume's device.
+    ((V, 4, 4), (V, 4)), float32, contiguous, on the volume's device;
+    ``max_steps`` None: the volume's whole diagonal.
     Returns the (height, width, 4), or (V, height, width, 4), float32 image
     as :func:`render_bonsai_rays_cuda` returns it for those rays. CPU
     tensors take the plain frame: :func:`geometry.rays_fragment_soa`, then
     :func:`render_bonsai_rays_cuda`'s plain march."""
     global LAUNCHES_FRAME
-    inv, pos = _check_frame(vol, camera_uniform, width, height, max_steps)
+    inv, pos, max_steps = _check_frame(vol, camera_uniform, width, height, max_steps)
     if vol.device.type == "cpu":
         eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
         return render_bonsai_rays_cuda(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
@@ -230,7 +253,7 @@ def render_bonsai_frame_cuda(vol, camera_uniform, width: int, height: int,
     views = tuple(inv.shape[:-2])
     out = torch.empty(views + (height, width, 4), dtype=torch.float32, device=vol.device)
     err = lib.vk_march_bonsai_frame(
-        vol.data_ptr(), occ.data_ptr(), vol.shape[0], inv.data_ptr(), pos.data_ptr(),
+        vol.data_ptr(), occ.data_ptr(), *_whd(vol), inv.data_ptr(), pos.data_ptr(),
         views[0] if views else 1, int(height), int(width), max_steps, int(srgb), out.data_ptr(),
         vol.device.index, torch.cuda.current_stream(vol.device).cuda_stream,
     )
@@ -240,12 +263,12 @@ def render_bonsai_frame_cuda(vol, camera_uniform, width: int, height: int,
 
 
 @torch.no_grad()
-def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
+def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int | None = None,
                             srgb: bool = True):
     """March SoA rays through a uint8 volume — the counterpart of
     ``render_bonsai_rays_pallas``, and of its ``vmap`` over a batch of views.
 
-    ``vol``: (D, D, D) uint8 [z, y, x]; ``eye``: (3,) float32; ``dxyz``:
+    ``vol``: (D, H, W) uint8 [z, y, x]; ``eye``: (3,) float32; ``dxyz``:
     (dx, dy, dz), each (H, W) float32 and normalized; or a batch of V views,
     ``eye`` (V, 3) and each plane (V, H, W); all contiguous and on one
     device. Returns the (H, W, 4), or (V, H, W, 4), float32 image (sRGB-encoded
@@ -255,7 +278,7 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
     """
     global LAUNCHES
     dx, dy, dz = dxyz
-    _check_inputs(vol, eye, dx, dy, dz, max_steps)
+    max_steps = _check_inputs(vol, eye, dx, dy, dz, max_steps)
     if vol.device.type == "cpu":
         return render_bonsai_rays_plain(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
     occ = volume_occupancy(vol)
@@ -263,7 +286,7 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
     n_views = eye.shape[0] if eye.ndim == 2 else 1
     out = torch.empty(tuple(dx.shape) + (4,), dtype=torch.float32, device=vol.device)
     err = lib.vk_march_bonsai(
-        vol.data_ptr(), occ.data_ptr(), vol.shape[0], dx.data_ptr(), dy.data_ptr(),
+        vol.data_ptr(), occ.data_ptr(), *_whd(vol), dx.data_ptr(), dy.data_ptr(),
         dz.data_ptr(), eye.data_ptr(), n_views, dx.shape[-2], dx.shape[-1], max_steps,
         int(srgb), out.data_ptr(), vol.device.index,
         torch.cuda.current_stream(vol.device).cuda_stream,
@@ -274,13 +297,13 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
 
 
 @torch.no_grad()
-def render_bonsai_rays_plain(vol, eye, dxyz, max_steps: int = MAX_STEPS_BONSAI,
+def render_bonsai_rays_plain(vol, eye, dxyz, max_steps: int | None = None,
                              srgb: bool = True):
     """Plain torch version of K1, for the inputs of
     :func:`render_bonsai_rays_cuda`: :func:`reference.render_bonsai_rays`,
     of each view in turn for a batch."""
     dx, dy, dz = dxyz
-    _check_inputs(vol, eye, dx, dy, dz, max_steps)
+    max_steps = _check_inputs(vol, eye, dx, dy, dz, max_steps)
     dirs = torch.stack([dx, dy, dz], dim=-1)
     if eye.ndim == 1:
         return reference.render_bonsai_rays(vol, eye, dirs, max_steps=max_steps, srgb=srgb)
@@ -328,6 +351,9 @@ def tile_rays_compact(camera_uniform, unit_ids, width: int, height: int,
 
 
 def _check_tiles(vol, unit_ids, width, height, tiles_per_unit):
+    if vol.ndim != 3 or len(set(vol.shape)) != 1:
+        raise ValueError(f"K2 and K1b march the hybrid's cubic (D, D, D) volume, got "
+                         f"{tuple(vol.shape)}")
     if not isinstance(unit_ids, torch.Tensor):
         raise TypeError(f"unit_ids must be a torch.Tensor, got {type(unit_ids)}")
     if unit_ids.device != vol.device:
@@ -362,7 +388,7 @@ def _launch_tiles(vol, rays, unit_ids, width, height, tpu, max_steps, fast, out,
                   compact):
     lib = build()
     eye, (dx, dy, dz), _ = rays
-    _check_inputs(vol, eye, dx, dy, dz, max_steps)
+    max_steps = _check_inputs(vol, eye, dx, dy, dz, max_steps)
     occ = volume_occupancy(vol)
     err = lib.vk_march_tiles(
         vol.data_ptr(), occ.data_ptr(), vol.shape[0], dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
@@ -470,19 +496,20 @@ def render_bonsai_tiles_plain(vol, camera_uniform, unit_ids, width: int, height:
 
 
 def volume_tensor(vol_u8, device) -> torch.Tensor:
-    """The (D, D, D) uint8 volume as one contiguous tensor on ``device``."""
+    """The (D, H, W) uint8 volume, no axis empty, as one contiguous tensor
+    on ``device``."""
     if isinstance(vol_u8, torch.Tensor):
         vol = vol_u8
     else:
         vol = torch.from_numpy(np.ascontiguousarray(vol_u8))
-    if vol.dtype != torch.uint8 or vol.ndim != 3 or len(set(vol.shape)) != 1:
-        raise ValueError("the bonsai kernel wants a cubic (D, D, D) uint8 volume, "
-                         f"got {vol.dtype} {tuple(vol.shape)}")
+    if vol.dtype != torch.uint8 or vol.ndim != 3 or min(vol.shape) < 1:
+        raise ValueError("the bonsai kernel wants a (D, H, W) uint8 volume with no empty "
+                         f"axis, got {vol.dtype} {tuple(vol.shape)}")
     return vol.to(device=torch.device(device)).contiguous()
 
 
 def render_frame(vol, camera_uniform, width: int, height: int,
-                 max_steps: int = MAX_STEPS_BONSAI, srgb: bool = True):
+                 max_steps: int | None = None, srgb: bool = True):
     """The exact frame, eagerly (the JAX package's ``_render_bonsai_pallas``
     un-jitted): :func:`render_bonsai_frame_cuda`, on a card one K1 launch
     for every view of the uniform, its threads making their own rays.
@@ -493,9 +520,13 @@ def render_frame(vol, camera_uniform, width: int, height: int,
 
 def _exact_frame(vol, compiled, camera_uniform, width, height, max_steps, srgb):
     """:func:`render_frame` of ``vol`` through ``compiled``, one graph per
-    ``(width, height, max_steps, srgb)`` and uniform shape. On a card each
-    call adds the rays K1 makes itself, views x width x height, to the
-    counter ``k1.inline_rays`` of an active ``spans.recording()``."""
+    ``(width, height, max_steps, srgb)`` and uniform shape (``max_steps``
+    None: the volume's whole diagonal). On a card each call adds the rays
+    K1 makes itself, views x width x height, to the counter
+    ``k1.inline_rays`` of an active ``spans.recording()``."""
+    if max_steps is None:
+        max_steps = bonsai_max_steps(vol.shape)
+
     def fn(u):
         return render_frame(vol, u, width, height, max_steps, srgb)
 
@@ -507,21 +538,29 @@ def _exact_frame(vol, compiled, camera_uniform, width, height, max_steps, srgb):
 
 
 class BonsaiRenderer:
-    """Holds the volume on its device, and on a card builds its occupancy
-    table; call to render (the analog of the reference's VolumeTexture +
-    RaycastPipeline pair, examples/bonsai/raycast.rs:12-141). On a card a
-    call replays the frame's CUDA graph (``compiled``, one per width,
-    height, max_steps and srgb; see :mod:`vokselis_torch.core.compiled`);
-    :func:`render_frame` is the eager frame. ``compiled`` may be shared
-    with another renderer of the same volume (the hybrid's), whose graphs
-    then share its memory pool."""
+    """Holds the (D, H, W) volume on its device, and on a card builds its
+    occupancy table; call to render (the analog of the reference's
+    VolumeTexture + RaycastPipeline pair, examples/bonsai/raycast.rs:12-141).
+    On a card a call replays the frame's CUDA graph (``compiled``, one per
+    width, height, max_steps and srgb; see
+    :mod:`vokselis_torch.core.compiled`); :func:`render_frame` is the eager
+    frame. ``compiled`` may be shared with another renderer of the same
+    volume (the hybrid's), whose graphs then share its memory pool.
+
+    The set-up is the span ``volume.setup`` (the volume onto its device and,
+    on a card, its table, ended once the card has built it) and adds the
+    volume's voxels to the counter ``volume.bytes``, both kept by an active
+    ``spans.recording()``."""
 
     def __init__(self, vol_u8, device, compiled: CompiledFrame | None = None):
         self.device = torch.device(device)
-        self.vol = volume_tensor(vol_u8, self.device)
-        if self.vol.is_cuda:
-            volume_occupancy(self.vol)
-        self.dims = self.vol.shape[0]
+        with span("volume.setup"):
+            self.vol = volume_tensor(vol_u8, self.device)
+            if self.vol.is_cuda:
+                volume_occupancy(self.vol)
+                torch.cuda.synchronize(self.device)
+        count("volume.bytes", self.vol.numel())
+        self.max_steps = bonsai_max_steps(self.vol.shape)
         self.compiled = CompiledFrame("BonsaiRenderer") if compiled is None else compiled
 
     def __call__(
@@ -529,13 +568,14 @@ class BonsaiRenderer:
         camera_uniform,
         width: int = 1280,
         height: int = 720,
-        max_steps: int = MAX_STEPS_BONSAI,
+        max_steps: int | None = None,
         srgb: bool = True,
     ):
         """Render one frame, or (V, H, W, 4) frames of a batched uniform's
-        views in one launch."""
+        views in one launch; ``max_steps`` None: :attr:`max_steps`, the
+        volume's whole diagonal."""
         return _exact_frame(self.vol, self.compiled, camera_uniform, width, height,
-                            max_steps, srgb)
+                            self.max_steps if max_steps is None else max_steps, srgb)
 
 
 def build_renderer(vol_u8, device):
@@ -546,12 +586,12 @@ def build_renderer(vol_u8, device):
     ray pass and one K1 launch: the counterpart of the JAX package's
     ``vmap`` of its render over a view batch. On a card render_fn replays
     one CUDA graph per static key, as :class:`BonsaiRenderer` does; another
-    ``pack`` than the last one captures again."""
+    ``pack`` than the last one captures again. ``max_steps`` None: the
+    volume's whole diagonal."""
     pack = volume_tensor(vol_u8, device)
     compiled = CompiledFrame("build_renderer")
 
-    def render(pk, camera_uniform, width, height,
-               max_steps=MAX_STEPS_BONSAI, srgb=True):
+    def render(pk, camera_uniform, width, height, max_steps=None, srgb=True):
         return _exact_frame(pk, compiled, camera_uniform, width, height, max_steps, srgb)
 
     return render, pack

@@ -11,7 +11,8 @@ compositing, quirks preserved:
 * sampling R8Unorm yields alpha 1, so ``pow(a, 2)`` is 1 and the
   background-bleed term (:112) vanishes;
 * per-ray ``dt = dt_scale * min(1/(256*|d|))`` — one voxel along the
-  dominant axis per step (:97-99);
+  dominant axis per step (:97-99); here the volume's own size on each axis,
+  ``min(1/((W, H, D)*|d|))``, which is the shader's for a 256^3 volume;
 * position accumulates ``p += dir*dt`` (:118), it is not recomputed from t.
 
 :func:`render_compute_tex` / :func:`render_compute_inline` port
@@ -49,9 +50,16 @@ from vokselis_torch.core.colors import (
 from vokselis_torch.volume import fields
 from vokselis_torch.volume.sample import sample_nearest, sample_trilinear_r8
 
-# worst case: box diagonal sqrt(3) at dt = dt_scale/N (dominant axis = 1/sqrt(3)
-# ... conservatively |d|max >= 1/sqrt(3) -> dt >= dt_scale/N)
-MAX_STEPS_BONSAI = int(math.ceil(math.sqrt(3.0) * 256.0)) + 1  # 444
+
+def bonsai_max_steps(shape) -> int:
+    """Steps for a ray across the whole box diagonal, sqrt(3), of a volume
+    of ``shape`` (D, H, W): dt = dt_scale * min over the axes of
+    1 / (size * |d|) is at least dt_scale / max(shape), since |d| <= 1 on
+    every axis."""
+    return int(math.ceil(math.sqrt(3.0) * max(shape))) + 1
+
+
+MAX_STEPS_BONSAI = bonsai_max_steps((256, 256, 256))  # 445
 # [-1,1]^3 diagonal 2*sqrt(3) at dt = 0.01 (see module docstring)
 MAX_STEPS_COMPUTE = int(math.ceil(2.0 * math.sqrt(3.0) / 0.01)) + 1  # 348
 
@@ -118,8 +126,9 @@ def render_bonsai_rays(
     hit = t0 <= t1
     t_start = torch.clamp(t0, min=0.0)
 
-    n = float(vol.shape[0])  # shader hardcodes 256 (:97)
-    dt_vec = 1.0 / (n * torch.abs(d))
+    # the shader hardcodes 256 on every axis (:97); (W, H, D) in d's axis order
+    size = torch.tensor(vol.shape[::-1], dtype=torch.float32, device=d.device)
+    dt_vec = 1.0 / (size * torch.abs(d))
     dt = dt_scale * torch.amin(dt_vec, dim=-1)
 
     p = eye_b + t_start[:, None] * d

@@ -71,6 +71,9 @@ def prepare_fast_volume(vol_u8, device):
     bit for bit."""
     vol = volume_tensor(vol_u8, device)
     d = vol.shape[0]
+    if len(set(vol.shape)) != 1:
+        raise ValueError(f"the fast renderer needs a cubic (D, D, D) volume, got "
+                         f"{tuple(vol.shape)}: march other shapes with the exact renderer")
     if d % 8:
         raise ValueError(f"the fast renderer needs a volume side divisible by 8, got {d}")
     lut = (torch.arange(256, dtype=torch.float32) / 255.0).to(vol.device)

@@ -60,7 +60,6 @@ from vokselis_torch.core import geometry
 from vokselis_torch.core.camera import Camera, CameraUniform
 from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops.cuda import march_bonsai
-from vokselis_torch.ops.reference import MAX_STEPS_BONSAI
 
 # the JAX package's functools.lru_cache(maxsize=64) around each jitted step
 MAX_KEYS = 64
@@ -165,7 +164,7 @@ def build_default_renderer(vol_u8, device):
     every call, so that the step replays."""
     pack = march_bonsai.volume_tensor(vol_u8, device)
 
-    def render(pk, camera_uniform, width, height, max_steps=MAX_STEPS_BONSAI, srgb=True):
+    def render(pk, camera_uniform, width, height, max_steps=None, srgb=True):
         return march_bonsai.render_frame(pk, camera_uniform, width, height, max_steps, srgb)
 
     return render, pack
@@ -224,7 +223,7 @@ def build_ray_renderer(vol_u8, device):
     :func:`render_frame_tiled` marches each rank's band with."""
     pack = march_bonsai.volume_tensor(vol_u8, device)
 
-    def render_rays(pk, eye, dxyz, max_steps=MAX_STEPS_BONSAI):
+    def render_rays(pk, eye, dxyz, max_steps=None):
         return march_bonsai.render_bonsai_rays_cuda(
             pk, eye, tuple(d.contiguous() for d in dxyz), max_steps=max_steps)
 

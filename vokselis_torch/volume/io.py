@@ -12,7 +12,9 @@ Array convention: volumes are ``(D, H, W)`` = indexed ``[z, y, x]`` with x the
 fastest-varying axis, matching the texture's linear layout; world position
 ``p = (x, y, z)`` samples axis order (W, H, D).
 
-:func:`load_raw` reads through the native C++ loader
+:func:`load_open_scivis` loads a file of the Open SciVis Datasets
+collection, where the bonsai scan comes from, its dims and type read from
+its name. :func:`load_raw` reads through the native C++ loader
 (:mod:`vokselis_torch.native`) when its library builds, and with
 numpy.fromfile otherwise.
 """
@@ -20,6 +22,7 @@ numpy.fromfile otherwise.
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 
@@ -43,6 +46,30 @@ def load_raw(path: str, dims=DEFAULT_DIMS, dtype=np.uint8,
     if native.use_native(backend):
         return native.load_raw_native(path, expected).view(dtype).reshape(dims)
     return np.fromfile(path, dtype=dtype).reshape(dims)
+
+
+# an Open SciVis Datasets file name (klacansky.com/open-scivis-datasets):
+# <name>_<x>x<y>x<z>_<type>.raw, e.g. bonsai_256x256x256_uint8.raw
+OPEN_SCIVIS_NAME = re.compile(
+    r"^(?P<name>.+)_(?P<x>\d+)x(?P<y>\d+)x(?P<z>\d+)_(?P<type>[a-z0-9]+)\.raw$")
+
+
+def load_open_scivis(path: str) -> np.ndarray:
+    """Load an Open SciVis Datasets volume, its dims and type read from its
+    file name (``kingsnake_1024x1024x795_uint8.raw`` is x 1024, y 1024, z
+    795): the (z, y, x) = (D, H, W) ndarray of :func:`load_raw`. Only uint8
+    files, the R8Unorm texture the bonsai demo samples (upstream's
+    volume_texture.rs:34-59), are taken; another type, a name without dims
+    or a file of another size raises ValueError."""
+    m = OPEN_SCIVIS_NAME.match(os.path.basename(path))
+    if m is None:
+        raise ValueError(f"{path}: not an Open SciVis name <name>_<x>x<y>x<z>_<type>.raw")
+    if m["type"] != "uint8":
+        raise ValueError(f"{path}: {m['type']} volume; the bonsai demo takes uint8 only")
+    dims = (int(m["z"]), int(m["y"]), int(m["x"]))
+    if min(dims) < 1:
+        raise ValueError(f"{path}: empty dims {dims}")
+    return load_raw(path, dims, np.uint8)
 
 
 def synthetic_bonsai(n: int = 256, seed: int = 7) -> np.ndarray:
