@@ -30,7 +30,9 @@ Phases, each reported on its own lines:
      plain version; the kingsnake scan's shape (the benchmark's stand-in,
      795 x 1024 x 1024, read from DRAM) at one pose at zoom 0.9 through
      BonsaiRenderer, bitwise the plain version, with K1's device ms beside
-     the 256^3 bonsai frame's at that pose;
+     the 256^3 bonsai frame's at that pose; the share of K1's steps taken as
+     bare advances of its empty-cell runs (march_bonsai.step_counts) there
+     and at the bonsai's bench pose;
   3b. K3, K4 (low-degree transfer), K4b (K4's exact-transfer mode) and K6
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
@@ -1053,6 +1055,18 @@ def main() -> int:
     check(snake_equal and snake_lit > 0.1 and snake_r.max_steps == 1775,
           "the scan frame disagrees with K1's plain version or shows nothing")
     worst["K1"] = max(worst["K1"], mx)
+    # K1's empty-cell runs: the share of its steps taken as bare advances
+    # (mb.step_counts, K1's counting instantiation) at the scan's pose and at
+    # the bonsai's bench and close poses
+    shares = {}
+    for name, vol_s, u_s in (("kingsnake stand-in zoom 0.9", snake_r.vol, close_u),
+                             ("bonsai256 bench", vol_bonsai, bench_u),
+                             ("bonsai256 zoom 0.9", vol_bonsai, close_u)):
+        st, br = mb.step_counts(vol_s, u_s, RES, RES)
+        shares[name] = (int(st.sum()), int(br.sum()))
+    print(f"phase 3 K1 bare steps (empty-cell runs) at {RES}x{RES} ({card}): " + "; ".join(
+        f"{k} {b} of {n} steps ({b / n:.4f})" for k, (n, b) in shares.items()), flush=True)
+    check(all(0 < b < n for n, b in shares.values()), "K1's empty-cell runs take no bare step")
     del snake_r, img_k, img_p, eye, dxyz
 
     # -- phase 3b: K3, K4, K4b, K34, K6 against their plain versions -------

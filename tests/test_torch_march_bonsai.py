@@ -21,12 +21,10 @@ import torch
 
 from vokselis_torch.core import geometry
 from vokselis_torch.core.camera import Camera, CameraUniform
-from vokselis_torch.core.colors import bonsai_transfer_fast_soa, linear_to_srgb
 from vokselis_torch.engine import profiler
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda import march_bonsai as mb
 from vokselis_torch.volume.io import get_bonsai
-from vokselis_torch.volume.sample import sample_trilinear_r8, trilinear_weights
 
 POSES = {
     "bench": dict(zoom=1.0, pitch=0.5, yaw=1.0, target=(0.5, 0.5, 0.5)),
@@ -204,53 +202,18 @@ def _border_volume(d=60, seed=7):
 SKIP_VOLUMES = {"bonsai64": lambda: get_bonsai(64), "border60": _border_volume}
 
 
-@torch.no_grad()
-def _skip_march_plain(vol, occ, eye, dirs, fast_transfer=False):
-    """The kernels' march with their empty-space skip, in plain torch:
-    reference.render_bonsai_rays, except that a step whose lower taps lie in
-    a cell of ``occ`` with no voxel above OCC_CUT takes no sample and
-    composites nothing; it still advances its position and t. Returns
-    ``(image, marched, skipped)``, the last two (H, W) int32 step counts."""
-    height, width = dirs.shape[:2]
-    npix = width * height
-    d = dirs.reshape(npix, 3)
-    eye_b = eye.expand(npix, 3)
-    t0, t1 = geometry.intersect_box_unit(eye_b, d)
-    hit = t0 <= t1
-    t = torch.clamp(t0, min=0.0)
-    dims = vol.shape[0]
-    dt = torch.amin(1.0 / (float(dims) * torch.abs(d)), dim=-1)
-    p = eye_b + t[:, None] * d
-    rgb = torch.zeros((npix, 3), dtype=torch.float32)
-    a = torch.zeros((npix,), dtype=torch.float32)
-    marched = torch.zeros((npix,), dtype=torch.int32)
-    skipped = torch.zeros_like(marched)
-    occ_flat, cells = occ.reshape(-1).long(), occ.shape[0]
-    sizes = torch.full((3,), float(dims), dtype=torch.float32)
-    for _ in range(reference.MAX_STEPS_BONSAI):
-        active = hit & (t < t1) & (a < 0.95)
-        if not bool(active.any()):
-            break
-        lower = torch.clamp(trilinear_weights(p, sizes)[0], 0, dims - 1) // mb.OCC_CELL
-        empty = occ_flat[(lower[:, 2] * cells + lower[:, 1]) * cells + lower[:, 0]] <= mb.OCC_CUT
-        marched += active
-        skipped += active & empty
-        idx = torch.nonzero(active & ~empty).squeeze(1)
-        r = sample_trilinear_r8(vol, p[idx])
-        if fast_transfer:
-            c_a, cr, cg, cb = bonsai_transfer_fast_soa(r)
-            c_rgb = torch.stack([cr, cg, cb], dim=-1)
-        else:
-            c_rgb, c_a = reference._bonsai_transfer(r)
-        a_i = a[idx]
-        rgb[idx] = rgb[idx] + (1.0 - a_i)[:, None] * c_a[:, None] * c_rgb
-        a[idx] = a_i + (1.0 - a_i) * c_a
-        p = torch.where(active[:, None], p + d * dt[:, None], p)
-        t = torch.where(active, t + dt, t)
-    rgb = linear_to_srgb(torch.where(hit[:, None], rgb, 0.0))
-    img = torch.cat([rgb, torch.ones((npix, 1), dtype=torch.float32)], dim=-1)
-    return (img.reshape(height, width, 4), marched.reshape(height, width),
-            skipped.reshape(height, width))
+def _skip_march_plain(vol, eye, dirs, fast_transfer=False, max_steps=None):
+    """The kernels' march with their empty-space skip and its runs, in plain
+    torch (mb.march_runs_plain, which mirrors march_ray's run rule in its
+    float32 operations), asserting at every step that each bare step's lower
+    taps lie in its run's cell, and that the cell is empty. Returns
+    ``(image, marched, skipped, bare)``, the last three (H, W) int32 step
+    counts."""
+    strays = []
+    out = mb.march_runs_plain(vol, eye, dirs, max_steps, fast_transfer=fast_transfer,
+                              on_bare=lambda bare, held: strays.append(int((bare & ~held).sum())))
+    assert sum(strays) == 0, sum(strays)
+    return out
 
 
 @pytest.mark.parametrize("volume", sorted(SKIP_VOLUMES))
@@ -274,14 +237,15 @@ def test_occupancy_table_matches_brute_force(volume):
 @pytest.mark.parametrize("pose", sorted(POSES))
 @pytest.mark.parametrize("volume", sorted(SKIP_VOLUMES))
 def test_skip_march_is_bitwise_the_plain_march(volume, pose):
-    """The kernels' empty-space skip is exact: the plain skip-aware march
-    equals the unskipped plain march bit for bit at 64x36, in both palette
-    modes, with the same step counts, and skips real work: every hit ray of
-    the bonsai skips a step, and the random-border volume skips more than
-    one step per hit ray on average (rays that cross only the shell's cells
-    skip none)."""
+    """The kernels' empty-space skip and its runs are exact: the plain
+    skip-aware march equals the unskipped plain march bit for bit at 64x36,
+    in both palette modes, with the same step counts, every bare step's
+    lower taps in its run's empty cell, and skips real work: every hit ray
+    of the bonsai skips a step, and the random-border volume skips more
+    than one step per hit ray on average (rays that cross only the shell's
+    cells skip none). The runs engage: on the bonsai more than half of the
+    steps in empty cells are bare."""
     vol = torch.from_numpy(SKIP_VOLUMES[volume]())
-    occ = mb.occupancy_table(vol)
     eye, dxyz = _rays(Camera(aspect=64 / 36, **POSES[pose]), 64, 36, "cpu")
     dirs = torch.stack(dxyz, dim=-1)
     t0, t1 = geometry.intersect_box_unit(eye.expand(36, 64, 3), dirs)
@@ -289,14 +253,150 @@ def test_skip_march_is_bitwise_the_plain_march(volume, pose):
     for fast in (False, True):
         ref, steps = reference.render_bonsai_rays(vol, eye, dirs, return_steps=True,
                                                   fast_transfer=fast)
-        img, marched, skipped = _skip_march_plain(vol, occ, eye, dirs, fast_transfer=fast)
+        img, marched, skipped, bare = _skip_march_plain(vol, eye, dirs, fast_transfer=fast)
         torch.testing.assert_close(img, ref, rtol=0, atol=0)
         assert torch.equal(marched, steps)
         assert float(img[..., :3].max()) > 0.1
     if volume == "bonsai64":
         assert int(skipped[hit].min()) >= 1
+        assert 2 * int(bare.sum()) > int(skipped.sum())
     assert int(skipped.sum()) >= int(hit.sum())
     assert int(skipped.sum()) < int(marched.sum())
+    assert 0 < int(bare.sum()) < int(skipped.sum())
+
+
+def _sparse_volume(shape, seed):
+    """Seeded blobs of random voxels in [30, 220) in about a third of the 8^3
+    cells of a (D, H, W) volume, the rest 0: cells both empty and full at
+    shapes that are not multiples of 8."""
+    rng = np.random.default_rng(seed)
+    vol = rng.integers(30, 220, shape, dtype=np.uint8)
+    cells = [-(-n // 8) for n in shape]
+    keep = rng.random(cells) < 0.35
+    mask = keep.repeat(8, 0).repeat(8, 1).repeat(8, 2)[:shape[0], :shape[1], :shape[2]]
+    return np.where(mask, vol, 0).astype(np.uint8)
+
+
+# (D, H, W): no dim a multiple of 8 (tests/test_torch_scan.py's shapes)
+RUN_SHAPES = [(12, 31, 21), (24, 16, 40), (40, 24, 9)]
+
+
+def _assert_runs_exact(vol, eye, dirs, max_steps=None):
+    """The run-taking plain march of ``dirs`` from ``eye`` is the reference's
+    image and step counts bit for bit, every bare step in its run's empty
+    cell; returns its (steps, skipped, bare) sums."""
+    n = reference.bonsai_max_steps(vol.shape) if max_steps is None else max_steps
+    ref, steps = reference.render_bonsai_rays(vol, eye, dirs, max_steps=n, return_steps=True)
+    img, marched, skipped, bare = _skip_march_plain(vol, eye, dirs, max_steps=n)
+    assert torch.equal(img, ref), float((img - ref).abs().max())
+    assert torch.equal(marched, steps)
+    return int(marched.sum()), int(skipped.sum()), int(bare.sum())
+
+
+@pytest.mark.parametrize("pose", sorted(POSES))
+@pytest.mark.parametrize("shape", RUN_SHAPES, ids=["x".join(map(str, s)) for s in RUN_SHAPES])
+def test_runs_at_per_axis_shapes(shape, pose):
+    """The runs over a (D, H, W) volume, each axis with its own texel step,
+    margin and partial last cell: bitwise the reference at the whole
+    diagonal's steps and at a cut (the steps left bound the run), and they
+    engage."""
+    vol = torch.from_numpy(_sparse_volume(shape, sum(shape)))
+    eye, dxyz = _rays(Camera(aspect=40 / 28, **POSES[pose]), 40, 28, "cpu")
+    dirs = torch.stack(dxyz, dim=-1)
+    _, skipped, bare = _assert_runs_exact(vol, eye, dirs)
+    assert 0 < bare < skipped
+    _assert_runs_exact(vol, eye, dirs, max_steps=9)
+
+
+def _unit(v):
+    return torch.nn.functional.normalize(torch.tensor(v, dtype=torch.float32), dim=-1)
+
+
+def _grazing_rays(kind, shape):
+    """(eye, dirs (1, K, 3)) sets of rays that graze the 8^3 cells of a
+    (D, H, W) volume: along the axes (two components exactly 0, either
+    sign), in cell-face planes (one component 0, the eye's texel coordinate
+    there a whole multiple of 8), through cell corners (the eye on a
+    corner, diagonal directions), and nearly along an axis (components of
+    1e-7 and 1e-30)."""
+    n = torch.tensor(shape[::-1], dtype=torch.float32)  # (W, H, D)
+    face = (8.0 + 0.5) / n  # texel coordinate 8 on every axis
+    sets = []
+    if kind == "axis":
+        for axis in range(3):
+            for sign in (1.0, -1.0):
+                d = [0.0, 0.0, 0.0]
+                d[axis] = sign
+                for off in (0.31, 0.5, face[(axis + 1) % 3].item()):
+                    e = [off, 0.47, 0.52]
+                    e[axis] = 0.5 - 1.2 * sign
+                    sets.append((torch.tensor(e), _unit([d])[None]))
+                sets.append((torch.tensor([0.4, 0.55, 0.45]), _unit([[-x for x in d]])[None]))
+    elif kind == "faces":
+        for axis in range(3):
+            angles = torch.linspace(0.05, 6.2, 24)
+            d = torch.zeros(24, 3)
+            d[:, (axis + 1) % 3] = torch.cos(angles)
+            d[:, (axis + 2) % 3] = torch.sin(angles)
+            for e_face in (face[axis].item(), (16.0 + 0.5) / n[axis].item()):
+                e = torch.full((3,), 0.5)
+                e[axis] = e_face
+                sets.append((e, torch.nn.functional.normalize(d, dim=-1)[None]))
+    elif kind == "corners":
+        signs = torch.tensor([[sx, sy, sz] for sx in (1.0, -1.0) for sy in (1.0, -1.0)
+                              for sz in (1.0, -1.0)])
+        for scale in ((1.0, 1.0, 1.0), (1.0, 2.0, 0.5)):
+            d = torch.nn.functional.normalize(signs * torch.tensor(scale), dim=-1)
+            for k in (8.0, 16.0):
+                corner = (k + 0.5) / n
+                sets.append((corner.clone(), d[None]))
+                sets.append((corner - 0.9 * d[0], d[:1][None]))
+    else:  # "near_axis"
+        for tiny in (1e-7, -1e-7, 1e-30):
+            d = _unit([[1.0, tiny, 0.0], [tiny, -1.0, tiny], [0.0, tiny, 1.0],
+                       [1.0, 0.0, tiny]])
+            sets.append((torch.tensor([0.0, face[1].item(), 0.5]), d[None]))
+            sets.append((torch.tensor([-0.2, 0.37, face[2].item()]), d[None]))
+    return sets
+
+
+GRAZING_VOLUMES = {"bonsai64": lambda: get_bonsai(64), "border60": _border_volume,
+                   "sparse_24x16x40": lambda: _sparse_volume((24, 16, 40), 3)}
+
+
+@pytest.mark.parametrize("volume", sorted(GRAZING_VOLUMES))
+@pytest.mark.parametrize("kind", ["axis", "faces", "corners", "near_axis"])
+def test_runs_on_rays_that_graze_the_cells(kind, volume):
+    """Rays along the axes, in cell faces, through cell corners and nearly
+    along an axis, where a run's bound rests on a zero or tiny component or
+    an exact face: every bare step stays in its run's empty cell, and the
+    march is bitwise the reference."""
+    vol = torch.from_numpy(GRAZING_VOLUMES[volume]())
+    total = 0
+    for eye, dirs in _grazing_rays(kind, tuple(vol.shape)):
+        total += _assert_runs_exact(vol, eye, dirs)[0]
+    assert total > 0
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0], ids=["plus_x", "minus_x"])
+def test_runs_along_a_1030_texel_axis(sign):
+    """The margin at a scan's length: rays along and nearly along x through
+    a (10, 9, 1030) volume of faint cells (in [26, 60), so the rays cross
+    all of it), from eyes on cell faces, where positions near 1 carry
+    texel-space roundings ~1000x a 1-texel axis'."""
+    shape = (10, 9, 1030)
+    rng = np.random.default_rng(3)
+    keep = rng.random((2, 2, 129)) < 0.2
+    mask = keep.repeat(8, 0).repeat(8, 1).repeat(8, 2)[:shape[0], :shape[1], :shape[2]]
+    vol = np.zeros(shape, np.uint8)
+    vol[mask] = rng.integers(26, 60, int(mask.sum()), dtype=np.uint8)
+    vol = torch.from_numpy(vol)
+    d = _unit([[sign, 0.0, 0.0], [sign, 1e-4, -2e-4], [sign, 3e-3, 1e-3], [sign, -1e-7, 0.0]])
+    total = [0, 0, 0]
+    for ey, ez in ((8.5 / 9, 8.5 / 10), (4.5 / 9, 0.5 / 10)):
+        counts = _assert_runs_exact(vol, torch.tensor([0.5 - 0.7 * sign, ey, ez]), d[None])
+        total = [a + b for a, b in zip(total, counts)]
+    assert total[0] > 4 * 1000 and 0 < total[2] < total[1]
 
 
 def _edit_in_place(vol):
@@ -398,8 +498,9 @@ def test_launch_counting_on_gpu(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("volume", sorted(SKIP_VOLUMES))
 def test_skip_kernels_match_plain_on_gpu(cuda_device, volume):
-    """K1, K2 and K1b with the skip against their plain versions, bit for
-    bit, on the card; the table built there equals the CPU's."""
+    """K1 (over ray planes and making its rays), K2 and K1b (both palettes)
+    with the skip and its runs against their plain versions, bit for bit,
+    on the card; the table built there equals the CPU's."""
     vol_np = SKIP_VOLUMES[volume]()
     vol = mb.volume_tensor(vol_np, cuda_device)
     occ = mb.volume_occupancy(vol)
@@ -410,6 +511,7 @@ def test_skip_kernels_match_plain_on_gpu(cuda_device, volume):
         img = mb.render_bonsai_rays_cuda(vol, eye, dxyz)
         ref = reference.render_bonsai_rays(vol, eye, torch.stack(dxyz, dim=-1))
         assert torch.equal(img, ref), float((img - ref).abs().max())
+        assert torch.equal(mb.render_bonsai_frame_cuda(vol, u, 96, 64), ref)
         ids = torch.tensor([0, 3, 5, 6], dtype=torch.int32, device=cuda_device)
         for fast in (False, True):
             base = torch.rand((3, 64, 96), generator=torch.Generator().manual_seed(1)).to(
@@ -422,6 +524,59 @@ def test_skip_kernels_match_plain_on_gpu(cuda_device, volume):
             k1b = mb.render_bonsai_tiles(vol, u, ids, 96, 64, fast_transfer=fast)
             p1b = mb.render_bonsai_tiles_plain(vol, u, ids, 96, 64, fast_transfer=fast)
             assert torch.equal(k1b, p1b)
+
+
+STEP_COUNT_VOLUMES = {**SKIP_VOLUMES, "sparse_24x16x40": lambda: _sparse_volume((24, 16, 40), 3)}
+
+
+@pytest.mark.parametrize("kind", ["single", "batch"])
+def test_step_counts_on_the_cpu(kind):
+    """On the CPU step_counts is the run-taking plain march of the frame's
+    rays: its steps are the reference's, no pixel has more bare steps than
+    steps, and a recording keeps their sums as ``k1.steps`` and
+    ``k1.bare_steps``. At the bonsai's poses more than half of all steps
+    are bare. (That each bare step lies in an empty cell is
+    _skip_march_plain's check, in the tests of the runs.)"""
+    vol = torch.from_numpy(get_bonsai(64))
+    u = _frame_uniform(kind, 48 / 32, "cpu")
+    with profiler.recording() as rec:
+        steps, bare = mb.step_counts(vol, u, 48, 32)
+    views = (3,) if kind == "batch" else ()
+    assert steps.shape == bare.shape == views + (32, 48) and steps.dtype == torch.int32
+    eye, dxyz = geometry.rays_fragment_soa(u, 48, 32)
+    dirs = torch.stack(dxyz, dim=-1)
+    for v in range(len(u) if views else 1):
+        e, dv = (eye[v], dirs[v]) if views else (eye, dirs)
+        sv, bv = (steps[v], bare[v]) if views else (steps, bare)
+        _, want = reference.render_bonsai_rays(vol, e, dv, return_steps=True)
+        assert torch.equal(sv, want)
+        assert bool((bv <= sv).all())
+    assert rec.counters["k1.steps"] == int(steps.sum())
+    assert rec.counters["k1.bare_steps"] == int(bare.sum())
+    assert 2 * int(bare.sum()) > int(steps.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("volume", sorted(STEP_COUNT_VOLUMES))
+def test_step_counts_match_the_plain_twin_on_gpu(cuda_device, volume):
+    """K1's counting instantiation, cubic and per axis, one view and a
+    batch, counts each pixel's steps and bare steps as the plain twin
+    does on the CPU, and records ``k1.steps`` and ``k1.bare_steps``."""
+    vol_np = STEP_COUNT_VOLUMES[volume]()
+    vol = mb.volume_tensor(vol_np, cuda_device)
+    for kind in ("single", "batch"):
+        u = _frame_uniform(kind, 96 / 64, cuda_device)
+        with profiler.recording() as rec:
+            steps, bare = mb.step_counts(vol, u, 96, 64)
+        # the twin marches the card's rays, which K1's are bit for bit
+        eye, dxyz = geometry.rays_fragment_soa(u, 96, 64)
+        eye, dirs = eye.cpu().reshape(-1, 3), torch.stack(dxyz, dim=-1).cpu().reshape(-1, 64, 96, 3)
+        for v in range(len(eye)):
+            _, sv, _, bv = mb.march_runs_plain(torch.from_numpy(vol_np), eye[v], dirs[v])
+            assert torch.equal(steps.cpu().reshape(-1, 64, 96)[v], sv), (kind, v)
+            assert torch.equal(bare.cpu().reshape(-1, 64, 96)[v], bv), (kind, v)
+        assert rec.counters == {"k1.steps": int(steps.sum()), "k1.bare_steps": int(bare.sum())}
+        assert 0 < int(bare.sum()) < int(steps.sum())
 
 
 # -- K1 making its own rays: the frame wrapper ------------------------------

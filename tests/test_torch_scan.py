@@ -243,16 +243,18 @@ def test_k1_at_non_cubic_shapes_is_its_twin_on_gpu(cuda_device, shape, size):
 
 @pytest.mark.gpu
 def test_cubic_frame_and_512_batch_are_their_twins_on_gpu(cuda_device):
-    """The cubic path: the 256^3 bonsai frame at 1024^2 and a batch of 8 views
-    at 512^2 of a 512^3 volume (the views cell's sizes), each one K1 launch
-    making its rays, bitwise the plain twin."""
+    """The cubic path: the 256^3 bonsai frame at 1024^2 (K1 making its rays
+    and over ray planes) and a batch of 8 views at 512^2 of a 512^3 volume
+    (the views cell's sizes), each one K1 launch making its rays, bitwise
+    the plain twin."""
     from vokselis_torch.parallel import orbit_camera_batch
     from vokselis_torch.volume.io import get_bonsai
 
     vol = mb.volume_tensor(get_bonsai(), cuda_device)
     u, (eye, dxyz) = _rays("close", 1024, 1024, cuda_device)
-    assert torch.equal(mb.render_bonsai_frame_cuda(vol, u, 1024, 1024),
-                       mb.render_bonsai_rays_plain(vol, eye, dxyz))
+    want = mb.render_bonsai_rays_plain(vol, eye, dxyz)
+    assert torch.equal(mb.render_bonsai_frame_cuda(vol, u, 1024, 1024), want)
+    assert torch.equal(mb.render_bonsai_rays_cuda(vol, eye, dxyz), want)
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     dense = torch.randint(30, 220, (512,) * 3, generator=gen, device=cuda_device,
                           dtype=torch.uint8)

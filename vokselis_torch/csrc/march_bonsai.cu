@@ -23,11 +23,17 @@
 // What bounds it on this card: the steps, one after another. A ray takes up
 // to max_steps (the volume's full diagonal: 445 at 256^3) steps, each from
 // the position the previous one left. Empty-space skipping (march_ray) makes
-// most of them cheap: at the bench pose 97 % of the steps lie in cells with
-// no voxel above OCC_CUT and cost only the position arithmetic and, on
-// entering a cell, one read of the 32 KB occupancy table; the rest gather 8
-// one-byte taps whose addresses depend on the step's position, and take the
-// transfer and three cosf, divergent within a warp at the volume's surfaces.
+// most of them cheap: 84-97 % of the steps lie in cells with no voxel above
+// OCC_CUT (the bonsai's poses, the views' fbm ball, the kingsnake's stand-in),
+// and those take no sample; the rest gather 8 one-byte taps whose addresses
+// depend on the step's position, and take the transfer and three cosf,
+// divergent within a warp at the volume's surfaces. An empty cell is crossed
+// in one run: the step that finds its cell empty computes, from the ray's
+// per-axis texel step, how many further steps provably keep their lower taps
+// in that cell, and takes them as bare advances (p += d * dt, t += dt, the
+// same additions in the same order), with no taps, no cell id and no loop
+// test; a cell visit of ~5-6 steps costs one full step, the run's set-up and
+// ~6 instructions a bare step instead of ~33 (cubic) or ~45 (per axis) a step.
 // The design: the volume stays one contiguous (D, H, W) buffer indexed
 // [z][y][x] (256^3 = 16.8 MB, resident in the 50 MB L2 across frames; a
 // 1024x1024x795 scan, 834 MB, read from DRAM) and is read through __ldg, as
@@ -36,7 +42,11 @@
 // which sample neighbouring voxels and cross the same cells, share L1 lines
 // and skip together; each thread breaks out at alpha >= 0.95. None of the
 // TPU kernel's slab-pair layouts, DMA windows or overflow plane exist here:
-// a thread can gather directly.
+// a thread can gather directly. Registers (ptxas, sm_90a): K1 48 cubic, 56
+// per axis (44 and 48 without the runs, whose per-ray constants are three
+// inverse texel steps, 1 / dt and t's limit), K2/K1b 53-60 (48), the
+// counting kernel 48 and 56; no spills (the 32-byte stack frames, cosf's
+// and powf's slow paths, are unchanged).
 //
 // Numerics: the march repeats the oracle's float32 operations in the
 // oracle's order, and the library is built with --fmad=false so that no
@@ -45,8 +55,8 @@
 // to float, as PyTorch's CUDA division by a Python scalar computes it (a true
 // float division differs in the last bit). Hardware texture filtering is not used:
 // its 8-bit fixed-point weights would break the 1e-3 / 1e-5 parity contract.
-// The skip changes no bit (march_ray). Shared memory staging and TMA are
-// later work.
+// The skip and its runs change no bit (march_ray). Shared memory staging
+// and TMA are later work.
 //
 // Rays: the renderer's frames (vk_march_bonsai_frame, K1 with INLINE_RAYS)
 // make each pixel's fragment ray in the kernel from the view's inverse
@@ -207,10 +217,27 @@ __device__ __forceinline__ float horner(const float (&c)[N], float u) {
   return acc;
 }
 
+// A run's margin: 2^-17 of the unit box on each axis (n_a * RUN_EPS texels)
+// and of t1 (march_ray's runs; march_bonsai.py:RUN_EPS).
+constexpr float RUN_EPS = 1.0f / 131072.0f;
+
+// The steps of a run along one axis: how many texel steps s (1 / inv_s) fit
+// between the step's texel coordinate x (lower tap x0, clamped) and the face
+// of x0's cell in the direction of travel d, less the margin m. An axis with
+// d == 0 (either sign) takes the + face, which its x lies below, and inv_s
+// is inf there: +inf, no bound (p never moves along it).
+__device__ __forceinline__ float run_axis(float x, int x0, float d, float inv_s, float m) {
+  const float g = (float)(x0 & ~(OCC_CELL - 1)) - x;
+  const float dist = d >= 0.0f ? g + (float)OCC_CELL : -g;
+  return (dist - m) * inv_s;
+}
+
 // One ray's exact march (steps 1-6 above) from eye e along the normalized
 // direction d; returns the linear rgb. FAST swaps the vertigo palette's three
 // cosf for their polynomials (colors.bonsai_transfer_fast_soa): the hybrid's
-// re-march (K2) uses it, K1 never does.
+// re-march (K2) uses it, K1 never does. COUNT adds the ray's steps and bare
+// steps (below) to *steps and *bare (step_counts' kernel; the timed kernels
+// count nothing).
 //
 // Empty-space skipping: occ holds the max voxel of each OCC_CELL^3 cell with
 // one voxel of overlap toward + (march_bonsai.py:occupancy_table), so both
@@ -221,11 +248,38 @@ __device__ __forceinline__ float horner(const float (&c)[N], float u) {
 // skips its 8 loads, the transfer and the palette, and still advances p
 // and t, so positions and step counts stay the plain version's. The cell's
 // value is reloaded only when the step enters another cell.
-template <bool FAST>
+//
+// Runs (march_bonsai.py:march_runs_plain is the plain twin): the step that
+// finds its cell empty then takes run further steps as bare advances, p += d
+// * dt and t += dt as the loop's own advance, with no taps, no cell, no
+// composite (nothing composites in an empty cell, so a is unchanged and the
+// alpha test would pass) and no loop test. run is the largest count that
+// provably keeps every bare step inside the loop and its lower taps in the
+// cell: the minimum of
+//   - per moving axis, (distance from x = p * n - 0.5 to the cell's face in
+//     the direction of travel, less m = n * RUN_EPS texels) / the texel step
+//     n * |d| * dt (<= 1), floored. Along +, the lower tap of a bare step
+//     clamps to x0's cell while x < 8c + 8: p only grows, and the clamp at
+//     the volume's faces keeps a tap in the first or last cell; along -,
+//     while x >= 8c. So the clamp only shortens the run, never lengthens it;
+//   - (t1 * (1 - RUN_EPS) - t) / dt, floored: every bare step has t < t1;
+//   - max_steps - 1 - i: every bare step is a step of the loop.
+// The margin: a bare step's x differs from x + j * s by at most the j
+// additions' roundings of p (|p| < 2: j * 2^-24 each, times n), the two x's
+// own (n * 2^-22 each) and the float step's (3 * 2^-24 a step), and the
+// run's own arithmetic by ~4 ulps: with j <= 8 (the fastest axis has s ~ 1
+// and at most 8.5 texels to its face), under (17 n + 80) * 2^-24 texels,
+// ~1e-3 at n = 1024, below n * 2^-17 for every n >= 1 (~7.8e-3 at n =
+// 1024). t's j additions and the run's arithmetic err by under 16 * 2^-24
+// * t1, below t1 * 2^-17. A run therefore ends up to m / s of a step short
+// of its face (one step in ~1 / (128 s) of runs at n = 1024): the next
+// full step finds the same cell and runs again.
+template <bool FAST, bool COUNT = false>
 __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
                                             const uint8_t* __restrict__ occ, const Dims& n,
                                             float ex, float ey, float ez, float dx,
-                                            float dy, float dz, int max_steps) {
+                                            float dy, float dz, int max_steps,
+                                            int* steps = nullptr, int* bare = nullptr) {
   // the occupancy table's cells along x and y ([z][y][x], march_bonsai.py:occupancy_table)
   const int cells_x = (n.nx + OCC_CELL - 1) / OCC_CELL;
   const int cells_y = (n.ny + OCC_CELL - 1) / OCC_CELL;
@@ -244,6 +298,13 @@ __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
   // (raycast_naive.wgsl:97-99, there with the cube's 256 on every axis)
   const float dt = fminf(1.0f / (n.fx * fabsf(dx)),
                          fminf(1.0f / (n.fy * fabsf(dy)), 1.0f / (n.fz * fabsf(dz))));
+  // the runs' per-ray constants: inverse texel steps (inf on an axis with
+  // d == 0), 1 / dt and t's limit
+  const float inv_sx = 1.0f / ((n.fx * fabsf(dx)) * dt);
+  const float inv_sy = 1.0f / ((n.fy * fabsf(dy)) * dt);
+  const float inv_sz = 1.0f / ((n.fz * fabsf(dz)) * dt);
+  const float inv_dt = 1.0f / dt;
+  const float t_lim = t1 * (1.0f - RUN_EPS);
 
   float px = ex + t * dx, py = ey + t * dy, pz = ez + t * dz;
   float r = 0.0f, g = 0.0f, b = 0.0f, a = 0.0f;
@@ -259,6 +320,7 @@ __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
         cell = c;
         empty = __ldg(occ + c) <= OCC_CUT;
       }
+      int run = 0;
       if (!empty) {
         const float samp = sample_trilinear(vol, n, tp);
         // transfer: smoothstep(0.10, 1.2, min(0.9, samp)) + vertigo
@@ -282,11 +344,29 @@ __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
         g = g + w * cg;
         b = b + w * cb;
         a = a + (1.0f - a) * tv;
+      } else {
+        // the same texel coordinates taps_at computed
+        const float qx = run_axis(px * n.fx - 0.5f, tp.x0, dx, inv_sx, n.fx * RUN_EPS);
+        const float qy = run_axis(py * n.fy - 0.5f, tp.y0, dy, inv_sy, n.fy * RUN_EPS);
+        const float qz = run_axis(pz * n.fz - 0.5f, tp.z0, dz, inv_sz, n.fz * RUN_EPS);
+        const float q = fmaxf(fminf(fminf(qx, qy), fminf(qz, (t_lim - t) * inv_dt)), 0.0f);
+        run = min((int)q, max_steps - 1 - i);
       }
       px = px + dx * dt;
       py = py + dy * dt;
       pz = pz + dz * dt;
       t = t + dt;
+      for (int j = 0; j < run; ++j) {
+        px = px + dx * dt;
+        py = py + dy * dt;
+        pz = pz + dz * dt;
+        t = t + dt;
+      }
+      i += run;
+      if (COUNT) {
+        *steps += 1 + run;
+        *bare += run;
+      }
     }
   }
   return make_float3(r, g, b);
@@ -376,6 +456,32 @@ int launch_march(const void* vol, const void* occ, int vol_w, int vol_h, int vol
   return (int)cudaGetLastError();
 }
 
+// K1's step counts: march_bonsai_kernel<true, CUBE>'s march of every pixel,
+// each thread making its ray, writing the pixel's (steps, bare steps) as two
+// int32 at counts[2 pix] instead of its colour (step_counts; no frame or batch
+// path launches it, and the timed kernel counts nothing).
+template <bool CUBE>
+__global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
+    march_bonsai_count_kernel(const uint8_t* __restrict__ vol, const uint8_t* __restrict__ occ,
+                              int vol_w, int vol_h, int vol_d,
+                              const float* __restrict__ inv_proj, const float* __restrict__ eye,
+                              int height, int width, float inv_w, float inv_h, int max_steps,
+                              int* __restrict__ counts) {
+  const int ix = blockIdx.x * BLOCK_X + threadIdx.x;
+  const int iy = blockIdx.y * BLOCK_Y + threadIdx.y;
+  if (ix >= width || iy >= height) return;
+  const size_t v = blockIdx.z;
+  const float* e = eye + 4 * v;
+  const size_t pix = v * height * width + (size_t)iy * width + ix;
+  const float3 d = fragment_ray(inv_proj + 16 * v, ix, iy, inv_w, inv_h);
+  const Dims n = CUBE ? dims_of(vol_w, vol_w, vol_w) : dims_of(vol_w, vol_h, vol_d);
+  int steps = 0, bare = 0;
+  march_ray<false, true>(vol, occ, n, __ldg(e), __ldg(e + 1), __ldg(e + 2), d.x, d.y, d.z,
+                         max_steps, &steps, &bare);
+  counts[2 * pix] = steps;
+  counts[2 * pix + 1] = bare;
+}
+
 // K2 and K1b: the march over listed units of TILE x TILE screen tiles (unit p
 // = tiles p * tpu .. p * tpu + tpu - 1 in raster order of the padded tile
 // grid, nx tiles a row). Grid (n_sel, tpu * TILE / BLOCK_Y), block
@@ -462,6 +568,28 @@ int vk_march_bonsai_frame(const void* vol, const void* occ, int vol_w, int vol_h
   return launch_march<true>(vol, occ, vol_w, vol_h, vol_d, nullptr, nullptr, nullptr, inv_proj,
                             view_position, n_views, height, width, max_steps, srgb, out, device,
                             stream);
+}
+
+// K1's step counts of n_views whole frames: as vk_march_bonsai_frame, but
+// each pixel writes its steps and bare steps, two int32, into counts
+// (n_views*height*width*2 int32) instead of its colour.
+int vk_march_bonsai_counts(const void* vol, const void* occ, int vol_w, int vol_h, int vol_d,
+                           const void* inv_proj, const void* view_position, int n_views,
+                           int height, int width, int max_steps, void* counts, int device,
+                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_views <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
+  if (n_views > 65535) return (int)cudaErrorInvalidValue;
+  const float inv_w = 1.0f / (float)width, inv_h = 1.0f / (float)height;
+  const dim3 block(BLOCK_X, BLOCK_Y);
+  const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y, n_views);
+  const bool cube = vol_w == vol_h && vol_h == vol_d;
+  auto kernel = cube ? march_bonsai_count_kernel<true> : march_bonsai_count_kernel<false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)vol, (const uint8_t*)occ, vol_w, vol_h, vol_d, (const float*)inv_proj,
+      (const float*)view_position, height, width, inv_w, inv_h, max_steps, (int*)counts);
+  return (int)cudaGetLastError();
 }
 
 // K2 (compact == 0) or K1b (compact != 0) on `stream`; returns the launch's

@@ -36,7 +36,12 @@ The kernels skip empty space exactly: :func:`occupancy_table` holds each
 voxel above ``OCC_CUT`` adds nothing (its transfer is exactly 0), so it
 only advances. The wrappers look the table up in a cache of their own,
 keyed on the volume tensor: it is built at a volume's first launch and
-again only after the volume's data changed.
+again only after the volume's data changed. A step that finds its cell
+empty also crosses the rest of the cell in one run of bare advances, as
+many further steps as provably keep their lower taps in it
+(:func:`march_runs_plain` is the rule in plain torch); :func:`step_counts`
+counts each pixel's steps and bare steps with a counting instantiation of
+K1.
 """
 
 from __future__ import annotations
@@ -48,12 +53,14 @@ import numpy as np
 import torch
 
 from vokselis_torch.core import geometry
+from vokselis_torch.core.colors import bonsai_transfer_fast_soa, linear_to_srgb
 from vokselis_torch.core.compiled import CompiledFrame
 from vokselis_torch.ops import reference
 from vokselis_torch.ops.cuda.build import CSRC, NVCC_FLAGS, check_launch, load_library
 from vokselis_torch.ops.reference import MAX_STEPS_BONSAI, bonsai_max_steps
 from vokselis_torch.utils.grid import TILE, cdiv
 from vokselis_torch.utils.spans import count, span
+from vokselis_torch.volume.sample import sample_trilinear_r8
 
 SOURCE = CSRC / "march_bonsai.cu"
 # empty-space skipping: cells of OCC_CELL^3 voxels; a sample whose every tap
@@ -62,6 +69,9 @@ SOURCE = CSRC / "march_bonsai.cu"
 # vokselis_tpu/ops/pallas/march_bonsai.py:107-115)
 OCC_CELL = 8
 OCC_CUT = 25
+# K1's empty-cell runs: a run's margin, 2^-17 of the unit box on each axis
+# (n * RUN_EPS texels) and of the ray's exit t1 (march_bonsai.cu march_ray)
+RUN_EPS = 2.0 ** -17
 
 # K1's views a launch: the grid's z extent
 MAX_VIEWS = 65535
@@ -87,6 +97,8 @@ def build() -> ctypes.CDLL:
     lib.vk_march_bonsai.restype = i
     lib.vk_march_bonsai_frame.argtypes = [p, p, i, i, i, p, p, i, i, i, i, i, p, i, p]
     lib.vk_march_bonsai_frame.restype = i
+    lib.vk_march_bonsai_counts.argtypes = [p, p, i, i, i, p, p, i, i, i, i, p, i, p]
+    lib.vk_march_bonsai_counts.restype = i
     lib.vk_march_tiles.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, p]
     lib.vk_march_tiles.restype = i
     _lib = lib
@@ -309,6 +321,141 @@ def render_bonsai_rays_plain(vol, eye, dxyz, max_steps: int | None = None,
         return reference.render_bonsai_rays(vol, eye, dirs, max_steps=max_steps, srgb=srgb)
     return torch.stack([reference.render_bonsai_rays(vol, e, d, max_steps=max_steps, srgb=srgb)
                         for e, d in zip(eye, dirs)])
+
+
+def _run_lengths(x, lower, d, inv_s, margin, t, t_lim, inv_dt, steps_left: int):
+    """K1's empty-cell run (march_bonsai.cu march_ray, run_axis) for N rays
+    whose step found its cell empty, in the kernel's float32 operations and
+    order: per axis the distance from the texel coordinate ``x`` (N, 3) to
+    the face of the lower taps' (``lower``, clamped) cell in the direction
+    ``d`` (the + face where d is 0), less ``margin`` (n * RUN_EPS texels),
+    times the inverse texel step ``inv_s``; then the minimum with ``(t_lim -
+    t) * inv_dt``, floored at 0, truncated, and at most ``steps_left``.
+    Returns (N,) int32 bare steps."""
+    g = (lower // OCC_CELL * OCC_CELL).to(torch.float32) - x
+    q = (torch.where(d >= 0, g + float(OCC_CELL), -g) - margin) * inv_s
+    q = torch.fmin(torch.fmin(q[:, 0], q[:, 1]), torch.fmin(q[:, 2], (t_lim - t) * inv_dt))
+    return torch.clamp(torch.clamp(q, min=0.0).to(torch.int32), max=steps_left)
+
+
+@torch.no_grad()
+def march_runs_plain(vol, eye, dirs, max_steps: int | None = None,
+                     fast_transfer: bool = False, on_bare=None):
+    """K1's march as the kernel takes it, in plain torch: a step whose lower
+    taps lie in an empty cell of :func:`occupancy_table` takes no sample and
+    then :func:`_run_lengths` bare advances (no taps, no cell, no loop
+    test), each the loop's own ``p + d * dt`` and ``t + dt``. The image is
+    :func:`reference.render_bonsai_rays`' bit for bit.
+
+    ``vol`` (D, H, W) uint8; ``eye`` (3,); ``dirs`` (H, W, 3), one view;
+    ``max_steps`` None: the volume's whole diagonal. ``on_bare(bare,
+    held)``, if given, is called at every step with the (H * W,) masks of
+    the rays that take a bare step there and of the rays whose lower taps
+    lie in their run's cell, which is empty. Returns ``(image, steps,
+    skipped, bare)``: the (H, W, 4) image and (H, W) int32 counts of the
+    steps, the steps in empty cells and the bare steps among them. The image
+    is sRGB-encoded, as the frames' are."""
+    max_steps = _steps(vol, max_steps)
+    height, width = dirs.shape[:2]
+    npix = height * width
+    dev = dirs.device
+    d = dirs.reshape(npix, 3)
+    eye_b = eye.expand(npix, 3)
+    t0, t1 = geometry.intersect_box_unit(eye_b, d)
+    hit = t0 <= t1
+    t = torch.clamp(t0, min=0.0)
+    size = torch.tensor(vol.shape[::-1], dtype=torch.float32, device=dev)  # (W, H, D)
+    dt = torch.amin(1.0 / (size * torch.abs(d)), dim=-1)
+    inv_s = 1.0 / ((size * torch.abs(d)) * dt[:, None])
+    inv_dt = 1.0 / dt
+    t_lim = t1 * (1.0 - RUN_EPS)
+    margin = size * RUN_EPS
+    hi = torch.tensor(vol.shape[::-1], device=dev) - 1
+    occ = occupancy_table(vol)
+    cells_y, cells_x = occ.shape[1:]
+    occ = occ.reshape(-1)
+    p = eye_b + t[:, None] * d
+    rgb = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+    a = torch.zeros((npix,), dtype=torch.float32, device=dev)
+    steps, skipped, bare, run, run_cell = (
+        torch.zeros((npix,), dtype=torch.int32, device=dev) for _ in range(5))
+    live = hit
+    i = 0
+    while True:  # a bare step tests nothing, not even i < max_steps
+        in_run = live & (run > 0)
+        step = live & (run == 0) & (t < t1) & (a < 0.95) & (i < max_steps)
+        live = in_run | step
+        if not bool(live.any()):
+            break
+        x = p * size - 0.5
+        lower = torch.minimum(torch.clamp(torch.floor(x).long(), min=0), hi)
+        cells = lower // OCC_CELL
+        cell = ((cells[:, 2] * cells_y + cells[:, 1]) * cells_x + cells[:, 0]).int()
+        empty = occ[cell] <= OCC_CUT
+        if on_bare is not None:
+            on_bare(in_run, empty & (cell == run_cell))
+        idx = torch.nonzero(step & ~empty).squeeze(1)
+        r = sample_trilinear_r8(vol, p[idx])
+        if fast_transfer:
+            c_a, cr, cg, cb = bonsai_transfer_fast_soa(r)
+            c_rgb = torch.stack([cr, cg, cb], dim=-1)
+        else:
+            c_rgb, c_a = reference._bonsai_transfer(r)
+        a_i = a[idx]
+        rgb[idx] = rgb[idx] + (1.0 - a_i)[:, None] * c_a[:, None] * c_rgb
+        a[idx] = a_i + (1.0 - a_i) * c_a
+        start = step & empty
+        run = torch.where(in_run, run - 1, run)
+        run[start] = _run_lengths(x[start], lower[start], d[start], inv_s[start], margin,
+                                  t[start], t_lim[start], inv_dt[start], max_steps - 1 - i)
+        run_cell = torch.where(start, cell, run_cell)
+        steps += live
+        skipped += in_run | start
+        bare += in_run
+        p = torch.where(live[:, None], p + d * dt[:, None], p)
+        t = torch.where(live, t + dt, t)
+        i += 1
+    rgb = linear_to_srgb(torch.where(hit[:, None], rgb, 0.0))
+    img = torch.cat([rgb, torch.ones((npix, 1), dtype=torch.float32, device=dev)], dim=-1)
+    return (img.reshape(height, width, 4),
+            *(c.reshape(height, width) for c in (steps, skipped, bare)))
+
+
+@torch.no_grad()
+def step_counts(vol, camera_uniform, width: int, height: int):
+    """K1's work on the frame of ``camera_uniform`` (one view or a batch, as
+    :func:`render_bonsai_frame_cuda` takes it, over the volume's whole
+    diagonal): each pixel's steps and, of them, the bare steps of its
+    empty-cell runs, as two (height, width), or (V, height, width), int32
+    tensors. On a card one launch of K1's
+    counting instantiation (``march_bonsai_count_kernel``: the frame
+    kernel's march, its threads making their rays; no frame or batch path
+    launches it); on the CPU :func:`march_runs_plain` of
+    :func:`geometry.rays_fragment_soa`'s rays. Adds the sums to the counters
+    ``k1.steps`` and ``k1.bare_steps`` of an active ``spans.recording()``."""
+    inv, pos, max_steps = _check_frame(vol, camera_uniform, width, height, None)
+    views = tuple(inv.shape[:-2])
+    if vol.device.type == "cpu":
+        eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
+        dirs = torch.stack(dxyz, dim=-1)
+        pairs = [march_runs_plain(vol, e, dv)[1::2]
+                 for e, dv in (zip(eye, dirs) if views else [(eye, dirs)])]
+        counts = torch.stack([torch.stack(pr, dim=-1) for pr in pairs])
+        counts = counts if views else counts[0]
+    else:
+        occ = volume_occupancy(vol)
+        lib = build()
+        counts = torch.empty(views + (height, width, 2), dtype=torch.int32, device=vol.device)
+        err = lib.vk_march_bonsai_counts(
+            vol.data_ptr(), occ.data_ptr(), *_whd(vol), inv.data_ptr(), pos.data_ptr(),
+            views[0] if views else 1, int(height), int(width), max_steps, counts.data_ptr(),
+            vol.device.index, torch.cuda.current_stream(vol.device).cuda_stream,
+        )
+        check_launch(lib, err, "march_bonsai_counts")
+    steps, bare = counts[..., 0], counts[..., 1]
+    count("k1.steps", int(steps.sum()))
+    count("k1.bare_steps", int(bare.sum()))
+    return steps, bare
 
 
 def tile_rays_compact(camera_uniform, unit_ids, width: int, height: int,
