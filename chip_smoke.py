@@ -33,6 +33,13 @@ Phases, each reported on its own lines:
      the 256^3 bonsai frame's at that pose; the share of K1's steps taken as
      bare advances of its empty-cell runs (march_bonsai.step_counts) there
      and at the bonsai's bench pose;
+  3f. K1's float32 instantiation over the benchmark's Miranda stand-in
+     (1024^3 float32, 4.3 GB, mapped by its data range) at the bench pose
+     through BonsaiRenderer, bitwise the plain version, with its device ms,
+     its share of bare steps and its voxels' shares of light, heavy and
+     mixed fluid; the registers and stack frames of K1's six frame
+     instantiations as the built library holds them (cuobjdump), the uint8
+     ones 48 cubic and 56 per axis, none spilling;
   3b. K3, K4 (low-degree transfer), K4b (K4's exact-transfer mode) and K6
      against their plain versions on the card, at the bench pose's fast
      geometry (256^3, 1024^2, I=512; K3 + K4 also at I=1024), both marching
@@ -373,6 +380,7 @@ FIELD_RES = 512  # configs 1 and 2 (bench.py:442-444)
 K7_MAX, K7_MEAN = 5e-3, 1e-5  # test_pallas.py:41-58, K7 vs plain if not bitwise
 VIEW_RES, VIEWS, VIEWS_SMOKE, VOL5 = 512, 64, 8, 512  # config 5 (bench.py:312-371)
 SCAN_SHAPE = (795, 1024, 1024)  # the Open SciVis kingsnake, (D, H, W)
+MIRANDA_SHAPE = (1024, 1024, 1024)  # the Open SciVis Miranda density, float32
 # phase 4h's timing rounds: a 64-view batch takes ~20-30 ms batched and
 # ~70-125 ms view by view, a 1024^2 frame ~1.5
 MESH_BATCH_ROUNDS, MESH_FRAME_ROUNDS = 25, 60
@@ -422,6 +430,18 @@ except RuntimeError as e:
     sys.exit(3)
 print("no error")
 """
+
+
+def k1_resources(usage: str) -> dict:
+    """The resource usage (``cuobjdump -res-usage`` of the built library) of
+    each instantiation of K1's frame kernel: ``{(voxel type, inline rays,
+    cube): (registers, stack frame bytes)}``, the type "u8" or "f32"."""
+    out = {}
+    for m in re.finditer(r"Function\s+\S*?\d+march_bonsai_kernelI([hf])Lb([01])ELb([01])E\S*"
+                         r"\s+REG:(\d+)\s+STACK:(\d+)", usage):
+        key = ({"h": "u8", "f": "f32"}[m.group(1)], m.group(2) == "1", m.group(3) == "1")
+        out[key] = (int(m.group(4)), int(m.group(5)))
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1068,6 +1088,54 @@ def main() -> int:
         f"{k} {b} of {n} steps ({b / n:.4f})" for k, (n, b) in shares.items()), flush=True)
     check(all(0 < b < n for n, b in shares.values()), "K1's empty-cell runs take no bare step")
     del snake_r, img_k, img_p, eye, dxyz
+
+    # -- phase 3f: K1 over a float32 field ------------------------------------
+    # the benchmark's Miranda stand-in (1024^3 float32, 4.3 GB, 4-byte taps
+    # from DRAM, mapped by the field's range) at the bench pose through
+    # BonsaiRenderer, bitwise the plain twin; its device ms, its bare share,
+    # and the registers and stack frame of every K1 frame instantiation in
+    # the built library, whoever built it, the uint8 ones held to 48 (cubic)
+    # and 56 (per axis); a spill would enlarge the 32-byte stack frame of
+    # cosf's and powf's slow paths
+    from benchmark.reference.standin_miranda import miranda, shares as fluid_shares
+
+    regs = k1_resources(subprocess.run([cuobjdump, "-res-usage", mb.build()._name],
+                                       capture_output=True, text=True, check=True).stdout)
+    print(f"phase 3f K1 (registers, stack frame bytes) by (voxel, rays made inline, cube), "
+          f"cuobjdump of the library: " + "; ".join(f"{k} {v}" for k, v in sorted(regs.items())),
+          flush=True)
+    check(len(regs) == 6, f"K1's frame kernel has {len(regs)} instantiations, not 6")
+    check(all(v[1] == 32 for v in regs.values()), "a K1 instantiation's stack frame is not "
+          "the 32 bytes of cosf's and powf's slow paths: it spills")
+    check(regs[("u8", True, True)][0] == 48 and regs[("u8", True, False)][0] == 56,
+          "the uint8 instantiations' registers moved from 48 cubic, 56 per axis")
+    field_r = mb.BonsaiRenderer(miranda(MIRANDA_SHAPE, 2**31 + 29, dev), dev)
+    parts = fluid_shares(field_r.vol)
+    reset_launches()
+    img_k = field_r(bench_u, RES, RES)
+    field_launches = launches()
+    wrapper_check("the float field frame", field_launches, "K1")
+    eye, dxyz = geometry.rays_fragment_soa(bench_u, RES, RES)
+    img_p = mb.render_bonsai_rays_plain(field_r.vol, eye, dxyz)
+    mx, mean = rgb_err(img_k, img_p)
+    field_equal = torch.equal(img_k, img_p)
+    field_lit = float((img_k[..., :3].amax(dim=-1) > 1.0 / 255.0).float().mean())
+    field_dev = device_ms(lambda: mb.render_bonsai_frame_cuda(field_r.vol, bench_u, RES, RES),
+                          torch)
+    st, br = mb.step_counts(field_r.vol, bench_u, RES, RES)
+    n_st, n_br = int(st.sum()), int(br.sum())
+    print(f"phase 3f K1 vs plain Miranda stand-in {'x'.join(map(str, MIRANDA_SHAPE))} float32 "
+          f"bench pose {RES}x{RES} ({card}; BonsaiRenderer, {field_r.max_steps} steps; range "
+          f"(lo, inv) {mb.volume_range(field_r.vol)}; voxel shares "
+          f"{ {k: round(v, 4) for k, v in parts.items()} }): bitwise equal {field_equal}, max "
+          f"{mx:.3e} mean {mean:.3e}, lit pixels {field_lit:.4f}, launches {field_launches}; "
+          f"K1 making its rays, device {field_dev:.4f} ms (CUDA graph of {GRAPH_LAUNCHES} "
+          f"launches); bare steps {n_br} of {n_st} ({n_br / n_st:.4f})", flush=True)
+    check(field_equal and field_lit > 0.05 and field_r.vol.dtype == torch.float32,
+          "the float field frame disagrees with K1's plain version or shows nothing")
+    check(0 < n_br < n_st, "K1's empty-cell runs take no bare step over the float field")
+    worst["K1"] = max(worst["K1"], mx)
+    del field_r, img_k, img_p, eye, dxyz, st, br
 
     # -- phase 3b: K3, K4, K4b, K34, K6 against their plain versions -------
     fast_r = shear_warp.FastBonsaiRenderer(vol_bonsai, dev, intermediate=II)

@@ -3,9 +3,11 @@
 256^3 CT volume with the hand-written march kernel, or render it with the
 shear-warp kernels (``--fast``) or the hybrid renderer (``--hybrid``: the
 fast frame with its worst tiles re-marched exactly). ``--volume`` marches
-another uint8 scan, an Open SciVis Datasets ``.raw`` file whose name gives
-its dims (e.g. ``kingsnake_1024x1024x795_uint8.raw``), with the exact
-renderer: it takes any (D, H, W) volume, fast and hybrid only cubes.
+another volume, an Open SciVis Datasets ``.raw`` file whose name gives its
+dims and type (e.g. ``kingsnake_1024x1024x795_uint8.raw``, or a float32
+field such as ``miranda_1024x1024x1024_float32.raw``, mapped by its data
+range), with the exact renderer: it takes any (D, H, W) uint8 or float32
+volume, fast and hybrid only uint8 cubes.
 
 Same command line as examples/bonsai.py. Runs on the CUDA card; ``--cpu``
 runs the kernels' plain torch versions on the CPU instead.
@@ -27,8 +29,8 @@ def main():
     )
     parser.add_argument(
         "--volume", default=None,
-        help="an Open SciVis uint8 .raw file to march with the exact renderer, its dims "
-             "read from its name (<name>_<x>x<y>x<z>_uint8.raw)",
+        help="an Open SciVis uint8 or float32 .raw file to march with the exact renderer, "
+             "its dims and type read from its name (<name>_<x>x<y>x<z>_<uint8|float32>.raw)",
     )
     args = parser.parse_args()
     if args.volume and (args.fast or args.hybrid):

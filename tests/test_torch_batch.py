@@ -188,13 +188,13 @@ def test_batched_plain_k1_equals_per_view():
 
 def test_renderer_renders_a_batch_in_one_call(monkeypatch):
     """build_renderer's render over a batched uniform: one ray pass, one
-    wrapper call, (V, H, W, 4) bitwise the views rendered one by one; the
-    BonsaiRenderer entry point gives the same batch."""
+    call of K1's plain version, (V, H, W, 4) bitwise the views rendered one
+    by one; the BonsaiRenderer entry point gives the same batch."""
     render, pack = mb.build_renderer(get_bonsai(32), "cpu")
     u = sharding.orbit_camera_batch(3, device="cpu")
     singles = torch.stack([render(pack, c, 20, 20, 60) for c in u])
     rays = _Counter(monkeypatch, geometry, "rays_fragment_soa")
-    k1 = _Counter(monkeypatch, mb, "render_bonsai_rays_cuda")
+    k1 = _Counter(monkeypatch, mb, "render_bonsai_rays_plain")
     img = render(pack, u, 20, 20, 60)
     assert (rays.calls, k1.calls) == (1, 1)
     assert torch.equal(img, singles)
@@ -204,10 +204,11 @@ def test_renderer_renders_a_batch_in_one_call(monkeypatch):
 def test_views_batch_bitwise_per_view_loop(monkeypatch):
     """ViewsBatch's step (K8's and K1's plain versions here) is bitwise the
     per-view loop it replaced (the same volume, then each view rendered on
-    its own), with one ray pass and one K1 wrapper call for the batch."""
+    its own), with one ray pass and one call of K1's plain version for the
+    batch."""
     batch = views_model.ViewsBatch(4, 24, 16, device="cpu")
     rays = _Counter(monkeypatch, geometry, "rays_fragment_soa")
-    k1 = _Counter(monkeypatch, mb, "render_bonsai_rays_cuda")
+    k1 = _Counter(monkeypatch, mb, "render_bonsai_rays_plain")
     vol, imgs = batch(1)
     assert (rays.calls, k1.calls) == (1, 1)
     want_vol = genvol.generate_density_u8(0.3 * 1, 16, "cpu")

@@ -141,8 +141,9 @@ def _good_inputs():
 
 
 BAD_INPUTS = {
-    "vol_float32": (lambda k: k.update(vol=k["vol"].float()), TypeError),
-    # K1 takes any (D, H, W) volume; one with an empty axis it refuses
+    # K1 takes uint8 and float32 volumes of any (D, H, W) shape; another
+    # type, or a volume with an empty axis, it refuses
+    "vol_float64": (lambda k: k.update(vol=k["vol"].double()), TypeError),
     "vol_not_cubic": (lambda k: k.update(vol=k["vol"][:, :, :0].contiguous()), ValueError),
     "vol_not_contiguous": (lambda k: k.update(vol=k["vol"].transpose(0, 2)), ValueError),
     "rays_float64": (lambda k: k.update(dx=k["dx"].double()), TypeError),
@@ -175,7 +176,7 @@ def test_renderer_rejects_bad_volume():
     with pytest.raises(ValueError):
         mb.BonsaiRenderer(np.zeros((8, 8), np.uint8), "cpu")
     with pytest.raises(ValueError):
-        mb.BonsaiRenderer(np.zeros((8, 8, 8), np.float32), "cpu")
+        mb.BonsaiRenderer(np.zeros((8, 8, 8), np.float64), "cpu")
 
 
 def test_cuda_device_without_cuda_raises():
@@ -600,7 +601,7 @@ def _batch_of(n):
 
 
 BAD_FRAME_INPUTS = {
-    "vol_float32": (lambda k: k.update(vol=k["vol"].float()), TypeError),
+    "vol_float64": (lambda k: k.update(vol=k["vol"].double()), TypeError),
     "vol_numpy": (lambda k: k.update(vol=k["vol"].numpy()), TypeError),
     "inv_proj_float64": (lambda k: _uniform(k, inv=k["u"].inv_proj.double()), TypeError),
     "view_position_float64": (lambda k: _uniform(k, vp=k["u"].view_position.double()),

@@ -152,7 +152,8 @@ def test_open_scivis_loader_reads_dims_from_the_name(tmp_path):
 
 @pytest.mark.parametrize("name,size", [
     ("tiny_5x4x3_uint8.raw", 59),  # a byte short
-    ("tiny_5x4x3_float32.raw", 240),  # the right size for its type, but not uint8
+    ("tiny_5x4x3_float32.raw", 239),  # a byte short of its float32 voxels
+    ("tiny_5x4x3_float64.raw", 480),  # the right size for its type, but neither taken type
     ("tiny_5x4x3_uint16.raw", 120),
     ("tiny_uint8.raw", 60),  # no dims
     ("tiny_5x4x0_uint8.raw", 0),  # an empty axis

@@ -1,5 +1,5 @@
-// Exact front-to-back raymarch of a uint8 voxel volume (the bonsai path), one
-// thread per pixel, for NVIDIA Hopper (sm_90a).
+// Exact front-to-back raymarch of a uint8 or float32 voxel volume (the bonsai
+// path), one thread per pixel, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel vokselis_tpu/ops/pallas/march_bonsai.py:_march_kernel
 // (launched by render_bonsai_rays_pallas; the JAX package's view batches vmap
@@ -14,7 +14,9 @@
 //   3. march while t < t1 and alpha < 0.95, position accumulated p += d * dt;
 //   4. trilinear R8Unorm sample with wgpu ClampToEdge taps (texel x = p*W - 0.5,
 //      taps floor(x) and floor(x)+1, each clamped to [0, W-1]; y with H, z
-//      with D);
+//      with D); a float32 volume's taps are mapped by its data range,
+//      (v - lo) * inv with inv = 1 / (hi - lo) (0 for a constant volume),
+//      before the same seven lerps (VoxelMap);
 //   5. transfer tv = smoothstep(0.10, 1.2, min(0.9, samp)) (the clamp-argument
 //      quirk) and the vertigo palette (TAU = 6.28318);
 //   6. composite under: rgb += (1-a)*tv*c, a += (1-a)*tv;
@@ -26,7 +28,8 @@
 // most of them cheap: 84-97 % of the steps lie in cells with no voxel above
 // OCC_CUT (the bonsai's poses, the views' fbm ball, the kingsnake's stand-in),
 // and those take no sample; the rest gather 8 one-byte taps whose addresses
-// depend on the step's position, and take the transfer and three cosf,
+// depend on the step's position (4-byte taps for a float32 volume), and take
+// the transfer and three cosf,
 // divergent within a warp at the volume's surfaces. An empty cell is crossed
 // in one run: the step that finds its cell empty computes, from the ray's
 // per-axis texel step, how many further steps provably keep their lower taps
@@ -36,17 +39,22 @@
 // ~6 instructions a bare step instead of ~33 (cubic) or ~45 (per axis) a step.
 // The design: the volume stays one contiguous (D, H, W) buffer indexed
 // [z][y][x] (256^3 = 16.8 MB, resident in the 50 MB L2 across frames; a
-// 1024x1024x795 scan, 834 MB, read from DRAM) and is read through __ldg, as
+// 1024x1024x795 scan, 834 MB, or a 1024^3 float32 field, 4.3 GB, read from
+// DRAM) and is read through __ldg, as
 // is the table (not staged into shared memory: every block would
 // copy it); threads run in 16x8 pixel blocks so that neighbouring rays,
 // which sample neighbouring voxels and cross the same cells, share L1 lines
 // and skip together; each thread breaks out at alpha >= 0.95. None of the
 // TPU kernel's slab-pair layouts, DMA windows or overflow plane exist here:
-// a thread can gather directly. Registers (ptxas, sm_90a): K1 48 cubic, 56
-// per axis (44 and 48 without the runs, whose per-ray constants are three
-// inverse texel steps, 1 / dt and t's limit), K2/K1b 53-60 (48), the
-// counting kernel 48 and 56; no spills (the 32-byte stack frames, cosf's
-// and powf's slow paths, are unchanged).
+// a thread can gather directly. The voxel type is a template argument of the
+// march (K1's frame entry and its counting kernel; K1's ray-plane entry and
+// K2/K1b take uint8 only): the uint8 instantiations' VoxelMap is empty, so
+// they carry no range. Registers
+// (ptxas, sm_90a): K1 48 cubic, 56 per axis (44 and 48 without the runs,
+// whose per-ray constants are three inverse texel steps, 1 / dt and t's
+// limit), its float32 instantiations 53 cubic and 55 per axis, K2/K1b
+// 53-60 (48), the counting kernel 48 and 56 (54 float); no spills (the
+// 32-byte stack frames, cosf's and powf's slow paths, are unchanged).
 //
 // Numerics: the march repeats the oracle's float32 operations in the
 // oracle's order, and the library is built with --fmad=false so that no
@@ -154,22 +162,41 @@ __device__ __forceinline__ Taps taps_at(const Dims& n, float px, float py, float
   return t;
 }
 
-// sample_trilinear_r8 of an R8Unorm (D, H, W) volume at the taps tp.
-__device__ __forceinline__ float sample_trilinear(const uint8_t* __restrict__ vol, const Dims& n,
+// A voxel's value as the sample sees it (step 4): a uint8 voxel's R8Unorm
+// value, u8 * (1/255); a float32 voxel mapped by the volume's data range,
+// (v - lo) * inv, two float32 operations (sample_trilinear_r8's value_range).
+template <typename T>
+struct VoxelMap;
+
+template <>
+struct VoxelMap<uint8_t> {
+  __device__ __forceinline__ float operator()(uint8_t v) const { return (float)v * INV_255; }
+};
+
+template <>
+struct VoxelMap<float> {
+  float lo, inv;
+  __device__ __forceinline__ float operator()(float v) const { return (v - lo) * inv; }
+};
+
+// sample_trilinear_r8 of a (D, H, W) volume at the taps tp, each tap mapped by map.
+template <typename T>
+__device__ __forceinline__ float sample_trilinear(const T* __restrict__ vol,
+                                                  const VoxelMap<T>& map, const Dims& n,
                                                   const Taps& tp) {
   const size_t row = (size_t)n.nx, slab = (size_t)n.nx * n.ny;
-  const uint8_t* r00 = vol + tp.z0 * slab + tp.y0 * row;
-  const uint8_t* r10 = vol + tp.z0 * slab + tp.y1 * row;
-  const uint8_t* r01 = vol + tp.z1 * slab + tp.y0 * row;
-  const uint8_t* r11 = vol + tp.z1 * slab + tp.y1 * row;
-  const float c000 = (float)__ldg(r00 + tp.x0) * INV_255;
-  const float c100 = (float)__ldg(r00 + tp.x1) * INV_255;
-  const float c010 = (float)__ldg(r10 + tp.x0) * INV_255;
-  const float c110 = (float)__ldg(r10 + tp.x1) * INV_255;
-  const float c001 = (float)__ldg(r01 + tp.x0) * INV_255;
-  const float c101 = (float)__ldg(r01 + tp.x1) * INV_255;
-  const float c011 = (float)__ldg(r11 + tp.x0) * INV_255;
-  const float c111 = (float)__ldg(r11 + tp.x1) * INV_255;
+  const T* r00 = vol + tp.z0 * slab + tp.y0 * row;
+  const T* r10 = vol + tp.z0 * slab + tp.y1 * row;
+  const T* r01 = vol + tp.z1 * slab + tp.y0 * row;
+  const T* r11 = vol + tp.z1 * slab + tp.y1 * row;
+  const float c000 = map(__ldg(r00 + tp.x0));
+  const float c100 = map(__ldg(r00 + tp.x1));
+  const float c010 = map(__ldg(r10 + tp.x0));
+  const float c110 = map(__ldg(r10 + tp.x1));
+  const float c001 = map(__ldg(r01 + tp.x0));
+  const float c101 = map(__ldg(r01 + tp.x1));
+  const float c011 = map(__ldg(r11 + tp.x0));
+  const float c111 = map(__ldg(r11 + tp.x1));
   const float c00 = lerp(c000, c100, tp.fx);
   const float c10 = lerp(c010, c110, tp.fx);
   const float c01 = lerp(c001, c101, tp.fx);
@@ -240,10 +267,11 @@ __device__ __forceinline__ float run_axis(float x, int x0, float d, float inv_s,
 // count nothing).
 //
 // Empty-space skipping: occ holds the max voxel of each OCC_CELL^3 cell with
-// one voxel of overlap toward + (march_bonsai.py:occupancy_table), so both
-// taps of every pair whose lower tap lies in the cell are inside it. Where
-// the cell of the lower taps holds no voxel above OCC_CUT, every tap is <=
-// 25/255, the sample is below 0.1, the transfer tv is exactly 0, and the
+// one voxel of overlap toward + (march_bonsai.py:occupancy_table; of a
+// float32 volume the max mapped by the range and rounded up to the uint8
+// table), so both taps of every pair whose lower tap lies in the cell are
+// inside it. Where the cell of the lower taps holds no voxel above OCC_CUT,
+// every mapped tap is <= 25/255, the sample is below 0.1, the transfer tv is exactly 0, and the
 // step's composite leaves r, g, b and a unchanged bit for bit: the step
 // skips its 8 loads, the transfer and the palette, and still advances p
 // and t, so positions and step counts stay the plain version's. The cell's
@@ -274,8 +302,8 @@ __device__ __forceinline__ float run_axis(float x, int x0, float d, float inv_s,
 // * t1, below t1 * 2^-17. A run therefore ends up to m / s of a step short
 // of its face (one step in ~1 / (128 s) of runs at n = 1024): the next
 // full step finds the same cell and runs again.
-template <bool FAST, bool COUNT = false>
-__device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
+template <typename T, bool FAST, bool COUNT = false>
+__device__ __forceinline__ float3 march_ray(const T* __restrict__ vol, const VoxelMap<T>& map,
                                             const uint8_t* __restrict__ occ, const Dims& n,
                                             float ex, float ey, float ez, float dx,
                                             float dy, float dz, int max_steps,
@@ -322,7 +350,7 @@ __device__ __forceinline__ float3 march_ray(const uint8_t* __restrict__ vol,
       }
       int run = 0;
       if (!empty) {
-        const float samp = sample_trilinear(vol, n, tp);
+        const float samp = sample_trilinear(vol, map, n, tp);
         // transfer: smoothstep(0.10, 1.2, min(0.9, samp)) + vertigo
         float s = (fminf(samp, 0.9f) - 0.10f) * INV_SMOOTH_SPAN;
         s = fminf(fmaxf(s, 0.0f), 1.0f);
@@ -395,7 +423,8 @@ __device__ __forceinline__ float3 fragment_ray(const float* __restrict__ m, int 
   return make_float3(dx * inv_len, dy * inv_len, dz * inv_len);
 }
 
-// K1. INLINE_RAYS: view v's ray is made here from inv_proj[16 v ..] and its
+// K1 over a volume of voxel type T (uint8_t, or float with map's range).
+// INLINE_RAYS: view v's ray is made here from inv_proj[16 v ..] and its
 // eye read from view_position at 4 v (dx/dy/dz unused); else the ray is read
 // from the dx/dy/dz planes and the eye at 3 v (inv_proj unused). One march
 // loop either way. CUBE: vol_w == vol_h == vol_d, and the march takes that one
@@ -404,10 +433,10 @@ __device__ __forceinline__ float3 fragment_ray(const float* __restrict__ m, int 
 // the loop reloads them from the constant bank and clamps the upper taps
 // before the skip's branch; on an H100 that took K1 on the 256^3 bonsai at
 // 1024^2 from 0.27 to 0.32 ms.)
-template <bool INLINE_RAYS, bool CUBE>
+template <typename T, bool INLINE_RAYS, bool CUBE>
 __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
-    march_bonsai_kernel(const uint8_t* __restrict__ vol, const uint8_t* __restrict__ occ,
-                        int vol_w, int vol_h, int vol_d,
+    march_bonsai_kernel(const T* __restrict__ vol, const VoxelMap<T> map,
+                        const uint8_t* __restrict__ occ, int vol_w, int vol_h, int vol_d,
                         const float* __restrict__ dxs, const float* __restrict__ dys,
                         const float* __restrict__ dzs, const float* __restrict__ inv_proj,
                         const float* __restrict__ eye, int height, int width, float inv_w,
@@ -422,8 +451,8 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
   const float3 d = INLINE_RAYS ? fragment_ray(inv_proj + 16 * v, ix, iy, inv_w, inv_h)
                                : make_float3(dxs[pix], dys[pix], dzs[pix]);
   const Dims n = CUBE ? dims_of(vol_w, vol_w, vol_w) : dims_of(vol_w, vol_h, vol_d);
-  float3 c = march_ray<false>(vol, occ, n, __ldg(e), __ldg(e + 1), __ldg(e + 2), d.x, d.y, d.z,
-                              max_steps);
+  float3 c = march_ray<T, false>(vol, map, occ, n, __ldg(e), __ldg(e + 1), __ldg(e + 2), d.x,
+                                 d.y, d.z, max_steps);
   if (srgb) {
     c.x = linear_to_srgb(c.x);
     c.y = linear_to_srgb(c.y);
@@ -433,8 +462,9 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
   reinterpret_cast<float4*>(out)[pix] = o;
 }
 
-template <bool INLINE_RAYS>
-int launch_march(const void* vol, const void* occ, int vol_w, int vol_h, int vol_d,
+template <typename T, bool INLINE_RAYS>
+int launch_march(const void* vol, VoxelMap<T> map, const void* occ, int vol_w, int vol_h,
+                 int vol_d,
                  const void* dx, const void* dy, const void* dz, const void* inv_proj,
                  const void* eye, int n_views, int height, int width, int max_steps, int srgb,
                  void* out, int device, void* stream) {
@@ -447,23 +477,23 @@ int launch_march(const void* vol, const void* occ, int vol_w, int vol_h, int vol
   const dim3 block(BLOCK_X, BLOCK_Y);
   const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y, n_views);
   const bool cube = vol_w == vol_h && vol_h == vol_d;
-  auto kernel = cube ? march_bonsai_kernel<INLINE_RAYS, true>
-                     : march_bonsai_kernel<INLINE_RAYS, false>;
+  auto kernel = cube ? march_bonsai_kernel<T, INLINE_RAYS, true>
+                     : march_bonsai_kernel<T, INLINE_RAYS, false>;
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)vol, (const uint8_t*)occ, vol_w, vol_h, vol_d, (const float*)dx,
+      (const T*)vol, map, (const uint8_t*)occ, vol_w, vol_h, vol_d, (const float*)dx,
       (const float*)dy, (const float*)dz, (const float*)inv_proj, (const float*)eye, height, width,
       inv_w, inv_h, max_steps, srgb, (float*)out);
   return (int)cudaGetLastError();
 }
 
-// K1's step counts: march_bonsai_kernel<true, CUBE>'s march of every pixel,
+// K1's step counts: march_bonsai_kernel<T, true, CUBE>'s march of every pixel,
 // each thread making its ray, writing the pixel's (steps, bare steps) as two
 // int32 at counts[2 pix] instead of its colour (step_counts; no frame or batch
 // path launches it, and the timed kernel counts nothing).
-template <bool CUBE>
+template <typename T, bool CUBE>
 __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
-    march_bonsai_count_kernel(const uint8_t* __restrict__ vol, const uint8_t* __restrict__ occ,
-                              int vol_w, int vol_h, int vol_d,
+    march_bonsai_count_kernel(const T* __restrict__ vol, const VoxelMap<T> map,
+                              const uint8_t* __restrict__ occ, int vol_w, int vol_h, int vol_d,
                               const float* __restrict__ inv_proj, const float* __restrict__ eye,
                               int height, int width, float inv_w, float inv_h, int max_steps,
                               int* __restrict__ counts) {
@@ -476,10 +506,29 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
   const float3 d = fragment_ray(inv_proj + 16 * v, ix, iy, inv_w, inv_h);
   const Dims n = CUBE ? dims_of(vol_w, vol_w, vol_w) : dims_of(vol_w, vol_h, vol_d);
   int steps = 0, bare = 0;
-  march_ray<false, true>(vol, occ, n, __ldg(e), __ldg(e + 1), __ldg(e + 2), d.x, d.y, d.z,
-                         max_steps, &steps, &bare);
+  march_ray<T, false, true>(vol, map, occ, n, __ldg(e), __ldg(e + 1), __ldg(e + 2), d.x, d.y,
+                            d.z, max_steps, &steps, &bare);
   counts[2 * pix] = steps;
   counts[2 * pix + 1] = bare;
+}
+
+template <typename T>
+int launch_counts(const void* vol, VoxelMap<T> map, const void* occ, int vol_w, int vol_h,
+                  int vol_d, const void* inv_proj, const void* view_position, int n_views,
+                  int height, int width, int max_steps, void* counts, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_views <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
+  if (n_views > 65535) return (int)cudaErrorInvalidValue;
+  const float inv_w = 1.0f / (float)width, inv_h = 1.0f / (float)height;
+  const dim3 block(BLOCK_X, BLOCK_Y);
+  const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y, n_views);
+  const bool cube = vol_w == vol_h && vol_h == vol_d;
+  auto kernel = cube ? march_bonsai_count_kernel<T, true> : march_bonsai_count_kernel<T, false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const T*)vol, map, (const uint8_t*)occ, vol_w, vol_h, vol_d, (const float*)inv_proj,
+      (const float*)view_position, height, width, inv_w, inv_h, max_steps, (int*)counts);
+  return (int)cudaGetLastError();
 }
 
 // K2 and K1b: the march over listed units of TILE x TILE screen tiles (unit p
@@ -516,8 +565,8 @@ __global__ void __launch_bounds__(TILE* BLOCK_Y)
   float3 c = make_float3(0.0f, 0.0f, 0.0f);
   if (inside) {
     const float ex = __ldg(eye), ey = __ldg(eye + 1), ez = __ldg(eye + 2);
-    c = march_ray<FAST>(vol, occ, dims_of(dims, dims, dims), ex, ey, ez, dxs[k], dys[k], dzs[k],
-                        max_steps);
+    c = march_ray<uint8_t, FAST>(vol, VoxelMap<uint8_t>{}, occ, dims_of(dims, dims, dims), ex, ey,
+                                 ez, dxs[k], dys[k], dzs[k], max_steps);
   }
   if (COMPACT) {
     const size_t n = (size_t)n_sel * tpu * TILE * TILE;
@@ -552,8 +601,9 @@ int vk_march_bonsai(const void* vol, const void* occ, int vol_w, int vol_h, int 
                     const void* dx, const void* dy, const void* dz, const void* eye,
                     int n_views, int height, int width, int max_steps, int srgb, void* out,
                     int device, void* stream) {
-  return launch_march<false>(vol, occ, vol_w, vol_h, vol_d, dx, dy, dz, nullptr, eye, n_views,
-                             height, width, max_steps, srgb, out, device, stream);
+  return launch_march<uint8_t, false>(vol, VoxelMap<uint8_t>{}, occ, vol_w, vol_h, vol_d, dx, dy,
+                                      dz, nullptr, eye, n_views, height, width, max_steps, srgb,
+                                      out, device, stream);
 }
 
 // The march of n_views whole frames with each pixel's ray made in the kernel
@@ -565,9 +615,9 @@ int vk_march_bonsai_frame(const void* vol, const void* occ, int vol_w, int vol_h
                           const void* inv_proj, const void* view_position, int n_views,
                           int height, int width, int max_steps, int srgb, void* out, int device,
                           void* stream) {
-  return launch_march<true>(vol, occ, vol_w, vol_h, vol_d, nullptr, nullptr, nullptr, inv_proj,
-                            view_position, n_views, height, width, max_steps, srgb, out, device,
-                            stream);
+  return launch_march<uint8_t, true>(vol, VoxelMap<uint8_t>{}, occ, vol_w, vol_h, vol_d, nullptr,
+                                     nullptr, nullptr, inv_proj, view_position, n_views, height,
+                                     width, max_steps, srgb, out, device, stream);
 }
 
 // K1's step counts of n_views whole frames: as vk_march_bonsai_frame, but
@@ -577,19 +627,32 @@ int vk_march_bonsai_counts(const void* vol, const void* occ, int vol_w, int vol_
                            const void* inv_proj, const void* view_position, int n_views,
                            int height, int width, int max_steps, void* counts, int device,
                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_views <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
-  if (n_views > 65535) return (int)cudaErrorInvalidValue;
-  const float inv_w = 1.0f / (float)width, inv_h = 1.0f / (float)height;
-  const dim3 block(BLOCK_X, BLOCK_Y);
-  const dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y, n_views);
-  const bool cube = vol_w == vol_h && vol_h == vol_d;
-  auto kernel = cube ? march_bonsai_count_kernel<true> : march_bonsai_count_kernel<false>;
-  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)vol, (const uint8_t*)occ, vol_w, vol_h, vol_d, (const float*)inv_proj,
-      (const float*)view_position, height, width, inv_w, inv_h, max_steps, (int*)counts);
-  return (int)cudaGetLastError();
+  return launch_counts<uint8_t>(vol, VoxelMap<uint8_t>{}, occ, vol_w, vol_h, vol_d, inv_proj,
+                                view_position, n_views, height, width, max_steps, counts, device,
+                                stream);
+}
+
+// The frame and count entries above over a float32 volume (vol_d * vol_h *
+// vol_w float32, [z][y][x]), each tap mapped by the volume's data range: lo its
+// smallest voxel and inv = 1 / (largest - lo) in float32, 0 for a constant
+// volume (march_bonsai.py:volume_range); occ is its table
+// (march_bonsai.py:occupancy_table of the float volume).
+int vk_march_bonsai_frame_f32(const void* vol, float lo, float inv, const void* occ, int vol_w,
+                              int vol_h, int vol_d, const void* inv_proj,
+                              const void* view_position, int n_views, int height, int width,
+                              int max_steps, int srgb, void* out, int device, void* stream) {
+  return launch_march<float, true>(vol, VoxelMap<float>{lo, inv}, occ, vol_w, vol_h, vol_d,
+                                   nullptr, nullptr, nullptr, inv_proj, view_position, n_views,
+                                   height, width, max_steps, srgb, out, device, stream);
+}
+
+int vk_march_bonsai_counts_f32(const void* vol, float lo, float inv, const void* occ, int vol_w,
+                               int vol_h, int vol_d, const void* inv_proj,
+                               const void* view_position, int n_views, int height, int width,
+                               int max_steps, void* counts, int device, void* stream) {
+  return launch_counts<float>(vol, VoxelMap<float>{lo, inv}, occ, vol_w, vol_h, vol_d, inv_proj,
+                              view_position, n_views, height, width, max_steps, counts, device,
+                              stream);
 }
 
 // K2 (compact == 0) or K1b (compact != 0) on `stream`; returns the launch's

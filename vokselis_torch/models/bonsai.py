@@ -1,6 +1,7 @@
 """Bonsai demo: fragment-raymarch of the 256^3 uint8 CT volume
-(examples/bonsai/main.rs:10-76), or of another uint8 scan handed to
-:meth:`BonsaiDemo.init`: an array, or an Open SciVis Datasets ``.raw`` file.
+(examples/bonsai/main.rs:10-76), or of another volume handed to
+:meth:`BonsaiDemo.init`: a uint8 scan or a float32 field (mapped by its
+data range), as an array, or an Open SciVis Datasets ``.raw`` file.
 
 Renders with the hand-written kernels on a CUDA context and with their
 plain versions on a CPU context (the choice follows ``ctx.device``):
@@ -8,7 +9,8 @@ plain versions on a CPU context (the choice follows ``ctx.device``):
 approximation (resample, composite and warp kernels) and
 ``renderer="hybrid"`` the fast frame with its worst tiles re-marched exactly
 (resample, composite, stats warp and tile re-march kernels). The exact
-renderer takes any (D, H, W) volume; fast and hybrid take cubes. The render
+renderer takes any (D, H, W) volume, uint8 or float32; fast and hybrid
+take uint8 cubes. The render
 output already applies linear_to_srgb (raycast_naive.wgsl:121-124); the
 present pass then tonemaps on top, exactly like the reference's two-stage
 chain.
@@ -39,9 +41,11 @@ class BonsaiDemo(Demo):
         """``renderer``: "exact" (the oracle-parity march kernel), "fast"
         (the shear-warp approximation at intermediate I=512) or "hybrid"
         (the fast frame at I=512 with up to 128 tiles re-marched exactly,
-        the JAX package's defaults). ``volume``: the (D, H, W) uint8 volume
-        (an array or a tensor), or the path of an Open SciVis uint8
-        ``.raw`` file (:func:`load_open_scivis`); None for the bonsai."""
+        the JAX package's defaults). ``volume``: the (D, H, W) uint8 or
+        float32 volume (an array or a tensor; the exact renderer maps a
+        float32 one by its data range, fast and hybrid refuse it), or the
+        path of an Open SciVis uint8 or float32 ``.raw`` file
+        (:func:`load_open_scivis`); None for the bonsai."""
         if renderer not in RENDERERS:
             raise ValueError(f"unknown renderer {renderer!r}")
         if volume is None:

@@ -23,20 +23,28 @@ from it; the rays wrapper takes ray planes that the caller made.
 launch, and nowhere else), so that a run can show its frames went through
 the kernels.
 
-K1's volume is any (D, H, W) uint8 array with no empty axis, [z, y, x],
-filling the unit box (normalised texture coordinates, as upstream's
-texture): each step moves one voxel along the axis that crosses voxels
+K1's volume is any (D, H, W) uint8 or float32 array with no empty axis,
+[z, y, x], filling the unit box (normalised texture coordinates, as
+upstream's texture). A uint8 voxel reads as its R8Unorm value, u8 / 255; a
+float32 volume is mapped by its data range, each tap ``(v - lo) * inv``
+with ``lo`` its smallest voxel and ``inv = 1 / (hi - lo)`` in float32 (0
+for a constant volume, which renders blank; :func:`volume_range`), as
+ParaView and VisIt map a field by default, and stays float32 on its device.
+Each step moves one voxel along the axis that crosses voxels
 fastest, and unless told otherwise a ray takes the steps of the box's whole
 diagonal, :func:`reference.bonsai_max_steps` of the volume's shape (445 at
 256^3, 1,775 for a 1024 x 1024 x 795 scan). K2 and K1b serve the hybrid,
-whose volume is a cube, and take cubes only.
+whose volume is a uint8 cube, and take uint8 cubes only; the ray-plane
+wrapper, whose callers (the multi-device views) march uint8 volumes, takes
+uint8 only.
 
 The kernels skip empty space exactly: :func:`occupancy_table` holds each
-8^3 cell's largest voxel, and a step whose lower taps lie in a cell with no
-voxel above ``OCC_CUT`` adds nothing (its transfer is exactly 0), so it
-only advances. The wrappers look the table up in a cache of their own,
-keyed on the volume tensor: it is built at a volume's first launch and
-again only after the volume's data changed. A step that finds its cell
+8^3 cell's largest voxel (of a float32 volume, mapped by the range and
+rounded up to the uint8 table), and a step whose lower taps lie in a cell
+with no voxel above ``OCC_CUT`` adds nothing (its transfer is exactly 0),
+so it only advances. The wrappers look the table and a float volume's range
+up in caches of their own, keyed on the volume tensor: each is built at a
+volume's first launch and again only after the volume's data changed. A step that finds its cell
 empty also crosses the rest of the cell in one run of bare advances, as
 many further steps as provably keep their lower taps in it
 (:func:`march_runs_plain` is the rule in plain torch); :func:`step_counts`
@@ -75,6 +83,8 @@ RUN_EPS = 2.0 ** -17
 
 # K1's views a launch: the grid's z extent
 MAX_VIEWS = 65535
+# K1's voxel types (its ray-plane entry, K2 and K1b take uint8 only)
+VOXEL_TYPES = (torch.uint8, torch.float32)
 
 LAUNCHES_FRAME = 0
 LAUNCHES = 0
@@ -92,13 +102,16 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib, BUILD_LOG = load_library(SOURCE, NVCC_FLAGS)
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vk_march_bonsai.argtypes = [p, p, i, i, i, p, p, p, p, i, i, i, i, i, p, i, p]
     lib.vk_march_bonsai.restype = i
-    lib.vk_march_bonsai_frame.argtypes = [p, p, i, i, i, p, p, i, i, i, i, i, p, i, p]
-    lib.vk_march_bonsai_frame.restype = i
-    lib.vk_march_bonsai_counts.argtypes = [p, p, i, i, i, p, p, i, i, i, i, p, i, p]
-    lib.vk_march_bonsai_counts.restype = i
+    entries = {"vk_march_bonsai_frame": [p, i, i, i, p, p, i, i, i, i, i, p, i, p],
+               "vk_march_bonsai_counts": [p, i, i, i, p, p, i, i, i, i, p, i, p]}
+    for name, args in entries.items():
+        # uint8: (vol, occ, ...); float32: (vol, lo, inv, occ, ...)
+        getattr(lib, name).argtypes = [p] + args
+        getattr(lib, name + "_f32").argtypes = [p, f, f] + args
+        getattr(lib, name).restype = getattr(lib, name + "_f32").restype = i
     lib.vk_march_tiles.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, i, p]
     lib.vk_march_tiles.restype = i
     _lib = lib
@@ -124,49 +137,113 @@ def _cell_max(x, axis: int):
     return torch.cat([head, blocks.narrow(axis, cells - 1, 1)], dim=axis)
 
 
+def value_range(vol) -> tuple[float, float]:
+    """``(lo, inv)`` of the (D, H, W) float32 volume ``vol``, the mapping of
+    its taps onto the transfer's [0, 1], ``(v - lo) * inv``: ``lo`` its
+    smallest voxel and ``inv = 1 / (hi - lo)``, ``hi`` its largest, in
+    float32 (0 where ``hi == lo``: a constant volume maps to 0 and renders
+    blank). One ``torch.aminmax`` on the volume's device and one read of the
+    two numbers. A volume with a NaN or an infinite voxel raises
+    ValueError."""
+    lo, hi = torch.aminmax(vol)
+    span_ = hi - lo
+    inv = torch.where(span_ > 0, 1.0 / span_, torch.zeros_like(span_))
+    lo_f, hi_f, inv_f = torch.stack([lo, hi, inv]).tolist()
+    if not (np.isfinite(lo_f) and np.isfinite(hi_f)):
+        raise ValueError(f"a float volume needs finite voxels, got range [{lo_f}, {hi_f}]")
+    return lo_f, inv_f
+
+
 def occupancy_table(vol) -> torch.Tensor:
-    """The march's occupancy table of the (D, H, W) uint8 volume ``vol``:
-    the largest voxel of each OCC_CELL^3 cell with one voxel of overlap
-    toward +, cell c covering voxels 8c .. min(8c + 8, N - 1) on each axis
-    of N voxels, so that both taps of every trilinear pair (x0, x0 + 1)
-    whose lower tap lies in the cell lie inside it. (ceil(D / 8),
+    """The march's occupancy table of the (D, H, W) uint8 or float32 volume
+    ``vol``: the largest voxel of each OCC_CELL^3 cell with one voxel of
+    overlap toward +, cell c covering voxels 8c .. min(8c + 8, N - 1) on
+    each axis of N voxels, so that both taps of every trilinear pair (x0,
+    x0 + 1) whose lower tap lies in the cell lie inside it. (ceil(D / 8),
     ceil(H / 8), ceil(W / 8)) uint8, [z, y, x], on the volume's device: 32
-    KB at 256^3, 256 KB at 512^3, 1.6 MB at 795 x 1024 x 1024.
-    Three separable max passes of plain torch, x first (the contiguous
-    axis, which shrinks the volume 8x for the other two)."""
+    KB at 256^3, 256 KB at 512^3, 1.6 MB at 795 x 1024 x 1024, 2 MB at
+    1024^3. Three separable max passes of plain torch, x first (the
+    contiguous axis, which shrinks the volume 8x for the other two).
+
+    Of a float32 volume each cell's max is mapped as its taps are,
+    ``(m - lo) * inv`` with the volume's own :func:`volume_range`, and
+    rounded up, ``ceil(255 * mapped)``: the mapping keeps the voxels'
+    order, so a cell at or below OCC_CUT has every mapped tap <= 25/255 <
+    0.1, where the transfer is exactly 0."""
     occ = vol
     for axis in (2, 1, 0):
         occ = _cell_max(occ, axis)
-    return occ
+    if vol.dtype == torch.uint8:
+        return occ
+    lo, inv = volume_range(vol)
+    return torch.clamp(torch.ceil((occ - lo) * inv * 255.0), 0.0, 255.0).to(torch.uint8)
 
 
 # id(volume tensor) -> (weak reference to it, its data_ptr, its version
-# counter, its occupancy table); an entry leaves with its volume
+# counter, its occupancy table or range); an entry leaves with its volume
 _occ_cache: dict = {}
+_range_cache: dict = {}
+
+
+def _kept(cache: dict, vol, make, by_storage: bool = False):
+    """``make(vol)``, kept in ``cache`` while ``vol`` lives: made at the
+    first call for this tensor and again only when its storage or its
+    version counter (which every in-place write, through any view,
+    advances) has changed. An inference-mode tensor has no version counter:
+    it is made at every call, or with ``by_storage`` kept while its storage
+    is (as ``compiled.stamp`` keys it; an in-place write is then not
+    seen)."""
+    if vol.is_inference() and not by_storage:
+        return make(vol)
+    key = id(vol)
+    stamp = (vol.data_ptr(), None if vol.is_inference() else vol._version)
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is vol and hit[1:3] == stamp:
+        return hit[3]
+    value = make(vol)
+    ref = weakref.ref(vol, lambda _, key=key: cache.pop(key, None))
+    cache[key] = (ref, *stamp, value)
+    return value
+
+
+def volume_range(vol) -> tuple[float, float]:
+    """:func:`value_range` of the float32 volume ``vol``, kept while it
+    lives (as :func:`volume_occupancy` keeps its table). Of an
+    inference-mode volume it is read once for its storage: its table, made
+    at every launch and inside a CUDA graph's capture, then reads no number
+    back to the host."""
+    return _kept(_range_cache, vol, value_range, by_storage=True)
 
 
 def volume_occupancy(vol) -> torch.Tensor:
     """:func:`occupancy_table` of ``vol``, kept while ``vol`` lives: built
     at the first call for this tensor and again only when its storage or
-    its version counter (which every in-place write, through any view,
-    advances) has changed. An inference-mode tensor has no version
-    counter: its table is built at every call."""
-    if vol.is_inference():
-        return occupancy_table(vol)
-    key = id(vol)
-    hit = _occ_cache.get(key)
-    if hit is not None and hit[0]() is vol and hit[1:3] == (vol.data_ptr(), vol._version):
-        return hit[3]
-    occ = occupancy_table(vol)
-    ref = weakref.ref(vol, lambda _, key=key: _occ_cache.pop(key, None))
-    _occ_cache[key] = (ref, vol.data_ptr(), vol._version, occ)
-    return occ
+    its version counter has changed."""
+    return _kept(_occ_cache, vol, occupancy_table)
+
+
+def _range_of(vol):
+    """:func:`volume_range` of a float32 volume; None for uint8."""
+    return None if vol.dtype == torch.uint8 else volume_range(vol)
+
+
+def _entry(lib, name: str, vol) -> tuple:
+    """K1's launch entry ``name`` for ``vol``'s voxel type, its leading
+    arguments (``vol``'s pointer and its table's, with a float32 volume's
+    range between them) and the table, which the caller holds until the
+    launch is enqueued: an inference-mode volume's table is made anew and
+    held nowhere else, and its memory freed before the launch could be
+    handed to the frame the kernel writes."""
+    occ = volume_occupancy(vol)
+    if vol.dtype == torch.uint8:
+        return getattr(lib, name), (vol.data_ptr(), occ.data_ptr()), occ
+    return getattr(lib, name + "_f32"), (vol.data_ptr(), *volume_range(vol), occ.data_ptr()), occ
 
 
 def _check_tensors(vol, tensors):
     """``vol`` and the named ``tensors``: tensors, contiguous, on vol's
-    device (the CPU or a card); vol a (D, H, W) uint8 volume with no empty
-    axis."""
+    device (the CPU or a card); vol a (D, H, W) uint8 or float32 volume with
+    no empty axis."""
     for name, t in {"vol": vol, **tensors}.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
@@ -176,8 +253,8 @@ def _check_tensors(vol, tensors):
             raise ValueError(f"{name} must be contiguous")
     if vol.device.type not in ("cpu", "cuda"):
         raise ValueError(f"march_bonsai runs on cpu or cuda, not {vol.device}")
-    if vol.dtype != torch.uint8:
-        raise TypeError(f"vol must be uint8, got {vol.dtype}")
+    if vol.dtype not in VOXEL_TYPES:
+        raise TypeError(f"vol must be uint8 or float32, got {vol.dtype}")
     if vol.ndim != 3 or min(vol.shape) < 1:
         raise ValueError(f"vol must be a (D, H, W) volume with no empty axis, got "
                          f"{tuple(vol.shape)}")
@@ -247,25 +324,25 @@ def render_bonsai_frame_cuda(vol, camera_uniform, width: int, height: int,
     :func:`geometry.rays_fragment_soa`'s, bit for bit, made from the view's
     ``inv_proj`` and ``view_position`` without any ray plane in memory.
 
-    ``vol``: (D, H, W) uint8 [z, y, x]; ``camera_uniform``: one view
+    ``vol``: (D, H, W) uint8 or float32 [z, y, x]; ``camera_uniform``: one view
     (``inv_proj`` (4, 4), ``view_position`` (4,)) or a batch of V views
     ((V, 4, 4), (V, 4)), float32, contiguous, on the volume's device;
     ``max_steps`` None: the volume's whole diagonal.
     Returns the (height, width, 4), or (V, height, width, 4), float32 image
     as :func:`render_bonsai_rays_cuda` returns it for those rays. CPU
     tensors take the plain frame: :func:`geometry.rays_fragment_soa`, then
-    :func:`render_bonsai_rays_cuda`'s plain march."""
+    :func:`render_bonsai_rays_plain`."""
     global LAUNCHES_FRAME
     inv, pos, max_steps = _check_frame(vol, camera_uniform, width, height, max_steps)
     if vol.device.type == "cpu":
         eye, dxyz = geometry.rays_fragment_soa(camera_uniform, width, height)
-        return render_bonsai_rays_cuda(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
-    occ = volume_occupancy(vol)
+        return render_bonsai_rays_plain(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
     lib = build()
+    launch, head, occ = _entry(lib, "vk_march_bonsai_frame", vol)
     views = tuple(inv.shape[:-2])
     out = torch.empty(views + (height, width, 4), dtype=torch.float32, device=vol.device)
-    err = lib.vk_march_bonsai_frame(
-        vol.data_ptr(), occ.data_ptr(), *_whd(vol), inv.data_ptr(), pos.data_ptr(),
+    err = launch(
+        *head, *_whd(vol), inv.data_ptr(), pos.data_ptr(),
         views[0] if views else 1, int(height), int(width), max_steps, int(srgb), out.data_ptr(),
         vol.device.index, torch.cuda.current_stream(vol.device).cuda_stream,
     )
@@ -279,6 +356,9 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int | None = None,
                             srgb: bool = True):
     """March SoA rays through a uint8 volume — the counterpart of
     ``render_bonsai_rays_pallas``, and of its ``vmap`` over a batch of views.
+    A float32 volume is marched by :func:`render_bonsai_frame_cuda`
+    (:class:`BonsaiRenderer`), whose K1 makes its rays; here it raises
+    TypeError.
 
     ``vol``: (D, H, W) uint8 [z, y, x]; ``eye``: (3,) float32; ``dxyz``:
     (dx, dy, dz), each (H, W) float32 and normalized; or a batch of V views,
@@ -291,10 +371,13 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int | None = None,
     global LAUNCHES
     dx, dy, dz = dxyz
     max_steps = _check_inputs(vol, eye, dx, dy, dz, max_steps)
+    if vol.dtype != torch.uint8:
+        raise TypeError(f"the ray-plane march takes a uint8 volume, got {vol.dtype}: march a "
+                        "float32 volume with render_bonsai_frame_cuda or BonsaiRenderer")
     if vol.device.type == "cpu":
         return render_bonsai_rays_plain(vol, eye, dxyz, max_steps=max_steps, srgb=srgb)
-    occ = volume_occupancy(vol)
     lib = build()
+    occ = volume_occupancy(vol)
     n_views = eye.shape[0] if eye.ndim == 2 else 1
     out = torch.empty(tuple(dx.shape) + (4,), dtype=torch.float32, device=vol.device)
     err = lib.vk_march_bonsai(
@@ -312,14 +395,19 @@ def render_bonsai_rays_cuda(vol, eye, dxyz, max_steps: int | None = None,
 def render_bonsai_rays_plain(vol, eye, dxyz, max_steps: int | None = None,
                              srgb: bool = True):
     """Plain torch version of K1, for the inputs of
-    :func:`render_bonsai_rays_cuda`: :func:`reference.render_bonsai_rays`,
-    of each view in turn for a batch."""
+    :func:`render_bonsai_rays_cuda` and for a float32 volume's (the march of
+    :func:`render_bonsai_frame_cuda`'s rays): :func:`reference.render_bonsai_rays`
+    (a float32 volume's taps mapped by its :func:`volume_range`), of each
+    view in turn for a batch."""
     dx, dy, dz = dxyz
     max_steps = _check_inputs(vol, eye, dx, dy, dz, max_steps)
     dirs = torch.stack([dx, dy, dz], dim=-1)
+    rng = _range_of(vol)
     if eye.ndim == 1:
-        return reference.render_bonsai_rays(vol, eye, dirs, max_steps=max_steps, srgb=srgb)
-    return torch.stack([reference.render_bonsai_rays(vol, e, d, max_steps=max_steps, srgb=srgb)
+        return reference.render_bonsai_rays(vol, eye, dirs, max_steps=max_steps, srgb=srgb,
+                                            value_range=rng)
+    return torch.stack([reference.render_bonsai_rays(vol, e, d, max_steps=max_steps, srgb=srgb,
+                                                     value_range=rng)
                         for e, d in zip(eye, dirs)])
 
 
@@ -347,7 +435,7 @@ def march_runs_plain(vol, eye, dirs, max_steps: int | None = None,
     test), each the loop's own ``p + d * dt`` and ``t + dt``. The image is
     :func:`reference.render_bonsai_rays`' bit for bit.
 
-    ``vol`` (D, H, W) uint8; ``eye`` (3,); ``dirs`` (H, W, 3), one view;
+    ``vol`` (D, H, W) uint8 or float32; ``eye`` (3,); ``dirs`` (H, W, 3), one view;
     ``max_steps`` None: the volume's whole diagonal. ``on_bare(bare,
     held)``, if given, is called at every step with the (H * W,) masks of
     the rays that take a bare step there and of the rays whose lower taps
@@ -371,6 +459,7 @@ def march_runs_plain(vol, eye, dirs, max_steps: int | None = None,
     t_lim = t1 * (1.0 - RUN_EPS)
     margin = size * RUN_EPS
     hi = torch.tensor(vol.shape[::-1], device=dev) - 1
+    rng = _range_of(vol)
     occ = occupancy_table(vol)
     cells_y, cells_x = occ.shape[1:]
     occ = occ.reshape(-1)
@@ -395,7 +484,7 @@ def march_runs_plain(vol, eye, dirs, max_steps: int | None = None,
         if on_bare is not None:
             on_bare(in_run, empty & (cell == run_cell))
         idx = torch.nonzero(step & ~empty).squeeze(1)
-        r = sample_trilinear_r8(vol, p[idx])
+        r = sample_trilinear_r8(vol, p[idx], rng)
         if fast_transfer:
             c_a, cr, cg, cb = bonsai_transfer_fast_soa(r)
             c_rgb = torch.stack([cr, cg, cb], dim=-1)
@@ -443,11 +532,11 @@ def step_counts(vol, camera_uniform, width: int, height: int):
         counts = torch.stack([torch.stack(pr, dim=-1) for pr in pairs])
         counts = counts if views else counts[0]
     else:
-        occ = volume_occupancy(vol)
         lib = build()
+        launch, head, occ = _entry(lib, "vk_march_bonsai_counts", vol)
         counts = torch.empty(views + (height, width, 2), dtype=torch.int32, device=vol.device)
-        err = lib.vk_march_bonsai_counts(
-            vol.data_ptr(), occ.data_ptr(), *_whd(vol), inv.data_ptr(), pos.data_ptr(),
+        err = launch(
+            *head, *_whd(vol), inv.data_ptr(), pos.data_ptr(),
             views[0] if views else 1, int(height), int(width), max_steps, counts.data_ptr(),
             vol.device.index, torch.cuda.current_stream(vol.device).cuda_stream,
         )
@@ -498,6 +587,9 @@ def tile_rays_compact(camera_uniform, unit_ids, width: int, height: int,
 
 
 def _check_tiles(vol, unit_ids, width, height, tiles_per_unit):
+    if vol.dtype != torch.uint8:
+        raise TypeError(f"K2 and K1b march the hybrid's uint8 volume, got {vol.dtype}: march "
+                        "a float32 volume with the exact renderer")
     if vol.ndim != 3 or len(set(vol.shape)) != 1:
         raise ValueError(f"K2 and K1b march the hybrid's cubic (D, D, D) volume, got "
                          f"{tuple(vol.shape)}")
@@ -642,16 +734,17 @@ def render_bonsai_tiles_plain(vol, camera_uniform, unit_ids, width: int, height:
     return torch.where(inside, planes, 0.0)
 
 
-def volume_tensor(vol_u8, device) -> torch.Tensor:
-    """The (D, H, W) uint8 volume, no axis empty, as one contiguous tensor
-    on ``device``."""
-    if isinstance(vol_u8, torch.Tensor):
-        vol = vol_u8
+def volume_tensor(volume, device) -> torch.Tensor:
+    """The (D, H, W) uint8 or float32 volume, no axis empty, as one
+    contiguous tensor on ``device``: the tensor itself where it already is
+    one there (no copy, no conversion)."""
+    if isinstance(volume, torch.Tensor):
+        vol = volume
     else:
-        vol = torch.from_numpy(np.ascontiguousarray(vol_u8))
-    if vol.dtype != torch.uint8 or vol.ndim != 3 or min(vol.shape) < 1:
-        raise ValueError("the bonsai kernel wants a (D, H, W) uint8 volume with no empty "
-                         f"axis, got {vol.dtype} {tuple(vol.shape)}")
+        vol = torch.from_numpy(np.ascontiguousarray(volume))
+    if vol.dtype not in VOXEL_TYPES or vol.ndim != 3 or min(vol.shape) < 1:
+        raise ValueError("the bonsai kernel wants a (D, H, W) uint8 or float32 volume with no "
+                         f"empty axis, got {vol.dtype} {tuple(vol.shape)}")
     return vol.to(device=torch.device(device)).contiguous()
 
 
@@ -694,19 +787,25 @@ class BonsaiRenderer:
     frame. ``compiled`` may be shared with another renderer of the same
     volume (the hybrid's), whose graphs then share its memory pool.
 
-    The set-up is the span ``volume.setup`` (the volume onto its device and,
-    on a card, its table, ended once the card has built it) and adds the
-    volume's voxels to the counter ``volume.bytes``, both kept by an active
-    ``spans.recording()``."""
+    The volume is uint8 or float32 (:func:`volume_tensor`; a float32
+    volume is mapped by its data range, :func:`volume_range`). The set-up
+    is the span ``volume.setup`` (the volume onto its device; a float32
+    volume's range read there, the span ``volume.range`` inside it; on a
+    card its table, ended once the card has built it) and adds the volume's
+    bytes, itemsize x voxels, to the counter ``volume.bytes``, all kept by
+    an active ``spans.recording()``."""
 
-    def __init__(self, vol_u8, device, compiled: CompiledFrame | None = None):
+    def __init__(self, volume, device, compiled: CompiledFrame | None = None):
         self.device = torch.device(device)
         with span("volume.setup"):
-            self.vol = volume_tensor(vol_u8, self.device)
+            self.vol = volume_tensor(volume, self.device)
+            if self.vol.dtype == torch.float32:
+                with span("volume.range"):
+                    volume_range(self.vol)
             if self.vol.is_cuda:
                 volume_occupancy(self.vol)
                 torch.cuda.synchronize(self.device)
-        count("volume.bytes", self.vol.numel())
+        count("volume.bytes", self.vol.numel() * self.vol.element_size())
         self.max_steps = bonsai_max_steps(self.vol.shape)
         self.compiled = CompiledFrame("BonsaiRenderer") if compiled is None else compiled
 
@@ -725,17 +824,18 @@ class BonsaiRenderer:
                             self.max_steps if max_steps is None else max_steps, srgb)
 
 
-def build_renderer(vol_u8, device):
+def build_renderer(volume, device):
     """Functional API: returns (render_fn, pack) where
     ``render_fn(pack, camera_uniform, width, height, max_steps=, srgb=)``
-    renders a frame and ``pack`` is the volume tensor on ``device``. A
+    renders a frame and ``pack`` is the uint8 or float32 volume tensor on
+    ``device`` (:func:`volume_tensor`). A
     batched ``camera_uniform`` renders its V views as (V, H, W, 4) with one
     ray pass and one K1 launch: the counterpart of the JAX package's
     ``vmap`` of its render over a view batch. On a card render_fn replays
     one CUDA graph per static key, as :class:`BonsaiRenderer` does; another
     ``pack`` than the last one captures again. ``max_steps`` None: the
     volume's whole diagonal."""
-    pack = volume_tensor(vol_u8, device)
+    pack = volume_tensor(volume, device)
     compiled = CompiledFrame("build_renderer")
 
     def render(pk, camera_uniform, width, height, max_steps=None, srgb=True):

@@ -186,6 +186,9 @@ class HybridBonsaiRenderer:
         self.device = torch.device(device)
         vol_np = (vol_u8.detach().cpu().numpy() if isinstance(vol_u8, torch.Tensor)
                   else np.asarray(vol_u8))
+        if vol_np.dtype != np.uint8:
+            raise TypeError(f"the hybrid renderer needs a uint8 volume, got {vol_np.dtype}: "
+                            "march a float32 volume with the exact renderer")
         if vol_np.ndim != 3 or len(set(vol_np.shape)) != 1:
             raise ValueError(f"the hybrid renderer needs a cubic (D, D, D) volume, got "
                              f"{vol_np.shape}: march other shapes with the exact renderer")

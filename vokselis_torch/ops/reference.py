@@ -109,6 +109,7 @@ def render_bonsai_rays(
     srgb: bool = True,
     return_steps: bool = False,
     fast_transfer: bool = False,
+    value_range=None,
 ):
     """March an arbitrary (H, W, 3) ray set with the bonsai semantics —
     the single implementation shared by :func:`render_bonsai` and the
@@ -116,7 +117,9 @@ def render_bonsai_rays(
     returns the (H, W) int32 count of samples each ray took (the work the
     march kernel does for these rays). ``fast_transfer`` takes the vertigo
     palette's polynomial form (``colors.bonsai_transfer_fast_soa``, <=
-    1.4e-6 per channel, alpha exact), as the hybrid's re-march does."""
+    1.4e-6 per channel, alpha exact), as the hybrid's re-march does.
+    ``value_range = (lo, inv)`` maps a float volume's taps,
+    ``(v - lo) * inv`` (:func:`sample_trilinear_r8`)."""
     height, width = dirs.shape[:2]
     npix = width * height
     d = dirs.reshape(npix, 3)
@@ -142,7 +145,7 @@ def render_bonsai_rays(
             break
         if return_steps:
             steps += active
-        r = sample_trilinear_r8(vol, p)
+        r = sample_trilinear_r8(vol, p, value_range)
         if fast_transfer:
             c_a, cr, cg, cb = bonsai_transfer_fast_soa(r)
             c_rgb = torch.stack([cr, cg, cb], dim=-1)

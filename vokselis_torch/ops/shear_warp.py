@@ -71,6 +71,9 @@ def prepare_fast_volume(vol_u8, device):
     bit for bit."""
     vol = volume_tensor(vol_u8, device)
     d = vol.shape[0]
+    if vol.dtype != torch.uint8:
+        raise TypeError(f"the fast renderer needs a uint8 volume, got {vol.dtype}: march a "
+                        "float32 volume with the exact renderer")
     if len(set(vol.shape)) != 1:
         raise ValueError(f"the fast renderer needs a cubic (D, D, D) volume, got "
                          f"{tuple(vol.shape)}: march other shapes with the exact renderer")

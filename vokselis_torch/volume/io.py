@@ -13,8 +13,8 @@ fastest-varying axis, matching the texture's linear layout; world position
 ``p = (x, y, z)`` samples axis order (W, H, D).
 
 :func:`load_open_scivis` loads a file of the Open SciVis Datasets
-collection, where the bonsai scan comes from, its dims and type read from
-its name. :func:`load_raw` reads through the native C++ loader
+collection, where the bonsai scan comes from, its dims and type (uint8 or
+float32) read from its name. :func:`load_raw` reads through the native C++ loader
 (:mod:`vokselis_torch.native`) when its library builds, and with
 numpy.fromfile otherwise.
 """
@@ -54,22 +54,29 @@ OPEN_SCIVIS_NAME = re.compile(
     r"^(?P<name>.+)_(?P<x>\d+)x(?P<y>\d+)x(?P<z>\d+)_(?P<type>[a-z0-9]+)\.raw$")
 
 
+# the Open SciVis types the bonsai demo takes: uint8, the R8Unorm texture it
+# samples (upstream's volume_texture.rs:34-59), and float32 (little-endian),
+# a simulation field that the exact renderer maps by its data range
+OPEN_SCIVIS_TYPES = {"uint8": np.dtype(np.uint8), "float32": np.dtype("<f4")}
+
+
 def load_open_scivis(path: str) -> np.ndarray:
     """Load an Open SciVis Datasets volume, its dims and type read from its
     file name (``kingsnake_1024x1024x795_uint8.raw`` is x 1024, y 1024, z
-    795): the (z, y, x) = (D, H, W) ndarray of :func:`load_raw`. Only uint8
-    files, the R8Unorm texture the bonsai demo samples (upstream's
-    volume_texture.rs:34-59), are taken; another type, a name without dims
-    or a file of another size raises ValueError."""
+    795): the (z, y, x) = (D, H, W) ndarray of :func:`load_raw`. uint8 and
+    little-endian float32 files (``miranda_1024x1024x1024_float32.raw``)
+    are taken (:data:`OPEN_SCIVIS_TYPES`); another type, a name without
+    dims or a file of another size raises ValueError."""
     m = OPEN_SCIVIS_NAME.match(os.path.basename(path))
     if m is None:
         raise ValueError(f"{path}: not an Open SciVis name <name>_<x>x<y>x<z>_<type>.raw")
-    if m["type"] != "uint8":
-        raise ValueError(f"{path}: {m['type']} volume; the bonsai demo takes uint8 only")
+    if m["type"] not in OPEN_SCIVIS_TYPES:
+        raise ValueError(f"{path}: {m['type']} volume; the bonsai demo takes "
+                         f"{' or '.join(OPEN_SCIVIS_TYPES)} only")
     dims = (int(m["z"]), int(m["y"]), int(m["x"]))
     if min(dims) < 1:
         raise ValueError(f"{path}: empty dims {dims}")
-    return load_raw(path, dims, np.uint8)
+    return load_raw(path, dims, OPEN_SCIVIS_TYPES[m["type"]])
 
 
 def synthetic_bonsai(n: int = 256, seed: int = 7) -> np.ndarray:

@@ -36,13 +36,16 @@ def trilinear_weights(p, size):
     return i0.to(torch.int64), frac
 
 
-def sample_trilinear_r8(vol, p):
+def sample_trilinear_r8(vol, p, value_range=None):
     """``textureSampleLevel`` of an R8Unorm 3D texture at normalized ``p``.
 
-    ``vol``: (D, H, W) tensor, uint8 (dequantized by /255) or float already
-    in [0,1]. ``p``: (..., 3) with components (x, y, z), on ``vol``'s device.
-    Returns the scalar red channel (...,); callers needing the full RGBA
-    should treat it as ``(r, 0, 0, 1)``.
+    ``vol``: (D, H, W) tensor, uint8 (dequantized by /255) or float, read
+    as it is (already in [0,1]) or, with ``value_range = (lo, inv)``, each
+    tap mapped as ``(v - lo) * inv``, two float32 operations, before the
+    lerps (a float32 field mapped by its data range). ``p``: (..., 3) with
+    components (x, y, z), on ``vol``'s device. Returns the scalar red
+    channel (...,); callers needing the full RGBA should treat it as
+    ``(r, 0, 0, 1)``.
     """
     d, h, w = vol.shape
     sizes = torch.tensor([w, h, d], dtype=torch.float32, device=vol.device)
@@ -56,6 +59,8 @@ def sample_trilinear_r8(vol, p):
         v = flat[(iz * h + iy) * w + ix]
         if vol.dtype == torch.uint8:
             return v.to(torch.float32) * (1.0 / 255.0)
+        if value_range is not None:
+            return (v.to(torch.float32) - value_range[0]) * value_range[1]
         return v.to(torch.float32)
 
     ix0, iy0, iz0 = i0[..., 0], i0[..., 1], i0[..., 2]
